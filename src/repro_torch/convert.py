@@ -1,0 +1,97 @@
+"""Carry solver state between the JAX reference and the port.
+
+The functions take and give plain numpy leaves, so this module imports
+neither JAX nor ``repro``: the caller turns a reference ``ProblemSpec`` /
+``ADMMState`` into numpy with ``jax.tree.map(np.asarray, ...)`` (which keeps
+the dataclass / NamedTuple and its static fields) and hands it here.
+"""
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from .core.constraints import ConstraintSet
+from .core.engine import ADMMState, ProblemSpec, split_lam
+from .device import resolve_device
+
+__all__ = ["spec_from_numpy", "state_from_numpy", "state_to_numpy",
+           "lam_to_numpy", "constraints_from_numpy"]
+
+
+def _t(a, dtype, dev):
+    return None if a is None else torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+
+
+def spec_from_numpy(ref, device: str = "cuda", dtype: str | None = None,
+                    edge_kernel: bool = True) -> ProblemSpec:
+    """Port :class:`ProblemSpec` from a reference spec with numpy leaves.
+
+    ``dtype`` overrides the reference's spec dtype (default: keep it);
+    ``edge_kernel`` selects the port's L(g)/quadform route (the reference's
+    own flag is not carried over: the port routes through its kernels by
+    default)."""
+    dev = resolve_device(device)
+    dtype = dtype or ref.dtype
+    dt = getattr(torch, dtype)
+    jd = None
+    if ref.jd is not None:
+        jd = torch.cat([_t(b, dt, dev).reshape(-1) for b in ref.jd])
+    return ProblemSpec(
+        n=int(ref.n), m=int(ref.m), q=int(ref.q), hetero=bool(ref.hetero),
+        equality=bool(ref.equality), cg_tol=float(ref.cg_tol),
+        cg_maxiter=int(ref.cg_maxiter),
+        r=_t(ref.r, torch.int64, dev), rho=_t(ref.rho, dt, dev),
+        edge_ok=_t(ref.edge_ok, torch.bool, dev), c=_t(ref.c, dt, dev),
+        ei=_t(ref.ei, torch.int64, dev), ej=_t(ref.ej, torch.int64, dev),
+        B0=_t(ref.B0, dt, dev), I=_t(ref.I, dt, dev),
+        M=_t(ref.M, dt, dev), e_cap=_t(ref.e_cap, dt, dev),
+        jd=jd, lidx=_t(ref.lidx, torch.int64, dev) if ref.lidx is not None else None,
+        dtype=dtype, psd_backend=ref.psd_backend, psd_iters=int(ref.psd_iters),
+        cg_inexact=bool(ref.cg_inexact), edge_kernel=edge_kernel)
+
+
+def state_from_numpy(ref, spec: ProblemSpec) -> ADMMState:
+    """Port :class:`ADMMState` from a reference state with numpy leaves, on
+    ``spec``'s device and in its dtype (``res`` float64, ``cg`` int32)."""
+    dt, dev = getattr(torch, spec.dtype), spec.I.device
+
+    def blocks(tup):
+        return tuple(_t(a, dt, dev) for a in tup)
+
+    return ADMMState(X=blocks(ref.X), Y=blocks(ref.Y), D=blocks(ref.D),
+                     lam=blocks(ref.lam), res=_t(ref.res, torch.float64, dev),
+                     cg=_t(ref.cg, torch.int32, dev))
+
+
+def state_to_numpy(state: ADMMState) -> SimpleNamespace:
+    """The port's state as numpy leaves, laid out as the reference's
+    ``ADMMState`` (fields X, Y, D, lam, res, cg)."""
+    def blocks(tup):
+        return tuple(b.detach().cpu().numpy() for b in tup)
+
+    return SimpleNamespace(X=blocks(state.X), Y=blocks(state.Y), D=blocks(state.D),
+                           lam=blocks(state.lam), res=state.res.cpu().numpy(),
+                           cg=state.cg.cpu().numpy())
+
+
+def lam_to_numpy(spec: ProblemSpec, lam: torch.Tensor) -> tuple:
+    """A flat constraint-space vector of the port as the reference's block
+    tuple (P, Q, w (, u, v))."""
+    return tuple(b.detach().cpu().numpy() for b in split_lam(spec, lam))
+
+
+def constraints_from_numpy(n: int, M, e_cap, edge_ok, equality: bool,
+                           name: str = "converted",
+                           resource_bw=None) -> ConstraintSet:
+    """A port :class:`ConstraintSet` from the reference's ``M``, ``e_cap``,
+    ``edge_ok`` and ``equality`` fields (``edge_bandwidth`` is not carried:
+    it is a closure of the reference's builder)."""
+    M = np.asarray(M, dtype=np.int64)
+    return ConstraintSet(
+        n=int(n), M=M, e_cap=np.asarray(e_cap, dtype=np.int64),
+        equality=bool(equality), name=name,
+        edge_ok=np.asarray(edge_ok, dtype=bool),
+        resource_bw=(np.zeros(M.shape[0]) if resource_bw is None
+                     else np.asarray(resource_bw, dtype=np.float64)))

@@ -1,0 +1,88 @@
+"""Algorithm 2 — ADMM solvers for the network-topology problems, in PyTorch.
+
+Thin wrappers over ``engine``: each class builds a
+:class:`~repro_torch.core.engine.ProblemSpec` once and runs single solves
+through ``engine.solve_spec``. Batched restarts (``solve_batched``) are not
+ported yet (ROADMAP.md Queue 1 item 1).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .engine import (
+    _NOT_PORTED,
+    ADMMConfig,
+    ADMMResult,
+    ADMMState,
+    ProblemSpec,
+    check_solver,
+    init_state,
+    make_hetero_spec,
+    make_homo_spec,
+    resolve_partition,
+    solve_spec,
+)
+
+__all__ = ["ADMMConfig", "ADMMResult", "HomogeneousADMM", "HeterogeneousADMM"]
+
+
+class _ADMMBase:
+    spec: ProblemSpec
+    cfg: ADMMConfig
+
+    @property
+    def m(self) -> int:
+        return self.spec.m
+
+    @property
+    def r(self) -> int:
+        return int(self.spec.r)
+
+    def _solve_state(self, state: ADMMState) -> ADMMResult:
+        check_solver(self.cfg)
+        resolve_partition(self.cfg.partition, self.spec.n)
+        return solve_spec(self.spec, state, self.cfg)
+
+    def solve_batched(self, *args, **kwargs):
+        raise NotImplementedError("solve_batched: " + _NOT_PORTED.format(1))
+
+
+def _as_f64(a):
+    return None if a is None else torch.as_tensor(np.asarray(a, dtype=np.float64))
+
+
+class HomogeneousADMM(_ADMMBase):
+    """Eq. (20) solver. ``r`` is the cardinality budget on the edge set."""
+
+    def __init__(self, n: int, r: int, cfg: ADMMConfig | None = None,
+                 edge_ok: np.ndarray | None = None):
+        self.n, self.cfg = n, cfg or ADMMConfig()
+        self.spec = make_homo_spec(n, r, self.cfg, edge_ok)
+
+    def init_state(self, g0=None, lam0: float = 0.5) -> ADMMState:
+        g = torch.zeros(self.spec.m, dtype=torch.float64) if g0 is None else _as_f64(g0)
+        return init_state(self.spec, g, lam0)
+
+    def solve(self, g0=None, lam0: float = 0.5) -> ADMMResult:
+        return self._solve_state(self.init_state(g0, lam0))
+
+
+class HeterogeneousADMM(_ADMMBase):
+    """Eq. (28) solver with binary edge selection z and capacity rows M z = e
+    (equality) or M z + s = e, s ≥ 0 (inequality capacities)."""
+
+    def __init__(self, n: int, r: int, M: np.ndarray, e_cap: np.ndarray,
+                 cfg: ADMMConfig | None = None, equality: bool = True,
+                 edge_ok: np.ndarray | None = None):
+        self.n, self.cfg = n, cfg or ADMMConfig()
+        self.spec = make_hetero_spec(n, r, np.asarray(M), np.asarray(e_cap),
+                                     self.cfg, equality=equality, edge_ok=edge_ok)
+        self.equality = equality
+
+    def init_state(self, g0=None, z0=None, lam0: float = 0.5) -> ADMMState:
+        g = torch.zeros(self.spec.m, dtype=torch.float64) if g0 is None else _as_f64(g0)
+        return init_state(self.spec, g, lam0, z=_as_f64(z0))
+
+    def solve(self, g0=None, z0=None, lam0: float = 0.5) -> ADMMResult:
+        return self._solve_state(self.init_state(g0, z0, lam0))

@@ -1,0 +1,338 @@
+"""High-level BA-Topo pipeline helpers, in the port.
+
+The stages ``anytime.AnytimeSolver`` runs, ported from ``repro.core.api``:
+scenario → ConstraintSet, greedy start graphs, simulated annealing on the
+device (``warmstart``), the ADMM solve, support extraction + greedy
+feasibility repair, and the classic candidates. ``BATopoConfig`` carries
+``device`` (default ``"cuda"``), handed down to the ADMM solver, the SA and
+the polish.
+
+Deviation from the reference: ``BATopoConfig.sa_kernel`` defaults to True,
+so every BFS hop of the SA runs the ``hop_bfs`` CUDA kernel on the card;
+False selects the plain PyTorch hop explicitly.
+
+The barrier pipeline (``optimize_topology``, ``_optimize_request``,
+``_finalize_batch``, ``_pick_best``), ``sweep_topologies`` and
+``large_n_admm_config`` are not ported yet (ROADMAP.md Queue 1 items 1
+and 4).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field, replace
+
+import numpy as np
+
+from ..device import resolve_device
+from .admm import ADMMConfig, HeterogeneousADMM, HomogeneousADMM
+from .anneal import anneal_topology, greedy_degree_graph
+from .constraints import ConstraintSet
+from .graph import all_edges, edge_index, is_connected, r_asym, weight_matrix_from_weights
+from .weights import metropolis_weights
+
+__all__ = ["BATopoConfig", "extract_support", "repair_selection"]
+
+
+def _pipeline_admm_default() -> ADMMConfig:
+    """Pipeline-default ADMM stack (the reference's ``api.py:49-65``): fp32
+    loop with fp64 residuals, inexact CG tied to the primal residual, a
+    600-iteration budget, and the "auto" PSD backend and partition — on one
+    GPU at n < 256 they resolve to eigh and the unpartitioned solve, the
+    same stack as the reference on one device."""
+    return ADMMConfig(max_iters=600, cg_inexact=True, dtype="float32",
+                      psd_backend="auto", partition="auto")
+
+
+@dataclass
+class BATopoConfig:
+    admm: ADMMConfig = field(default_factory=_pipeline_admm_default)
+    sa_iters: int = 1500
+    polish_iters: int = 500
+    support_tol: float = 1e-6
+    seed: int = 0
+    restarts: int = 1
+    warmstart: str = "device"     # device (batched SA) | host (numpy oracle)
+    polish: str = "device"        # device (batched loop) | host (numpy)
+    polish_dtype: str = "float32"  # device polish loop dtype (f64 bookkeeping)
+    # Deviation from the reference (False there): every SA BFS hop runs the
+    # hop_bfs kernel on the card; False selects the plain hop explicitly.
+    sa_kernel: bool = True
+    device: str = "cuda"          # handed to the ADMM solver, SA and polish
+
+
+def _validate_pipeline_cfg(cfg: BATopoConfig) -> None:
+    """Reject typo'd backend selectors (a silently-ignored
+    ``warmstart="Device"`` would benchmark the wrong pipeline)."""
+    if cfg.warmstart not in ("device", "host"):
+        raise ValueError(f"unknown warmstart {cfg.warmstart!r}; "
+                         "expected 'device' or 'host'")
+    if cfg.polish not in ("device", "host"):
+        raise ValueError(f"unknown polish {cfg.polish!r}; "
+                         "expected 'device' or 'host'")
+    if cfg.polish_dtype not in ("float32", "float64"):
+        raise ValueError(f"unknown polish_dtype {cfg.polish_dtype!r}; "
+                         "expected 'float32' or 'float64'")
+    resolve_device(cfg.device)
+
+
+def extract_support(
+    n: int, g: np.ndarray, r: int, tol: float, z: np.ndarray | None = None,
+    edge_ok: np.ndarray | None = None,
+) -> np.ndarray:
+    """Boolean selection over the full candidate edge list: top-r weights
+    (optionally gated by the binary z of the heterogeneous solver)."""
+    m = len(g)
+    score = np.asarray(g, dtype=np.float64).copy()
+    if z is not None:
+        score = score + 1e-3 * np.asarray(z)  # prefer z-selected edges on ties
+    if edge_ok is not None:
+        score[~edge_ok] = -np.inf
+    score[score <= tol] = -np.inf
+    k = min(r, int(np.isfinite(score).sum()))
+    sel = np.zeros(m, dtype=bool)
+    if k > 0:
+        idx = np.argpartition(-score, k - 1)[:k]
+        sel[idx] = True
+    return sel
+
+
+def repair_selection(n: int, sel: np.ndarray, g: np.ndarray, cs: ConstraintSet | None) -> np.ndarray:
+    """Greedy feasibility + connectivity repair of a rounded edge selection.
+
+    1. While a capacity row is violated (M z > e), drop the lowest-weight
+       selected edge contributing to the most-violated row.
+    2. While the graph is disconnected, add the highest-weight admissible
+       edge joining two components that does not violate capacities.
+
+    Capacity usage ``M @ sel`` is computed once per phase and updated
+    incrementally as edges are dropped/added (it used to be recomputed per
+    candidate edge, a quadratic hot spot on dense candidate sets).
+    """
+    edges_full = all_edges(n)
+    sel = sel.copy()
+    g = np.asarray(g, dtype=np.float64)
+    usage = cs.M @ sel.astype(np.int64) if cs is not None else None
+
+    if cs is not None:
+        while True:
+            over = usage - cs.e_cap
+            if np.all(over <= 0):
+                break
+            row = int(np.argmax(over))
+            members = [l for l in np.nonzero(sel)[0] if cs.M[row, l]]
+            drop = min(members, key=lambda l: g[l])
+            sel[drop] = False
+            usage = usage - cs.M[:, drop]
+
+    def comps(sel_mask):
+        parent = list(range(n))
+
+        def find(a):
+            while parent[a] != a:
+                parent[a] = parent[parent[a]]
+                a = parent[a]
+            return a
+
+        for l in np.nonzero(sel_mask)[0]:
+            i, j = edges_full[l]
+            ri, rj = find(i), find(j)
+            if ri != rj:
+                parent[ri] = rj
+        return [find(i) for i in range(n)]
+
+    for _ in range(n):
+        c = comps(sel)
+        if len(set(c)) == 1:
+            break
+        cands = []
+        for l, (i, j) in enumerate(edges_full):
+            if sel[l] or c[i] == c[j]:
+                continue
+            if cs is not None:
+                if not cs.edge_ok[l]:
+                    continue
+                if np.any(usage + cs.M[:, l] > cs.e_cap):
+                    continue
+            cands.append(l)
+        if not cands:
+            break  # cannot connect under capacities — caller handles r_asym=1
+        best = max(cands, key=lambda l: g[l])
+        sel[best] = True
+        if cs is not None:
+            usage = usage + cs.M[:, best]
+    return sel
+
+
+def _homo_degree_targets(n: int, r: int) -> np.ndarray:
+    """Balanced degree sequence with Σd = 2r (homogeneous Algorithm-1 limit)."""
+    base = (2 * r) // n
+    extra = (2 * r) % n
+    d = np.full(n, base, dtype=np.int64)
+    d[:extra] += 1
+    return np.minimum(d, n - 1)
+
+
+def _candidate_items(n: int, r: int, warms, results, cs: ConstraintSet | None,
+                     cfg: BATopoConfig, meta: dict, use_z: bool,
+                     ) -> tuple[list[tuple[np.ndarray, str, dict]], list[str]]:
+    """Phase 3 of the solve: round every ADMM result (top-r support + greedy
+    feasibility repair), and enter the annealed warm starts and the feasible
+    classic baselines as competing candidates. Returns the ``(sel, name,
+    meta)`` items plus a parallel provenance list."""
+    items: list[tuple[np.ndarray, str, dict]] = []
+    sources: list[str] = []
+    edge_ok = (np.asarray(cs.edge_ok)
+               if (use_z and cs is not None) else None)
+    for (g0, z0, lam0), res in zip(warms, results):
+        score = res.g + res.g_raw
+        if use_z:
+            sel = extract_support(n, score, r, cfg.support_tol, z=res.z,
+                                  edge_ok=edge_ok)
+        else:
+            sel = extract_support(n, score, r, cfg.support_tol)
+        sel = repair_selection(n, sel, score, cs)
+        items.append((sel, f"ba-topo(n={n},r={r})", {**meta,
+                      "admm_iters": res.iters, "admm_residual": res.residual,
+                      "lam_tilde": res.lam_tilde}))
+        sources.append("admm")
+        items.append((z0.astype(bool), f"ba-topo(n={n},r={r},warm)",
+                      dict(meta)))
+        sources.append("warm-start")
+    for base_name, sel in _classic_candidates(n, r, cs):
+        items.append((sel, f"ba-topo(n={n},r={r},{base_name})", dict(meta)))
+        sources.append(f"classic:{base_name}")
+    return items, sources
+
+
+def _init_graph(n: int, r: int, scenario: str, cs: ConstraintSet | None,
+                deg_targets, cfg: BATopoConfig, restart: int):
+    """Greedy feasible start graph for one restart. Returns (edges0, seed)."""
+    seed = cfg.seed + 1000 * restart
+    rng = np.random.default_rng(seed)
+    if deg_targets is not None:
+        warm_cs = cs if scenario == "node" else None
+        return greedy_degree_graph(n, deg_targets, rng, warm_cs), seed
+    return _greedy_constraint_graph(n, r, cs, rng), seed
+
+
+def _pack_warm(n: int, edges0: list[tuple[int, int]]):
+    """Annealed edge list → (g0, z0, lam0) ADMM warm start."""
+    eidx = edge_index(n)
+    m = len(all_edges(n))
+    z0 = np.zeros(m)
+    for e in edges0:
+        z0[eidx[e]] = 1.0
+    g0 = np.zeros(m)
+    gm = metropolis_weights(n, edges0)
+    for k, e in enumerate(edges0):
+        g0[eidx[e]] = gm[k]
+    W0 = weight_matrix_from_weights(n, edges0, gm)
+    lam0 = max(1.0 - r_asym(W0, symmetric=True), 0.05)
+    return g0, z0, lam0
+
+
+def _anneal_edges(n: int, inits: list[list[tuple[int, int]]], seeds: list[int],
+                  sa_cs: ConstraintSet | None, cfg: BATopoConfig) -> list:
+    """Anneal a batch of start graphs. ``cfg.warmstart="device"`` runs one
+    batched SA on ``cfg.device`` per distinct edge count (a 2-swap
+    preserves the count, so restarts with equal-size init graphs share a
+    batch); ``"host"`` keeps the per-graph numpy SA as the parity oracle."""
+    if cfg.warmstart == "device":
+        from .warmstart import anneal_topology_batched
+
+        groups: dict[int, list[int]] = {}
+        for k, e in enumerate(inits):
+            groups.setdefault(len(e), []).append(k)
+        annealed: list = [None] * len(inits)
+        for idxs in groups.values():
+            outs = anneal_topology_batched(
+                n, [inits[i] for i in idxs], sa_cs, iters=cfg.sa_iters,
+                seeds=[seeds[i] for i in idxs], use_kernel=cfg.sa_kernel,
+                device=cfg.device)
+            for i, out in zip(idxs, outs):
+                annealed[i] = out
+        return annealed
+    return [anneal_topology(n, e0, sa_cs, iters=cfg.sa_iters, seed=sd)
+            for e0, sd in zip(inits, seeds)]
+
+
+def _make_solver(n: int, r: int, scenario: str, cs: ConstraintSet | None,
+                 cfg: BATopoConfig):
+    admm = replace(cfg.admm, device=cfg.device)
+    if scenario == "homo":
+        return HomogeneousADMM(n, r, admm)
+    return HeterogeneousADMM(
+        n, r, np.asarray(cs.M, dtype=np.float64), np.asarray(cs.e_cap, dtype=np.float64),
+        admm, equality=cs.equality, edge_ok=np.asarray(cs.edge_ok),
+    )
+
+
+def _classic_candidates(n: int, r: int,
+                        cs: ConstraintSet | None) -> list[tuple[str, np.ndarray]]:
+    """Classic-topology candidates: the ADMM is non-convex, and on small
+    tightly-budgeted instances a known-good structure (ring / torus) that
+    happens to be feasible can beat a weak local optimum. Their weights get
+    the same convex polish as the ADMM output so the comparison is fair.
+
+    Returns (name, selection) pairs for the feasible classics. Only
+    ``ValueError`` — the documented "n not expressible for this family"
+    signal (e.g. hypercube needs a power of two) — skips a baseline; any
+    other exception is a real construction bug and propagates.
+    """
+    from .topologies import make_baseline
+    eidx = edge_index(n)
+    out: list[tuple[str, np.ndarray]] = []
+    for kind in ("ring", "torus", "hypercube"):
+        try:
+            base = make_baseline(kind, n)
+        except ValueError:
+            continue
+        if len(base.edges) > r or base.meta.get("directed"):
+            continue
+        sel = np.zeros(len(all_edges(n)), dtype=bool)
+        for e in base.edges:
+            sel[eidx[tuple(sorted(e))]] = True
+        if cs is not None and not cs.feasible(sel):
+            continue
+        out.append((base.name, sel))
+    return out
+
+
+def _greedy_constraint_graph(n: int, r: int, cs: ConstraintSet, rng) -> list[tuple[int, int]]:
+    """Random feasible connected graph with ≤ r edges under ``cs`` capacities."""
+    edges_full = all_edges(n)
+    m = len(edges_full)
+    order = [l for l in range(m) if cs.edge_ok[l]]
+    for _ in range(256):
+        rng.shuffle(order)
+        usage = np.zeros(cs.q, dtype=np.int64)
+        sel = np.zeros(m, dtype=bool)
+        count = 0
+        # first pass: spanning-tree bias for connectivity
+        comp = list(range(n))
+
+        def find(a):
+            while comp[a] != a:
+                comp[a] = comp[comp[a]]
+                a = comp[a]
+            return a
+
+        for phase in (0, 1):
+            for l in order:
+                if count >= r:
+                    break
+                if sel[l]:
+                    continue
+                i, j = edges_full[l]
+                if phase == 0 and find(i) == find(j):
+                    continue
+                col = cs.M[:, l]
+                if np.any(usage + col > cs.e_cap):
+                    continue
+                sel[l] = True
+                usage += col
+                count += 1
+                comp[find(i)] = find(j)
+        edges = [edges_full[l] for l in np.nonzero(sel)[0]]
+        if is_connected(n, edges):
+            return edges
+    raise RuntimeError("could not build a feasible connected warm start")

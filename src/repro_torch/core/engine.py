@@ -1,0 +1,572 @@
+"""ADMM solver engine (Algorithm 2, §V) in PyTorch.
+
+The port of ``repro.core.engine``: one ``step(spec, state)`` serves the
+homogeneous problem (Eq. 20) and the heterogeneous Mixed-Integer SDP
+(Eq. 28). The problem data is a :class:`ProblemSpec` dataclass of tensors
+and the iterate an :class:`ADMMState` dataclass of tensors; ``solve_spec``
+drives chunks of ``check_every`` steps with one host sync per chunk, like
+the reference's scan driver.
+
+Variable layout (homogeneous, Eq. 20):
+  X = (x, S, y, T)     with x = [g; λ̃] ∈ R^{m+1}
+  Y = (x₁, S₁, y₁, T₁)
+  duals D = (μ, Λ, σ, Γ)
+Constraints C_X (Eq. 23):
+  L(g) − λ̃I + S = −B₀,   L(g) + λ̃I + T = 2I,   diag(L(g)) + y = 1
+Heterogeneous appends (z, ν, s) with M z (+ s) = e and g − z + ν = 0.
+
+Constraint-space vectors (the CG unknown λ, the right-hand side b, A X)
+are one flat tensor ``[vec P; vec Q; w (; u; v)]`` — see ``linalg``.
+
+Deviation from the reference: ``ADMMConfig.edge_kernel`` defaults to True,
+so on the card L(g) and the per-edge quadratic form run through the CUDA
+pair of ``kernels/edge_laplacian``; on the CPU the wrapper runs its plain
+version, the reference's ``lidx`` gather. ``False`` is kept as the caller's
+explicit choice of the plain form.
+
+Precision: the loop runs in the spec dtype; the squared primal residual
+and the CG inner products are float64 whatever it is (the reference's
+convention). ``r`` is an int64 0-dim tensor.
+
+Not ported yet: the batched/sweep drivers (ROADMAP.md Queue 1 item 1), the
+``python`` driver and the scipy-ILU step (item 2).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass, field
+from functools import partial
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..kernels.edge_laplacian import ops as _el_ops
+from .linalg import pcg_solve
+
+__all__ = [
+    "ADMMConfig", "ADMMResult", "ADMMState", "ProblemSpec",
+    "make_homo_spec", "make_hetero_spec", "init_state", "step",
+    "solve_spec", "proj_psd", "proj_psd_ns", "proj_card_nonneg",
+    "proj_binary_topr", "jacobi_diag", "resolve_psd_backend",
+    "A_op", "AT_op", "b_rhs", "lam_sizes", "split_lam",
+]
+
+# Inexact-ADMM CG tolerance schedule (DESIGN.md §9): relative tolerance
+# η·√(previous squared primal residual), clipped to [cg_tol, cap].
+INEXACT_ETA = 1e-2
+INEXACT_CAP = 1e-3
+# Relative CG tolerances below ~machine-ε are unreachable in fp32.
+FP32_TOL_FLOOR = 1e-6
+
+# eigh ↔ Newton–Schulz crossover for ``psd_backend="auto"``. The cpu entry
+# is the reference's measurement (XLA:CPU, DESIGN.md §13). The cuda entry
+# is NOT measured on the H100: it copies the reference's unmeasured
+# "default" of 256 until a later slice measures it (PERF.md, Open questions).
+NS_MIN_N = {"cpu": None, "cuda": 256, "default": 256}
+
+_NOT_PORTED = "not ported to repro_torch yet (ROADMAP.md Queue 1 item {})"
+
+
+def resolve_psd_backend(psd_backend: str, n: int, platform: str = "cuda") -> str:
+    """Resolve ``psd_backend="auto"`` to a concrete backend for size n on
+    ``platform`` (a torch device type)."""
+    if psd_backend != "auto":
+        return psd_backend
+    thr = NS_MIN_N.get(platform, NS_MIN_N["default"])
+    return "newton_schulz" if (thr is not None and n >= thr) else "eigh"
+
+
+@dataclass
+class ADMMConfig:
+    rho: float = 5.0
+    alpha: float = 2.0
+    max_iters: int = 1500
+    eps: float = 1e-7
+    solver: str = "schur_cg"   # the only ported backend (item 2 holds the rest)
+    driver: str = "scan"       # chunked driver; "python" waits for item 2
+    cg_tol: float = 1e-11
+    cg_maxiter: int = 3000
+    check_every: int = 10
+    verbose: bool = False
+    precond: str = "none"      # jacobi | none
+    cg_inexact: bool = False
+    psd_backend: str = "eigh"  # eigh | newton_schulz | auto
+    psd_iters: int = 30
+    dtype: str = "float64"     # float64 | float32 (fp32 loop, fp64 residuals)
+    # Deviation from the reference (which defaults to False): the CUDA pair
+    # is the default; False selects the plain PyTorch form explicitly.
+    edge_kernel: bool = True
+    partition: str = "none"    # none | auto (→ none); edges/instances: item 7
+    abort_nonfinite: bool = True
+    device: str = "cuda"
+
+
+@dataclass
+class ADMMResult:
+    g: np.ndarray
+    g_raw: np.ndarray
+    lam_tilde: float
+    z: np.ndarray | None
+    iters: int
+    residual: float
+    history: list = field(default_factory=list)
+    cg_iters: int = 0
+
+
+@dataclass(frozen=True)
+class ProblemSpec:
+    """One topology MI-SDP instance as tensors on one device."""
+
+    n: int
+    m: int
+    q: int
+    hetero: bool
+    equality: bool
+    cg_tol: float
+    cg_maxiter: int
+    r: torch.Tensor            # int64 0-dim — cardinality budget
+    rho: torch.Tensor          # 0-dim, spec dtype
+    edge_ok: torch.Tensor      # (m,) bool
+    c: torch.Tensor            # (m+1,) objective: minimize −λ̃
+    ei: torch.Tensor           # (m,) int64 endpoints, i < j
+    ej: torch.Tensor
+    B0: torch.Tensor           # (n, n) Lemma-1 shift α·11ᵀ/n
+    I: torch.Tensor            # (n, n)
+    M: torch.Tensor | None     # (q, m) capacity rows (hetero only)
+    e_cap: torch.Tensor | None  # (q,)
+    jd: torch.Tensor | None = None    # flat diag(A Aᵀ) (Jacobi precond)
+    lidx: torch.Tensor | None = None  # (n, n) int64 packed edge index
+    dtype: str = "float64"
+    psd_backend: str = "eigh"
+    psd_iters: int = 30
+    cg_inexact: bool = False
+    edge_kernel: bool = True
+
+    def replace(self, **kw) -> "ProblemSpec":
+        return dataclasses.replace(self, **kw)
+
+
+
+@dataclass
+class ADMMState:
+    """One ADMM iterate. Block tuples hold 4 tensors (homo: x, S, y, T) or
+    7 (hetero: + z, ν, s); ``lam`` holds the constraint-space blocks
+    (P, Q, w (, u, v)) of the X-step warm start."""
+
+    X: tuple
+    Y: tuple
+    D: tuple
+    lam: tuple
+    res: torch.Tensor   # previous squared primal residual, float64 0-dim
+    cg: torch.Tensor    # cumulative X-step CG iterations, int32 0-dim
+
+
+def _edge_arrays(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Endpoints of ``all_edges(n)`` (lexicographic i < j) as int64."""
+    iu = np.triu_indices(n, 1)
+    return (torch.from_numpy(iu[0].astype(np.int64)).to(device),
+            torch.from_numpy(iu[1].astype(np.int64)).to(device))
+
+
+def jacobi_diag(n: int, ei, ej, dtype, M=None, equality: bool = True) -> tuple:
+    """Analytic diag(A Aᵀ) of the constraint operator as blocks
+    (dP, dP, dw (, du, dv)) — see the reference's ``engine.jacobi_diag``."""
+    dev = ei.device
+    one = torch.ones(ei.shape[0], dtype=dtype, device=dev)
+    deg = torch.zeros(n, dtype=dtype, device=dev).index_add_(0, ei, one).index_add_(0, ej, one)
+    C = torch.zeros((n, n), dtype=dtype, device=dev)
+    C.index_put_((ei, ej), one, accumulate=True)
+    C.index_put_((ej, ei), one, accumulate=True)
+    dP = C + 1.0
+    dP.diagonal().add_(deg + 1.0)
+    dw = deg + 1.0
+    if M is None:
+        return (dP, dP, dw)
+    Mj = torch.as_tensor(M, dtype=dtype, device=dev)
+    du = torch.sum(Mj * Mj, dim=1) + (0.0 if equality else 1.0)
+    du = torch.clamp_min(du, 1e-12)  # guard all-zero rows
+    dv = torch.full((ei.shape[0],), 3.0, dtype=dtype, device=dev)
+    return (dP, dP, dw, du, dv)
+
+
+def _validate_cfg(cfg: ADMMConfig) -> None:
+    if cfg.precond not in ("jacobi", "none"):
+        raise ValueError(f"unknown precond {cfg.precond!r}; expected 'jacobi' or 'none'")
+    if cfg.psd_backend not in ("eigh", "newton_schulz", "auto"):
+        raise ValueError(f"unknown psd_backend {cfg.psd_backend!r}; "
+                         "expected 'eigh', 'newton_schulz' or 'auto'")
+    if cfg.dtype not in ("float64", "float32"):
+        raise ValueError(f"unknown dtype {cfg.dtype!r}; expected 'float64' or 'float32'")
+    if cfg.partition not in ("none", "edges", "instances", "auto"):
+        raise ValueError(f"unknown partition {cfg.partition!r}; expected "
+                         "'none', 'edges', 'instances' or 'auto'")
+
+
+def resolve_partition(partition: str, n: int) -> str:
+    """The port drives one device: ``"auto"`` resolves to ``"none"`` at any
+    ``n``. The edge- and instance-partitioned layouts wait for ROADMAP.md
+    Queue 1 item 7 (the reference's rule is ``repro/core/shard.py:78-99``)."""
+    if partition not in ("none", "edges", "instances", "auto"):
+        raise ValueError(f"unknown partition {partition!r}; expected "
+                         "'none', 'edges', 'instances' or 'auto'")
+    if partition in ("edges", "instances"):
+        raise NotImplementedError(
+            f"partition={partition!r}: " + _NOT_PORTED.format(7))
+    return "none"
+
+
+def _make_spec(n: int, r: int, cfg: ADMMConfig, edge_ok, M=None, e_cap=None,
+               equality: bool = True) -> ProblemSpec:
+    _validate_cfg(cfg)
+    dev = resolve_device(cfg.device)
+    dt = getattr(torch, cfg.dtype)
+    ei, ej = _edge_arrays(n, dev)
+    m = int(ei.shape[0])
+    ok = (torch.ones(m, dtype=torch.bool, device=dev) if edge_ok is None
+          else torch.as_tensor(np.asarray(edge_ok, dtype=bool), device=dev))
+    n_ok = m if edge_ok is None else int(np.asarray(edge_ok, dtype=bool).sum())
+    r_eff = min(int(r), n_ok)
+    c = torch.zeros(m + 1, dtype=dt, device=dev)
+    c[m] = -1.0
+    hetero = M is not None
+    Mt = torch.as_tensor(np.asarray(M), dtype=dt, device=dev) if hetero else None
+    jd = None
+    if cfg.precond == "jacobi":
+        jd = torch.cat([b.reshape(-1) for b in jacobi_diag(
+            n, ei, ej, dt, M=Mt, equality=equality)])
+    return ProblemSpec(
+        n=n, m=m, q=int(M.shape[0]) if hetero else 0, hetero=hetero,
+        equality=equality if hetero else True,
+        cg_tol=cfg.cg_tol, cg_maxiter=cfg.cg_maxiter,
+        r=torch.tensor(r_eff, dtype=torch.int64, device=dev),
+        rho=torch.tensor(cfg.rho, dtype=dt, device=dev),
+        edge_ok=ok, c=c, ei=ei, ej=ej,
+        B0=cfg.alpha * torch.ones((n, n), dtype=dt, device=dev) / n,
+        I=torch.eye(n, dtype=dt, device=dev),
+        M=Mt,
+        e_cap=(torch.as_tensor(np.asarray(e_cap), dtype=dt, device=dev)
+               if hetero else None),
+        jd=jd, lidx=_el_ops.packed_edge_index(n, str(dev)),
+        dtype=cfg.dtype,
+        psd_backend=resolve_psd_backend(cfg.psd_backend, n, platform=dev.type),
+        psd_iters=cfg.psd_iters, cg_inexact=cfg.cg_inexact,
+        edge_kernel=cfg.edge_kernel)
+
+
+def make_homo_spec(n: int, r: int, cfg: ADMMConfig,
+                   edge_ok: np.ndarray | None = None) -> ProblemSpec:
+    return _make_spec(n, r, cfg, edge_ok)
+
+
+def make_hetero_spec(n: int, r: int, M: np.ndarray, e_cap: np.ndarray,
+                     cfg: ADMMConfig, equality: bool = True,
+                     edge_ok: np.ndarray | None = None) -> ProblemSpec:
+    m = n * (n - 1) // 2
+    if M.shape[1] != m:
+        raise ValueError(f"M must cover all {m} candidate edges, got {M.shape}")
+    return _make_spec(n, r, cfg, edge_ok, M=M, e_cap=e_cap, equality=equality)
+
+
+# =========================================================================
+# Projections (Eq. 24/25/30) — r is an int64 0-dim tensor
+# =========================================================================
+
+def _eigh_clip(Msym: torch.Tensor, nonneg) -> torch.Tensor:
+    """(U·clip(ev))·Uᵀ of symmetric matrices with leading batch axes. The
+    eigenvalues are clipped to ≥ 0 when ``nonneg`` is True, to ≤ 0 when it
+    is False; a tuple of flags gives one per matrix of the leading axis.
+
+    ``torch.linalg.eigh`` raises on a non-finite input where the reference's
+    ``jnp.linalg.eigh`` returns NaN, and a NaN has to reach the residual so
+    that ``abort_nonfinite`` sees it. A non-finite matrix is therefore
+    decomposed as zeros and its projection returned as NaN — without a host
+    sync."""
+    bad = ~torch.isfinite(Msym).all(dim=-1).all(dim=-1)
+    ev, U = torch.linalg.eigh(torch.where(bad[..., None, None], 0.0, Msym))
+
+    def clip(e, up):
+        return torch.clamp_min(e, 0.0) if up else torch.clamp_max(e, 0.0)
+
+    if isinstance(nonneg, tuple):
+        ev = torch.stack([clip(e, up) for e, up in zip(ev.unbind(0), nonneg)])
+    else:
+        ev = clip(ev, nonneg)
+    out = (U * ev.unsqueeze(-2)) @ U.transpose(-1, -2)
+    return torch.where(bad[..., None, None], math.nan, out)
+
+
+def proj_psd(M: torch.Tensor, sign: float) -> torch.Tensor:
+    """Eq. 25: eigenvalue clipping. sign=+1 → PSD (T₁ ≽ 0), −1 → NSD (S₁ ≼ 0).
+    ``M`` may carry leading batch axes."""
+    return _eigh_clip((M + M.transpose(-1, -2)) / 2.0, sign > 0)
+
+
+def proj_psd_ns(M: torch.Tensor, sign: float, iters: int = 30) -> torch.Tensor:
+    """Matmul-only PSD/NSD projection via the Newton–Schulz polar iteration
+    X ← (3X − X³)/2 from X₀ = M/‖M‖_F; P_±(M) = (M ± |M|)/2."""
+    Msym = (M + M.transpose(-1, -2)) / 2.0
+    nrm = torch.sqrt(torch.sum(Msym * Msym, dim=(-2, -1), keepdim=True)) + 1e-30
+    Y = Msym / nrm
+    X = Y
+    for _ in range(iters):
+        X = 1.5 * X - 0.5 * (X @ X @ X)
+    absM = nrm * (X @ Y)
+    absM = (absM + absM.transpose(-1, -2)) / 2.0
+    return (Msym + absM) / 2.0 if sign > 0 else (Msym - absM) / 2.0
+
+
+def proj_card_nonneg(v: torch.Tensor, r: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """Project onto {g ≥ 0, Card(g) ≤ r} ∩ {g_l = 0 for inadmissible l}:
+    keep the largest r nonnegative entries. The threshold is read at the
+    dynamic index min(r, m−1), so ``r`` stays a tensor (no host sync)."""
+    v = torch.where(ok, torch.clamp_min(v, 0.0), 0.0)
+    m = v.shape[0]
+    desc = -torch.sort(-v).values
+    thresh = torch.where(r >= m, -1.0, desc[torch.clamp_max(r, m - 1)])
+    keep = v > torch.clamp_min(thresh, 0.0)
+    return torch.where(keep, v, 0.0)
+
+
+def proj_binary_topr(v: torch.Tensor, r: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """Heterogeneous z₁ projection: largest r entries → 1, others → 0.
+    Ties break to the lowest index (stable sort); ``+ 0.0`` folds −0.0 into
+    +0.0 so signed-zero ties are index-ordered too."""
+    v = torch.where(ok, v + 0.0, -math.inf)
+    m = v.shape[0]
+    order = torch.argsort(-v, stable=True)
+    rank = torch.empty(m, dtype=torch.int64, device=v.device).scatter_(
+        0, order, torch.arange(m, dtype=torch.int64, device=v.device))
+    return (rank < r).to(v.dtype)
+
+
+# =========================================================================
+# Matrix-free constraint operator A, its adjoint, and the RHS b
+# =========================================================================
+
+def _L_of_g(spec: ProblemSpec, g: torch.Tensor) -> torch.Tensor:
+    """Laplacian of the packed edge-weight vector: the CUDA kernel when
+    ``spec.edge_kernel`` (its wrapper runs the plain form for a CPU
+    tensor), else the plain ``lidx`` gather."""
+    if spec.edge_kernel:
+        return _el_ops.edge_laplacian(g, spec.n)
+    return _el_ops.edge_laplacian_plain(g, spec.lidx)
+
+
+def _edge_quadform(spec: ProblemSpec, P: torch.Tensor) -> torch.Tensor:
+    """⟨∂L/∂g_l, P⟩ = P_ii + P_jj − P_ij − P_ji per edge l = {i, j}."""
+    if spec.edge_kernel:
+        return _el_ops.edge_quadform(P, spec.ei, spec.ej)
+    return _el_ops.edge_quadform_plain(P, spec.ei, spec.ej)
+
+
+def lam_sizes(spec: ProblemSpec) -> tuple[int, ...]:
+    """Lengths of the constraint-space blocks (P, Q, w (, u, v))."""
+    n = spec.n
+    base = (n * n, n * n, n)
+    return base + (spec.q, spec.m) if spec.hetero else base
+
+
+def split_lam(spec: ProblemSpec, flat: torch.Tensor) -> tuple:
+    """Views of a flat constraint-space vector as its blocks."""
+    n = spec.n
+    parts = torch.split(flat, lam_sizes(spec))
+    return (parts[0].view(n, n), parts[1].view(n, n)) + tuple(parts[2:])
+
+
+def A_op(spec: ProblemSpec, X) -> torch.Tensor:
+    """Constraint operator (Eq. 23, plus Eq. 29 rows when heterogeneous),
+    as one flat constraint-space tensor."""
+    x, S, y, T = X[:4]
+    g, lam = x[:-1], x[-1]
+    L = _L_of_g(spec, g)
+    I = spec.I
+    blocks = [(L - lam * I + S).reshape(-1), (L + lam * I + T).reshape(-1),
+              torch.diagonal(L) + y]
+    if spec.hetero:
+        z, nu, s = X[4], X[5], X[6]
+        r4 = spec.M @ z
+        if not spec.equality:
+            r4 = r4 + s
+        blocks += [r4, g - z + nu]
+    return torch.cat(blocks)
+
+
+def AT_op(spec: ProblemSpec, lamv: torch.Tensor) -> tuple:
+    """Adjoint of :func:`A_op`: flat constraint-space tensor → X-space."""
+    blocks = split_lam(spec, lamv)
+    P, Q, w = blocks[:3]
+    xg = _edge_quadform(spec, P + Q) + (w[spec.ei] + w[spec.ej])
+    xl = -torch.trace(P) + torch.trace(Q)
+    if not spec.hetero:
+        return (torch.cat([xg, xl[None]]), P, w, Q)
+    u, v = blocks[3], blocks[4]
+    x_adj = torch.cat([xg + v, xl[None]])
+    z_adj = spec.M.T @ u - v
+    s_adj = torch.zeros_like(u) if spec.equality else u
+    return (x_adj, P, w, Q, z_adj, v, s_adj)
+
+
+def b_rhs(spec: ProblemSpec) -> torch.Tensor:
+    """Right-hand side b of A X = b, flat."""
+    blocks = [(-spec.B0).reshape(-1), (2.0 * spec.I).reshape(-1),
+              torch.ones(spec.n, dtype=spec.B0.dtype, device=spec.B0.device)]
+    if spec.hetero:
+        blocks += [spec.e_cap, torch.zeros(spec.m, dtype=spec.B0.dtype,
+                                           device=spec.B0.device)]
+    return torch.cat(blocks)
+
+
+# =========================================================================
+# The unified ADMM step (Alg. 2 lines 5–8 / 12–15)
+# =========================================================================
+
+def _project_blocks(spec: ProblemSpec, U: tuple) -> tuple:
+    """Y-update (Eq. 24 / Eq. 30): per-block Euclidean projections. The two
+    PSD projections (S₁ ≼ 0, T₁ ≽ 0) share one batched eigh."""
+    m = spec.m
+    x1 = torch.cat([proj_card_nonneg(U[0][:m], spec.r, spec.edge_ok),
+                    torch.clamp_min(U[0][m], 0.0)[None]])
+    if spec.psd_backend == "newton_schulz":
+        S1 = proj_psd_ns(U[1], -1.0, spec.psd_iters)
+        T1 = proj_psd_ns(U[3], +1.0, spec.psd_iters)
+    else:
+        Msym = torch.stack([U[1], U[3]])
+        Msym = (Msym + Msym.transpose(-1, -2)) / 2.0
+        S1, T1 = _eigh_clip(Msym, (False, True)).unbind(0)    # S₁ ≼ 0, T₁ ≽ 0
+    y1 = torch.clamp_min(U[2], 0.0)
+    if not spec.hetero:
+        return (x1, S1, y1, T1)
+    z1 = proj_binary_topr(U[4], spec.r, spec.edge_ok)
+    nu1 = torch.clamp_min(U[5], 0.0)
+    s1 = torch.zeros_like(U[6]) if spec.equality else torch.clamp_min(U[6], 0.0)
+    return (x1, S1, y1, T1, z1, nu1, s1)
+
+
+def _xstep_target(spec: ProblemSpec, Y: tuple, D: tuple) -> tuple:
+    """V = Y − (D + c·e₀)/ρ for the X-update (Eq. 27 / 31)."""
+    V = [y1 - d / spec.rho for y1, d in zip(Y, D)]
+    V[0] = V[0] - spec.c / spec.rho
+    if spec.hetero and spec.equality:
+        V[6] = torch.zeros_like(V[6])
+    return tuple(V)
+
+
+def _cg_tolerance(spec: ProblemSpec, prev_res: torch.Tensor):
+    """Per-iteration relative CG tolerance: ``cg_tol`` floored at what the
+    spec dtype resolves, or in inexact mode η·√(previous residual) clipped
+    to [floored cg_tol, cap] (the first iteration, res = ∞, starts at cap)."""
+    floor = FP32_TOL_FLOOR if spec.dtype == "float32" else 0.0
+    tol0 = max(spec.cg_tol, floor)
+    if not spec.cg_inexact:
+        return tol0
+    cap = max(INEXACT_CAP, tol0)
+    return torch.clamp(INEXACT_ETA * torch.sqrt(prev_res), tol0, cap)
+
+
+def step(spec: ProblemSpec, state: ADMMState):
+    """One ADMM iteration: Y-projection, X-step Schur-complement CG solve,
+    dual update. Returns ``(new_state, squared primal residual)``, the
+    residual a float64 0-dim tensor."""
+    rho = spec.rho
+    U = tuple(x + d / rho for x, d in zip(state.X, state.D))
+    Y = _project_blocks(spec, U)
+    V = _xstep_target(spec, Y, state.D)
+    lam0 = torch.cat([blk.reshape(-1) for blk in state.lam])
+    Xn, lam, cg_it = pcg_solve(partial(A_op, spec), partial(AT_op, spec), V,
+                               b_rhs(spec), lam0, jd=spec.jd,
+                               tol=_cg_tolerance(spec, state.res),
+                               maxiter=spec.cg_maxiter)
+    if spec.hetero and spec.equality:
+        Xn = Xn[:6] + (torch.zeros_like(Xn[6]),)
+    D = tuple(d + rho * (xn - y1) for d, xn, y1 in zip(state.D, Xn, Y))
+    res = None
+    for xn, y1 in zip(Xn, Y):
+        part = torch.sum((xn - y1).to(torch.float64) ** 2)
+        res = part if res is None else res + part
+    return ADMMState(X=Xn, Y=Y, D=D, lam=split_lam(spec, lam), res=res,
+                     cg=state.cg + cg_it), res
+
+
+def init_state(spec: ProblemSpec, g, lam0, z=None) -> ADMMState:
+    """Initial iterate from a warm start (g, λ̃₀ (, z))."""
+    n, m = spec.n, spec.m
+    dt, dev = getattr(torch, spec.dtype), spec.I.device
+    g = torch.as_tensor(g, dtype=dt, device=dev)
+    lam0 = torch.as_tensor(lam0, dtype=dt, device=dev)
+    x = torch.cat([g, lam0[None]])
+    L = _L_of_g(spec, g)
+    S = -(L - lam0 * spec.I + spec.B0)
+    T = 2 * spec.I - (L + lam0 * spec.I)
+    y = 1.0 - torch.diagonal(L)
+    res0 = torch.tensor(math.inf, dtype=torch.float64, device=dev)
+    cg0 = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    if not spec.hetero:
+        X = (x, S, y, T)
+        D = (zeros(m + 1), zeros(n, n), zeros(n), zeros(n, n))
+        lam = (zeros(n, n), zeros(n, n), zeros(n))
+        return ADMMState(X=X, Y=X, D=D, lam=lam, res=res0, cg=cg0)
+    q = spec.q
+    z = (g > 0).to(dt) if z is None else torch.as_tensor(z, dtype=dt, device=dev)
+    nu = z - g
+    s = zeros(q) if spec.equality else torch.clamp_min(spec.e_cap - spec.M @ z, 0.0)
+    X = (x, S, y, T, z, nu, s)
+    D = (zeros(m + 1), zeros(n, n), zeros(n), zeros(n, n), zeros(m), zeros(m), zeros(q))
+    lam = (zeros(n, n), zeros(n, n), zeros(n), zeros(q), zeros(m))
+    return ADMMState(X=X, Y=X, D=D, lam=lam, res=res0, cg=cg0)
+
+
+# =========================================================================
+# Driver
+# =========================================================================
+
+def _result_from(spec: ProblemSpec, st: ADMMState, iters: int, res: float,
+                 history: list) -> ADMMResult:
+    m = spec.m
+    x, x1 = st.X[0].cpu().numpy(), st.Y[0].cpu().numpy()
+    return ADMMResult(
+        g=x1[:m], g_raw=x[:m], lam_tilde=float(x1[m]),
+        z=st.Y[4].cpu().numpy() if spec.hetero else None,
+        iters=int(iters), residual=float(res), history=history,
+        cg_iters=int(st.cg))
+
+
+def check_solver(cfg: ADMMConfig) -> None:
+    """Raise for the driver/backend selections the port does not have."""
+    if cfg.driver not in ("scan", "python"):
+        raise ValueError(f"unknown driver {cfg.driver!r}; expected 'scan' or 'python'")
+    if cfg.driver == "python":
+        raise NotImplementedError("driver='python': " + _NOT_PORTED.format(2))
+    if cfg.solver != "schur_cg":
+        raise NotImplementedError(f"solver={cfg.solver!r}: " + _NOT_PORTED.format(2))
+
+
+def solve_spec(spec: ProblemSpec, state0: ADMMState, cfg: ADMMConfig) -> ADMMResult:
+    """Chunked driver: chunks of ``check_every`` steps (the last one
+    shortened so that at most ``max_iters`` steps run), one host read of
+    (residual, λ̃) per chunk. Stops after the chunk whose residual is below
+    ``eps`` or, with ``abort_nonfinite``, not finite — the reference's
+    on-device check, at the same chunk granularity; the history holds one
+    (it, res, λ̃) entry per chunk run."""
+    check_solver(cfg)
+    chunk = min(cfg.check_every, cfg.max_iters)
+    n_chunks = -(-cfg.max_iters // chunk)
+    state, it, res, history = state0, 0, math.inf, []
+    for c in range(n_chunks):
+        clen = chunk if c < n_chunks - 1 else cfg.max_iters - chunk * (n_chunks - 1)
+        for _ in range(clen):
+            state, res_t = step(spec, state)
+        it += clen
+        res, lam = torch.stack([res_t, state.X[0][-1].to(torch.float64)]).tolist()
+        history.append((it, res, lam))
+        if cfg.verbose:
+            tag = "admm-het" if spec.hetero else "admm-homo"
+            print(f"[{tag}] it={it} res={res:.3e} lam~={lam:.4f}")
+        if res < cfg.eps or (cfg.abort_nonfinite and not math.isfinite(res)):
+            break
+    return _result_from(spec, state, it, res, history)

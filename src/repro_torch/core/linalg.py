@@ -1,0 +1,108 @@
+"""Linear-system backend for the ADMM X-step (§V-C), in PyTorch.
+
+The X-step solves the KKT system (Eq. 27 / 31):
+
+    [[I, Aᵀ], [A, 0]] [X; λ] = [V; b]        ⇔    X = V − Aᵀλ,  (A Aᵀ) λ = A V − b
+
+``pcg_solve`` is the port of ``repro.core.linalg.pcg_solve``: matrix-free
+preconditioned CG on the SPD Schur complement A Aᵀ, with float64 inner
+products whatever the operands' dtype (the reference's ``_tdot``) and a
+relative tolerance that may be a tensor (the inexact-ADMM schedule).
+
+Constraint-space vectors (λ, b, A V) are ONE flat tensor here, where the
+reference keeps a tuple of blocks: an inner product, an axpy or a freeze is
+then one launch instead of one per block.
+
+The reference stops its ``lax.while_loop`` on ‖r‖² ≤ tol²‖b‖²; testing that
+in eager PyTorch costs one host sync per iteration. This loop instead
+freezes a converged iterate with ``torch.where`` (the semantics of a
+vmapped ``while_loop``) and reads the flag once every ``CG_CHECK_EVERY``
+iterations, so the returned iterate and count equal exact stopping with
+``CG_CHECK_EVERY``× fewer syncs.
+
+The ``kkt_bicgstab`` and scipy-ILU backends are not ported yet (ROADMAP.md
+Queue 1 item 2).
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+__all__ = ["pcg_solve", "CG_CHECK_EVERY"]
+
+#: CG iterations between two host reads of the convergence flag.
+CG_CHECK_EVERY = 8
+
+
+def _tdot(a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """Inner product ⟨a, b⟩ (⟨a, a⟩ when ``b`` is None) accumulated in
+    float64 (stable fp32-mode CG)."""
+    a = a.to(torch.float64)
+    return torch.dot(a, a if b is None else b.to(torch.float64))
+
+
+def _axpy(alpha: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x + alpha·y with the float64 scalar cast to x's dtype first (no
+    float64 upcast of a float32 vector)."""
+    return x + alpha.to(x.dtype) * y
+
+
+def pcg_solve(
+    A_op: Callable,
+    AT_op: Callable,
+    V: tuple,
+    b: torch.Tensor,
+    lam0: torch.Tensor,
+    jd: torch.Tensor | None = None,
+    tol=1e-10,
+    maxiter: int = 2000,
+):
+    """Solve X = V − Aᵀλ with (A Aᵀ)λ = A V − b via preconditioned CG.
+
+    ``A_op`` maps an X-space tuple to a flat constraint-space tensor and
+    ``AT_op`` back. ``jd``: flat diag(A Aᵀ) for Jacobi preconditioning, or
+    None. ``tol`` is a relative residual tolerance (a float or a float64
+    0-dim tensor). Stops when ‖r‖ ≤ tol·‖rhs‖ or after ``maxiter``
+    iterations.
+
+    Returns ``(X, λ, iters)`` with ``iters`` an int32 0-dim tensor.
+    """
+    def matvec(lam):
+        return A_op(AT_op(lam))
+
+    def precond(r):
+        return r if jd is None else r / jd
+
+    rhs = A_op(V) - b
+    bb = _tdot(rhs)
+    r = rhs - matvec(lam0)
+    z = precond(r)
+    rz = _tdot(r, z)
+    rr = _tdot(r)
+    tol2bb = torch.as_tensor(tol, dtype=torch.float64, device=bb.device) ** 2 * bb
+    x, p = lam0, z
+    k = torch.zeros((), dtype=torch.int32, device=bb.device)
+    it = 0
+    while True:
+        active = (rr > tol2bb) & (k < maxiter)
+        if it % CG_CHECK_EVERY == 0 and not bool(active):
+            break
+        Ap = matvec(p)
+        alpha = rz / _tdot(p, Ap)
+        x_n = _axpy(alpha, x, p)
+        r_n = _axpy(-alpha, r, Ap)
+        z_n = precond(r_n)
+        rz_n = _tdot(r_n, z_n)
+        p_n = _axpy(rz_n / rz, z_n, p)  # p ← z + beta·p
+        rr_n = _tdot(r_n)
+        x = torch.where(active, x_n, x)
+        r = torch.where(active, r_n, r)
+        z = r if jd is None else torch.where(active, z_n, z)
+        p = torch.where(active, p_n, p)
+        rr = torch.where(active, rr_n, rr)
+        rz = torch.where(active, rz_n, rz)
+        k = k + active.to(torch.int32)
+        it += 1
+    X = tuple(v - a for v, a in zip(V, AT_op(x)))
+    return X, x, k

@@ -1,0 +1,30 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
+
+``edge_laplacian`` (L(g) and the per-edge quadratic form of the ADMM
+constraint operator) and ``hop_bfs`` (one matmul-BFS hop of the SA warm
+start). Sources live in ``repro_torch/csrc``; :mod:`.build` compiles them
+at first use.
+"""
+from __future__ import annotations
+
+from .edge_laplacian import ops as _el_ops
+from .hop_bfs import ops as _hop_ops
+
+__all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts"]
+
+#: Every kernel wrapper of the port, by kernel name.
+WRAPPERS = {
+    "edge_laplacian": _el_ops.edge_laplacian,
+    "edge_quadform": _el_ops.edge_quadform,
+    "hop_step": _hop_ops.hop_step,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel name → launches since the last :func:`reset_launch_counts`."""
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0

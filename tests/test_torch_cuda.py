@@ -1,0 +1,154 @@
+"""The port on the card: each CUDA kernel against its plain version, and
+the card's solver stages against the same stages on the CPU.
+
+Every test here needs an NVIDIA card and skips without one (the ``cuda``
+fixture decides at run time). On the card:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_*.py
+
+This file imports no JAX, so it also runs where JAX is not installed.
+Tolerances: L(g) within 1e-12 (fp64) or 1e-5 × the largest row sum
+(fp32); the quadratic form bitwise; the hop and its counts exactly; one
+float64 ADMM step card vs CPU within 1e-9; ``aspl_matmul`` bit-equal to
+``graph.aspl``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import kernels  # noqa: E402
+from repro_torch.core import engine as te  # noqa: E402
+from repro_torch.core import graph as t_graph  # noqa: E402
+from repro_torch.core.anneal import greedy_degree_graph  # noqa: E402
+from repro_torch.core.warmstart import anneal_topology_batched, aspl_matmul  # noqa: E402
+from repro_torch.kernels.edge_laplacian import ops as tel  # noqa: E402
+from repro_torch.kernels.hop_bfs import ops as thop  # noqa: E402
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is False")
+    return torch.device("cuda")
+
+
+def _edges(n):
+    iu = np.triu_indices(n, 1)
+    return iu[0].astype(np.int64), iu[1].astype(np.int64)
+
+
+def _random_adj(n, p, rng):
+    up = np.triu(rng.random((n, n)) < p, 1)
+    return up | up.T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 9, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_edge_laplacian_kernel_on_card(cuda, n, dtype):
+    g = torch.rand(n * (n - 1) // 2, dtype=dtype, device=cuda)
+    before = tel.edge_laplacian.launches
+    got = tel.edge_laplacian(g, n)
+    want = tel.edge_laplacian_plain(g, tel.packed_edge_index(n, "cuda"))
+    torch.cuda.synchronize()
+    assert tel.edge_laplacian.launches == before + 1
+    tol = 1e-12 if dtype == torch.float64 else 1e-5 * float(want.diagonal().max())
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 9, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_edge_quadform_kernel_bitwise_on_card(cuda, n, dtype):
+    ei, ej = (torch.from_numpy(a).to(cuda) for a in _edges(n))
+    P = torch.randn(n, n, dtype=dtype, device=cuda)
+    got = tel.edge_quadform(P, ei, ej)
+    want = tel.edge_quadform_plain(P, ei, ej)
+    torch.cuda.synchronize()
+    as_int = torch.int64 if dtype == torch.float64 else torch.int32
+    assert torch.equal(got.view(as_int), want.view(as_int))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,n", [(1, 5), (4, 64), (3, 100), (4, 256)])
+def test_hop_step_kernel_on_card(cuda, R, n):
+    rng = np.random.default_rng(n)
+    adj = np.stack([_random_adj(n, 4.0 / n, rng) for _ in range(R)])
+    reach = torch.from_numpy(adj | np.eye(n, dtype=bool)[None]).to(cuda)
+    adj_t = torch.from_numpy(adj).to(cuda)
+    for _ in range(3):
+        got, got_rows = thop.hop_step(reach, adj_t)
+        want, want_rows = thop.hop_step_plain(reach, adj_t)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got_rows, want_rows)
+        reach = got
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_raise_instead_of_falling_back(cuda):
+    g = torch.rand(6, dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        tel.edge_laplacian(g, 4)
+    P = torch.rand(4, 4, device=cuda)
+    with pytest.raises(TypeError, match="int64"):
+        tel.edge_quadform(P, torch.zeros(2, dtype=torch.int32, device=cuda),
+                          torch.zeros(2, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        tel.edge_quadform(P.t(), torch.zeros(2, dtype=torch.int64, device=cuda),
+                          torch.zeros(2, dtype=torch.int64, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hetero", [False, True])
+def test_admm_step_card_matches_cpu(cuda, hetero):
+    from repro_torch.core.constraints import bcube_constraints
+
+    n, r = (16, 48) if hetero else (12, 24)
+    rng = np.random.default_rng(n)
+    g0 = rng.random(n * (n - 1) // 2) * 0.3
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg = te.ADMMConfig(device=dev)
+        if hetero:
+            cs = bcube_constraints(p=4, k=2)
+            spec = te.make_hetero_spec(n, r, cs.M, cs.e_cap, cfg, equality=False,
+                                       edge_ok=cs.edge_ok)
+        else:
+            spec = te.make_homo_spec(n, r, cfg)
+        st = te.init_state(spec, g0, 0.5)
+        kernels.reset_launch_counts()
+        for _ in range(3):
+            st, res = te.step(spec, st)
+        out[dev] = (st, float(res), kernels.launch_counts())
+    (cpu, cpu_res, _), (gpu, gpu_res, counts) = out["cpu"], out["cuda"]
+    assert counts["edge_laplacian"] > 0 and counts["edge_quadform"] > 0
+    for a, b in zip(gpu.X + gpu.Y + gpu.D, cpu.X + cpu.Y + cpu.D):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0, atol=1e-9)
+    assert abs(gpu_res - cpu_res) <= 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p", [(16, 0.3), (64, 0.07), (40, 0.02)])
+def test_aspl_matmul_on_card_bit_equals_graph_aspl(cuda, n, p):
+    rng = np.random.default_rng(n)
+    up = np.triu(rng.random((n, n)) < p, 1)
+    edges = [(int(i), int(j)) for i, j in zip(*np.nonzero(up))]
+    kernels.reset_launch_counts()
+    got = aspl_matmul(up | up.T)
+    want = t_graph.aspl(n, edges)
+    assert got == want or (np.isinf(got) and np.isinf(want))
+    assert kernels.launch_counts()["hop_step"] > 0 or np.isinf(want)
+
+
+@pytest.mark.cuda
+def test_device_sa_on_card_keeps_invariants(cuda):
+    n = 32
+    rng = np.random.default_rng(0)
+    starts = [greedy_degree_graph(n, np.full(n, 4), rng) for _ in range(3)]
+    outs = anneal_topology_batched(n, starts, None, iters=100, seeds=[0, 1, 2])
+    for e0, e1 in zip(starts, outs):
+        d0 = np.bincount(np.asarray(e0).reshape(-1), minlength=n)
+        d1 = np.bincount(np.asarray(e1).reshape(-1), minlength=n)
+        assert (d0 == d1).all() and t_graph.is_connected(n, e1)
+        assert t_graph.aspl(n, e1) <= t_graph.aspl(n, e0)

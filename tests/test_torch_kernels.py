@@ -1,0 +1,157 @@
+"""The port's kernel wrappers against the JAX package's Pallas kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; the JAX side runs
+its Pallas kernel in interpret mode, as the JAX package's own kernel tests
+do. Inputs are made with numpy from a seed and handed to both. Tolerances:
+L(g) within 1e-12 (fp64) or 1e-5 × the largest row sum (fp32), since the
+row sums are taken in another order; the quadratic form bitwise equal (adds
+only, same order); the BFS hop and its counts exactly equal.
+
+``tests/test_torch_cuda.py`` holds each CUDA kernel against its plain
+version on the card.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+jnp = pytest.importorskip("jax.numpy")
+
+from repro.core import engine as _jax_engine  # noqa: E402,F401 — turns on x64
+from repro.kernels.edge_laplacian import ops as jel  # noqa: E402
+from repro.kernels.hop_bfs import ops as jhop  # noqa: E402
+from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.edge_laplacian import ops as tel  # noqa: E402
+from repro_torch.kernels.hop_bfs import ops as thop  # noqa: E402
+
+
+def _edges(n):
+    iu = np.triu_indices(n, 1)
+    return iu[0].astype(np.int64), iu[1].astype(np.int64)
+
+
+def _random_adj(n, p, rng):
+    up = np.triu(rng.random((n, n)) < p, 1)
+    return up | up.T
+
+
+def _disconnected_adj(n, rng):
+    """Two random components: nodes [0, n/2) and [n/2, n)."""
+    adj = np.zeros((n, n), dtype=bool)
+    h = n // 2
+    adj[:h, :h] = _random_adj(h, 0.5, rng)
+    adj[h:, h:] = _random_adj(n - h, 0.5, rng)
+    return adj
+
+
+@pytest.mark.parametrize("n", [2, 3, 9, 64])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_edge_laplacian_plain_matches_pallas(n, dtype):
+    rng = np.random.default_rng(n)
+    ei, ej = _edges(n)
+    g = rng.random(ei.shape[0]).astype(dtype)
+    want = np.asarray(jel.edge_laplacian(jnp.asarray(g), jnp.asarray(ei, jnp.int32),
+                                         jnp.asarray(ej, jnp.int32), n,
+                                         use_kernel=True))
+    got = kernels.WRAPPERS["edge_laplacian"](torch.from_numpy(g), n)
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == (n, n)
+    row_max = float(np.abs(np.diag(want)).max())
+    tol = 1e-12 if dtype == "float64" else 1e-5 * row_max
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("n", [2, 3, 9, 64])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_edge_quadform_plain_bitwise_matches_pallas(n, dtype):
+    rng = np.random.default_rng(100 + n)
+    ei, ej = _edges(n)
+    P = rng.standard_normal((n, n)).astype(dtype)
+    want = np.asarray(jel.edge_quadform(jnp.asarray(P), jnp.asarray(ei, jnp.int32),
+                                        jnp.asarray(ej, jnp.int32), use_kernel=True))
+    got = tel.edge_quadform(torch.from_numpy(P), torch.from_numpy(ei),
+                            torch.from_numpy(ej)).numpy()
+    assert got.dtype == want.dtype
+    assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("n,kind", [(4, "random"), (16, "random"), (64, "random"),
+                                    (16, "disconnected"), (64, "disconnected")])
+def test_hop_step_plain_matches_pallas(n, kind):
+    rng = np.random.default_rng(n)
+    adj = _random_adj(n, 4.0 / n, rng) if kind == "random" else _disconnected_adj(n, rng)
+    reach = np.eye(n, dtype=bool) | adj
+    r_t, a_t = torch.from_numpy(reach)[None], torch.from_numpy(adj)[None]
+    r_j, a_j = jnp.asarray(reach), jnp.asarray(adj)
+    for _ in range(4):
+        want, want_cnt = jhop.hop_step(r_j, a_j, use_kernel=True)
+        got, got_rows = thop.hop_step(r_t, a_t)
+        assert got.dtype == torch.bool
+        assert (got[0].numpy() == np.asarray(want)).all()
+        assert int(got_rows.sum()) == int(want_cnt)
+        assert (got_rows[0].numpy() == np.asarray(want).sum(axis=1)).all()
+        r_t, r_j = got, want
+
+
+def test_hop_step_takes_the_restart_axis():
+    rng = np.random.default_rng(7)
+    adjs = np.stack([_random_adj(12, 0.3, rng) for _ in range(3)])
+    reach = adjs | np.eye(12, dtype=bool)[None]
+    new, rows = thop.hop_step(torch.from_numpy(reach), torch.from_numpy(adjs))
+    for k in range(3):
+        one, one_rows = thop.hop_step(torch.from_numpy(reach[k:k + 1]),
+                                      torch.from_numpy(adjs[k:k + 1]))
+        assert torch.equal(new[k], one[0]) and torch.equal(rows[k], one_rows[0])
+    u8, u8_rows = thop.hop_step(torch.from_numpy(reach).to(torch.uint8),
+                                torch.from_numpy(adjs).to(torch.uint8))
+    assert u8.dtype == torch.uint8 and torch.equal(u8.bool(), new)
+    assert torch.equal(u8_rows, rows)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="complete edge list"):
+        tel.edge_laplacian(torch.zeros(5, dtype=torch.float64), 4)
+    with pytest.raises(ValueError, match="square"):
+        tel.edge_quadform(torch.zeros(3, 4), torch.zeros(2, dtype=torch.int64),
+                          torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(ValueError, match="equal-length"):
+        tel.edge_quadform(torch.zeros(3, 3), torch.zeros(2, dtype=torch.int64),
+                          torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(TypeError, match="bool or uint8"):
+        thop.hop_step(torch.zeros(1, 3, 3, dtype=torch.int32),
+                      torch.zeros(1, 3, 3, dtype=torch.int32))
+    with pytest.raises(ValueError, match=r"\(R, n, n\)"):
+        thop.hop_step(torch.zeros(3, 3, dtype=torch.bool),
+                      torch.zeros(3, 3, dtype=torch.bool))
+
+
+def test_cpu_path_never_counts_a_launch():
+    kernels.reset_launch_counts()
+    tel.edge_laplacian(torch.rand(6, dtype=torch.float64), 4)
+    tel.edge_quadform(torch.rand(4, 4), torch.tensor([0, 1]), torch.tensor([2, 3]))
+    thop.hop_step(torch.ones(1, 4, 4, dtype=torch.bool), torch.ones(1, 4, 4, dtype=torch.bool))
+    assert kernels.launch_counts() == {"edge_laplacian": 0, "edge_quadform": 0,
+                                       "hop_step": 0}
+
+
+def test_packed_edge_index_is_lexicographic():
+    n = 7
+    lidx = tel.packed_edge_index(n).numpy()
+    ei, ej = _edges(n)
+    assert (lidx[ei, ej] == np.arange(ei.shape[0])).all()
+    assert (lidx == lidx.T).all() and (np.diag(lidx) == ei.shape[0]).all()
+
+
+def test_parse_ptxas_reads_registers_smem_and_spills():
+    log = """ptxas info    : Compiling entry function '_Z6kernelPf' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelPf
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 40 registers, 20800 bytes smem, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'
+ptxas info    : Used 12 registers, 368 bytes cmem[0]
+"""
+    assert build.parse_ptxas(log) == [
+        {"kernel": "_Z6kernelPf", "registers": 40, "smem_bytes": 20800,
+         "spill_stores": 4, "spill_loads": 12},
+        {"kernel": "_Z5otherv", "registers": 12, "smem_bytes": 0,
+         "spill_stores": 0, "spill_loads": 0}]
