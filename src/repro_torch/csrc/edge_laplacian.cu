@@ -14,8 +14,12 @@
 //   edge_laplacian: 4 or 8 bytes x (m + n^2).
 //     n = 64:  24.4 KB fp32, 48.9 KB fp64  ->  7 ns / 15 ns at 3.35 TB/s.
 //     n = 256: 392.7 KB fp32, 785.4 KB fp64 -> 117 ns / 234 ns.
-//   edge_quadform: P (n^2) + ei, ej (8 bytes each per edge) + out (m).
-//     n = 64:  56.7 KB fp32 -> 17 ns;  n = 256: 914.9 KB fp32 -> 273 ns.
+//   edge_quadform: 4 or 8 bytes x (n^2 + m): P read once, the form written
+//     once, the same figures as edge_laplacian. The endpoints are not part
+//     of the bound: on the ADMM path the edge list is the complete
+//     lexicographic one, so they follow from l. This kernel still reads them
+//     as int64 (16 B per edge, 57 % more bytes at n = 64); deriving them
+//     from l, as edge_laplacian does, is left to a later change.
 // Those bounds are far below the ~2-4 us a launch costs, so at the paper's
 // sizes the launch count, not the kernel body, sets the time. The design
 // therefore does each function in ONE launch, with no padding pass, no

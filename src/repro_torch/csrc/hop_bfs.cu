@@ -10,12 +10,15 @@
 //   counts:     (R, n) int32, counts[r, a] = number of b with new[r, a, b]
 // It runs on every hop of every SA move's ASPL (warmstart._aspl_total).
 //
-// What bounds it on the H100: bytes 3 R n^2 + 4 R n, operations 2 R n^3
-// (one fp32 multiply-add per term of the product, at 67 TFLOP/s).
-//   R = 4, n = 64:  50.2 KB -> 15 ns;   2.1 MFLOP  -> 31 ns  (operations).
-//   R = 4, n = 256: 790.5 KB -> 236 ns; 134 MFLOP -> 2.0 us (operations).
-// At n = 64 the launch (~2-4 us) dwarfs both, so the design keeps the hop
-// in ONE launch with no second pass for the counts: one block per
+// What bounds it on the H100: bytes 3 R n^2 + 4 R n, operations 2 R n^3 on
+// 0/1 bytes, whose peak is the int8 tensor-core rate (1,979 TOP/s):
+//   R = 1, n = 64:  12.5 KB -> 3.7 ns;  0.5 MOP -> 0.3 ns  (bytes).
+//   R = 4, n = 64:  50.2 KB -> 15 ns;   2.1 MOP -> 1.1 ns  (bytes).
+//   R = 4, n = 256: 790.5 KB -> 236 ns; 134 MOP -> 68 ns   (bytes).
+// This kernel multiplies in fp32 on the CUDA cores (67 TFLOP/s), which puts
+// its own floor at 2.0 us for R = 4, n = 256; int8 mma is the way to the
+// bound there. At n = 64 the launch (~2-4 us) dwarfs both, so the design
+// keeps the hop in ONE launch with no second pass for the counts: one block per
 // (restart, band of 16 rows) computes the band of reach @ adj as a
 // shared-memory tiled fp32 product (0/1 operands, sums <= n < 2^24, so
 // exact), ORs it with the incoming band, thresholds, writes new, and sums
