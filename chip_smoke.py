@@ -3,13 +3,23 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-kernel against its plain PyTorch version at the main path's shapes, times
-it, drives the main path (``solve_topology`` at n=64, r=128 and the n=16
-BCube scenario) on ``cuda``, checks the card against the CPU at n=16,
-evaluates the n=64 result by consensus simulation, and profiles short
-windows of the main path's device stages. Every phase prints one
-JSON line; any failure raises and the script exits non-zero. The line
-before the last lists every kernel with its launches on the main path, its
+kernel against its plain PyTorch version at its path's shapes and times it,
+and drives the port's two paths on ``cuda``:
+
+- the topology solve (``solve_topology`` at n=64, r=128 and the n=16 BCube
+  scenario), checked against the CPU at n=16, evaluated by consensus
+  simulation, with short profiled windows of its device stages;
+- DSGD training of smollm-135m at full width through the launcher
+  (``repro_torch.launch.train``): n=8 workers on one card, BA topology
+  (r=16) solved on the card, 10 steps, every gossip through the
+  ``gossip_mix_batched`` kernel; then the row-loop oracle of one-worker
+  ``gossip_mix`` kernels on the trained leaves, reduced smollm card vs CPU,
+  and one profiled full-width train step.
+
+Every phase prints one JSON line; any failure raises and the script exits
+non-zero. Each path's kernel launches are counted from 0 over that path
+alone, and every kernel the path must run has to have launched. The line
+before the last lists every kernel with its launches on its path, its
 error against the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -30,6 +40,14 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+#: The kernels each path must launch, counted from 0 over that path alone.
+PATH_KERNELS = {
+    "solve": ("edge_laplacian", "edge_quadform", "hop_step"),
+    "dsgd": ("edge_laplacian", "edge_quadform", "hop_step", "gossip_mix_batched"),
+    "rowloop": ("gossip_mix",),
+}
+
+ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM memory rate (NVIDIA data sheet)
 INT8_OP_PER_S = 1.979e15        # H100 SXM dense int8 tensor-core rate
 TIMED_LAUNCHES = 1000
@@ -40,11 +58,11 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}, default=float), flush=True)
 
 
-def eager_ms(fn, launches: int = TIMED_LAUNCHES) -> float:
+def eager_ms(fn, launches: int = TIMED_LAUNCHES, warmup: int = WARMUP_LAUNCHES) -> float:
     """Mean time of one eager ``fn()`` call over ``launches`` back-to-back
     calls, by CUDA events after a warm-up: at these sizes it is the host's
     launch rate, Python and binding included."""
-    for _ in range(WARMUP_LAUNCHES):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -90,6 +108,19 @@ def timings(kernel, plain, library=None) -> dict:
                 call_ms=eager_ms(kernel), plain_call_ms=eager_ms(plain))
 
 
+def large_timings(kernel, plain, library=None, reps: int = 10) -> dict:
+    """Timings of calls that each take a large fraction of a millisecond or
+    more (and allocate GBs, which a CUDA graph would hold): ``reps`` eager
+    back-to-back calls timed by CUDA events after two warm-ups. The host's
+    launch cost (microseconds) hides behind the device time, so the eager
+    number is the device number and ``call_ms`` equals ``ms``."""
+    def timed(fn):
+        return eager_ms(fn, reps, warmup=2) if fn is not None else None
+
+    ms = timed(kernel)
+    return dict(ms=ms, plain_ms=timed(plain), library_ms=timed(library), call_ms=ms)
+
+
 # ---------------------------------------------------------------------------
 # phase 1: device and build
 # ---------------------------------------------------------------------------
@@ -104,6 +135,8 @@ def phase_device_and_build() -> str:
 
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul must be off"
     assert not torch.backends.cudnn.allow_tf32, "TF32 cuDNN must be off"
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction, \
+        "bf16 matmuls must accumulate in full float32"
     t0 = time.perf_counter()
     build.build()
     build_s = time.perf_counter() - t0
@@ -256,8 +289,8 @@ def phase_solve(label: str, request, cut: str | None = None):
     if classic is not None:
         assert res.r_asym <= classic + 1e-12, \
             f"{label}: r_asym {res.r_asym} worse than the best classic {classic}"
-    missing = [k for k, v in launches.items() if v == 0]
-    assert not missing, f"{label}: kernels never launched on the main path: {missing}"
+    missing = [k for k in PATH_KERNELS["solve"] if launches[k] == 0]
+    assert not missing, f"{label}: kernels never launched on the path: {missing}"
     emit(label, n=request.n, r=request.r, scenario=request.scenario,
          restarts=cfg.restarts if request.restarts is None else request.restarts,
          cut=cut, r_asym=res.r_asym, best_classic_r_asym=classic,
@@ -375,9 +408,11 @@ def phase_consensus(topo) -> None:
 # phase 6: where the time goes (torch.profiler over short stage windows)
 # ---------------------------------------------------------------------------
 
-def _profiled(fn) -> dict:
+def _profiled(fn, match: tuple = ()) -> dict:
     """Wall time, device busy time, idle share, kernel launches and host
-    syncs of one call of ``fn``, with the top kernels by device time."""
+    syncs of one call of ``fn``, with the top kernels by device time, and
+    the device time and launches of the kernels whose name holds one of
+    ``match``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -401,11 +436,15 @@ def _profiled(fn) -> dict:
     if not kernels:             # the profiler saw no device activity: say so
         return dict(wall_s=wall_s, device_busy_s=None, idle_share=None,
                     device_launches=None, host_syncs=syncs, top_kernels=None)
+    matched = {m: [sum(c for k, (c, _) in kernels.items() if m in k),
+                   sum(t for k, (_, t) in kernels.items() if m in k) / 1e3] for m in match}
     return dict(wall_s=wall_s, device_busy_s=busy_us / 1e6,
                 idle_share=1.0 - busy_us / 1e6 / wall_s,
                 device_launches=sum(c for c, _ in kernels.values()), host_syncs=syncs,
                 top_kernels=[dict(name=name[:80], launches=c, device_ms=t / 1e3)
-                             for name, (c, t) in top])
+                             for name, (c, t) in top],
+                matched={m: dict(launches=c, device_ms=t,
+                                 share_of_busy=t / (busy_us / 1e3)) for m, (c, t) in matched.items()})
 
 
 def phase_profile() -> None:
@@ -438,6 +477,314 @@ def phase_profile() -> None:
     emit("profile", n=n, r=r, stages=out)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: DSGD training of smollm-135m at full width, through the launcher
+# ---------------------------------------------------------------------------
+
+DSGD_ARGS = ["--arch", "smollm-135m", "--workers", "8", "--topo", "ba", "--r", "16",
+             "--optimizer", "sgd", "--batch", "4", "--seq", "256", "--steps", "10",
+             "--log-every", "1", "--seed", "0", "--device", "cuda"]
+DSGD_WORKERS = 8
+SMOLLM_PARAMS = 134_515_008
+SMOLLM_LEAVES = 11
+TOPO_CACHE = ROOT / "build" / "chip_smoke" / "topo_cache_torch.json"
+
+
+def _leaves(tree, prefix: str = "") -> dict:
+    """Flat ``a.b.c`` → leaf view of a nested parameter dict."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _within(got, want, terms, deg) -> tuple[float, bool]:
+    """Max |got − want|, and whether every element lies within one ulp of
+    the output dtype at the larger of the two (none for fp32) plus the
+    float32 summation bound (deg+2)·2⁻²⁴·Σ|w·x|: the plain version sums
+    the neighbour terms in another order than the kernel."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    tol = (deg + 2) * 2.0 ** -24 * terms
+    if got.dtype != torch.float32:
+        _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+        tol = tol + torch.ldexp(torch.full_like(tol, torch.finfo(got.dtype).eps), e - 1)
+    return float(err.max()), bool((err <= tol).all())
+
+
+def _batched_check(got, x, nbr_idx, weights) -> tuple[float, bool]:
+    from repro_torch.kernels.gossip_mix import ops as gm
+
+    want = gm.gossip_mix_batched_plain(x, nbr_idx, weights)
+    terms = gm.gossip_mix_batched_plain(x.abs().float(), nbr_idx, weights.abs())
+    return _within(got, want, terms, int(nbr_idx.shape[1]))
+
+
+def phase_main_dsgd():
+    """The launcher's run at full width on the card: the BA topology solved
+    on the card (a fresh cache file), 10 steps with every gossip through
+    ``gossip_mix_batched``. The first gossip (step 1) is also mixed by the
+    plain version from the same pre-gossip leaves and held against the
+    kernel's, by wrapping the trainer's ``gossip_sim_tree``."""
+    from repro_torch import kernels
+    from repro_torch.dsgd import trainer
+    from repro_torch.launch import steps, train
+
+    TOPO_CACHE.unlink(missing_ok=True)
+    mix = trainer.gossip_sim_tree
+    step1: dict = {}
+
+    def checked_mix(tree, W, *, use_kernel=True, nbr=None):
+        out = mix(tree, W, use_kernel=use_kernel, nbr=nbr)
+        if not step1:
+            mixed = _leaves(out)
+            for name, x in _leaves(tree).items():
+                step1[name] = _batched_check(mixed[name], x, *nbr)
+            # the check's own scratch stays out of the training's peak: the
+            # later steps reach the same peak as step 1
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        return out
+
+    last = {}
+    trainer.gossip_sim_tree = checked_mix
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train.main(DSGD_ARGS + ["--topo-cache", str(TOPO_CACHE)],
+                         on_step=lambda s, state, m: last.update(state=state))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        trainer.gossip_sim_tree = mix
+    peak = torch.cuda.max_memory_allocated()
+    topo = steps.topology_for(DSGD_WORKERS, "ba", 16, 0, device="cuda", cache_path=TOPO_CACHE)
+    hist = res["history"]
+    n_steps = len(res["step_ms"])
+    losses = [h["loss"] for h in hist]
+    cons = [h["consensus_err"] for h in hist]
+    deg = int(max(np.bincount(np.asarray(topo.edges).reshape(-1), minlength=topo.n)))
+    emit("main_dsgd", arch=res["arch"], workers=DSGD_WORKERS, batch=4, seq=256,
+         steps=n_steps, param_count_per_worker=res["param_count_per_worker"],
+         topology=res["topology"], edges=res["edges"], max_degree=deg, r_asym=res["r_asym"],
+         topology_solve_s=res["topology_s"], bigram_table=res["bigram_table"],
+         step_ms=res["step_ms"], steady_step_ms=float(np.mean(res["step_ms"][2:])),
+         losses=losses, loss_max=[h["loss_max"] for h in hist], consensus_err=cons,
+         step1_gossip_vs_plain={k: dict(max_abs_err=e, within=ok) for k, (e, ok) in step1.items()},
+         max_memory_allocated_bytes=peak, wall_s=wall_s, launches=launches)
+    assert res["param_count_per_worker"] == SMOLLM_PARAMS, res["param_count_per_worker"]
+    assert len(hist) == n_steps == 10 and all(np.isfinite(losses)) and all(np.isfinite(cons))
+    assert abs(losses[0] - np.log(49152)) <= 0.5, f"first loss {losses[0]} vs ln 49152"
+    assert launches["gossip_mix_batched"] == SMOLLM_LEAVES * n_steps, launches
+    missing = [k for k in PATH_KERNELS["dsgd"] if launches[k] == 0]
+    assert not missing, f"main_dsgd: kernels never launched on the path: {missing}"
+    assert len(step1) == SMOLLM_LEAVES and all(ok for _, ok in step1.values()), \
+        f"step-1 gossip differs from the plain mix: {step1}"
+    return last["state"], topo, launches, max(e for e, _ in step1.values())
+
+
+# ---------------------------------------------------------------------------
+# phase 8: both gossip kernels at smollm-135m's leaf shapes, and their times
+# ---------------------------------------------------------------------------
+
+def _table_bytes(idx, w) -> int:
+    return idx.numel() * idx.element_size() + w.numel() * w.element_size()
+
+
+def phase_gossip_kernels(state, topo) -> dict:
+    """Each kernel against its plain version on the trained leaves: the
+    embedding (bf16 and fp32), ``layers.mlp.w_gate``, ``layers.attn.wk``
+    and a norm leaf, n = 8, with the BA topology's neighbour table and with
+    deg = 7 (every other worker). Times: kernel, plain, the dense
+    ``torch.matmul(W, x)`` of ``gossip_sim`` as the library call, and the
+    bound 2·n·M·size bytes (x read once, the output written once). Also the
+    whole step's gossip (all 11 leaves) and the one-worker kernel at the
+    embedding. Returns the rows of the kernels line."""
+    from repro_torch.core.graph import weight_matrix_from_weights
+    from repro_torch.dsgd.gossip import gossip_sim_tree, padded_neighbors
+    from repro_torch.kernels.gossip_mix import ops as gm
+
+    n = DSGD_WORKERS
+    W = torch.tensor(weight_matrix_from_weights(topo.n, topo.edges, topo.g),
+                     dtype=torch.float32, device="cuda")
+    full = torch.full((n, n), 1.0 / n, device="cuda")
+    tables = {"ba": (padded_neighbors(W), W), "deg7": (padded_neighbors(full), full)}
+    leaves = _leaves(state.params)
+    cases = []
+    for name in ("embed", "layers.mlp.w_gate", "layers.attn.wk", "layers.ln1"):
+        for dtype in ((torch.bfloat16, torch.float32) if name == "embed" else (torch.bfloat16,)):
+            x = leaves[name].to(dtype).contiguous()
+            for tag, ((idx, w), Wd) in tables.items():
+                got = gm.gossip_mix_batched(x, idx, w)
+                err, ok = _batched_check(got, x, idx, w)
+                del got
+                Wx = Wd.to(dtype)
+                big = x.numel() * x.element_size() > 64 << 20
+                t = (large_timings if big else timings)(
+                    lambda: gm.gossip_mix_batched(x, idx, w),
+                    lambda: gm.gossip_mix_batched_plain(x, idx, w),
+                    lambda: torch.matmul(Wx, x.view(n, -1)))
+                nbytes = 2 * x.numel() * x.element_size() + _table_bytes(idx, w)
+                cases.append(dict(kernel="gossip_mix_batched", leaf=name, shape=list(x.shape),
+                                  dtype=str(dtype).replace("torch.", ""), table=tag,
+                                  deg=int(idx.shape[1]), max_abs_err=err, within=ok, **t,
+                                  bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes"))
+                assert ok, f"gossip_mix_batched {name} {dtype} {tag}: outside the tolerance"
+            del x
+    # the whole step's gossip: the 11 leaves of the main path, BA table
+    (idx, w), _ = tables["ba"]
+    step_t = large_timings(
+        lambda: gossip_sim_tree(state.params, W, nbr=(idx, w)),
+        lambda: [gm.gossip_mix_batched_plain(x, idx, w) for x in leaves.values()],
+        lambda: [torch.matmul(W.to(x.dtype), x.view(n, -1)) for x in leaves.values()])
+    step_bytes = sum(2 * x.numel() * x.element_size() + _table_bytes(idx, w)
+                     for x in leaves.values())
+    step_row = dict(**step_t, bound_ms=1e3 * step_bytes / HBM_BYTES_PER_S, bound_by="bytes",
+                    bytes=step_bytes)
+    # the one-worker kernel at the embedding: worker 0 and its neighbours
+    x = leaves["embed"]
+    row0 = [j for j in range(n) if j != 0 and float(W[0, j]) != 0.0]
+    nbrs = x[torch.tensor(row0, device="cuda")].contiguous()
+    wrow = torch.tensor([float(W[0, 0])] + [float(W[0, j]) for j in row0], device="cuda")
+    got = gm.gossip_mix(x[0], nbrs, wrow)
+    want = gm.gossip_mix_plain(x[0], nbrs, wrow)
+    terms = gm.gossip_mix_plain(x[0].abs().float(), nbrs.abs().float(), wrow.abs())
+    err, ok = _within(got, want, terms, len(row0))
+    assert ok, "gossip_mix (one worker) at the embedding: outside the tolerance"
+    wlib, beta = wrow[1:].to(x.dtype), float(wrow[0])
+
+    def addmv():                  # beta·x + nbrsᵀ·w: the one-call library form
+        return torch.addmv(x[0].view(-1), nbrs.view(len(row0), -1).t(), wlib, beta=beta)
+
+    try:
+        addmv()
+    except RuntimeError:          # no bf16 addmv in this build: no library time
+        addmv = None
+    one_t = large_timings(lambda: gm.gossip_mix(x[0], nbrs, wrow),
+                          lambda: gm.gossip_mix_plain(x[0], nbrs, wrow), addmv)
+    one_bytes = (len(row0) + 2) * x[0].numel() * x.element_size() + 4 * wrow.numel()
+    one_row = dict(**one_t, max_abs_err=err, deg=len(row0), shape=list(x[0].shape),
+                   bound_ms=1e3 * one_bytes / HBM_BYTES_PER_S, bound_by="bytes")
+    torch.cuda.synchronize()
+    emit("gossip_kernel_checks", cases=cases, whole_step=step_row, one_worker=one_row,
+         library_note="gossip_mix_batched: torch.matmul(W.to(dtype), x.view(n, -1)) "
+                      "(the dense Eq. 1 of gossip_sim); gossip_mix: torch.addmv")
+    return {"gossip_mix_batched": step_row, "gossip_mix": one_row}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the row-loop oracle (the path of the one-worker kernel)
+# ---------------------------------------------------------------------------
+
+def phase_rowloop(state, topo) -> dict:
+    """``gossip_sim_tree_rowloop`` over the trained full-width leaves: one
+    ``gossip_mix`` launch per worker row per leaf. It must equal the batched
+    kernel's mix bitwise (the same products added in the same order)."""
+    from repro_torch import kernels
+    from repro_torch.core.graph import weight_matrix_from_weights
+    from repro_torch.dsgd.gossip import gossip_sim_tree, gossip_sim_tree_rowloop
+
+    W = torch.tensor(weight_matrix_from_weights(topo.n, topo.edges, topo.g),
+                     dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    loop = gossip_sim_tree_rowloop(state.params, W)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    batched = gossip_sim_tree(state.params, W)
+    equal = {k: torch.equal(a, b) for (k, a), b in
+             zip(_leaves(loop).items(), _leaves(batched).values())}
+    emit("rowloop", workers=DSGD_WORKERS, leaves=len(equal), wall_s=wall_s,
+         bitwise_equal_to_batched=all(equal.values()), launches=launches)
+    assert all(equal.values()), f"row loop differs from the batched kernel: {equal}"
+    assert launches["gossip_mix"] == DSGD_WORKERS * SMOLLM_LEAVES, launches
+    missing = [k for k in PATH_KERNELS["rowloop"] if launches[k] == 0]
+    assert not missing, f"rowloop: kernels never launched on the path: {missing}"
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: where a full-width train step's time goes
+# ---------------------------------------------------------------------------
+
+def phase_profile_dsgd(state, topo) -> None:
+    """One full-width train step (n=8, batch 4, seq 256) under
+    torch.profiler, after one unprofiled warm-up step, with the gossip
+    kernels' share of the device time named."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, lm_batch_numpy
+    from repro_torch.dsgd import dsgd_train_step
+    from repro_torch.optim import make_optimizer, warmup_cosine
+
+    cfg = get_arch("smollm-135m")
+    _, upd = make_optimizer("sgd", warmup_cosine(0.05, 1, 10))
+    step = dsgd_train_step(cfg, topo, upd, device="cuda")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=256, batch_size=4, seed=0)
+
+    def batch(s):
+        per = [lm_batch_numpy(dc, s, node=i) for i in range(DSGD_WORKERS)]
+        return {k: torch.from_numpy(np.stack([b[k] for b in per])).cuda() for k in per[0]}
+
+    state, _ = step(state, batch(10))
+    b = batch(11)
+    prof = _profiled(lambda: step(state, b), match=("gossip_mix",))
+    emit("profile_dsgd", arch=cfg.name, workers=DSGD_WORKERS, batch=4, seq=256, step=prof)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: DSGD on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def phase_dsgd_card_vs_cpu() -> None:
+    """Reduced smollm (fp32, 2 layers, width 128), n = 4 on a ring, 3
+    steps from the same weights and batches on the card and on the CPU
+    (the CPU mixes by the plain version): the losses agree within 1e-4
+    relative. With the CPU against the JAX package (tests/test_torch_dsgd.py)
+    this closes the chain JAX ⇄ port (CPU) ⇄ port (card)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch, reduced_for_smoke
+    from repro_torch.core.topologies import make_baseline
+    from repro_torch.data import DataConfig, lm_batch_numpy
+    from repro_torch.dsgd import dsgd_train_step, init_dsgd_state
+    from repro_torch.optim import make_optimizer, warmup_cosine
+
+    cfg = reduced_for_smoke(get_arch("smollm-135m"))
+    n, n_steps = 4, 3
+    init, upd = make_optimizer("sgd", warmup_cosine(0.05, 1, n_steps))
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch_size=4, seed=0)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        state = init_dsgd_state(0, cfg, n, init, device=dev)
+        step = dsgd_train_step(cfg, make_baseline("ring", n), upd, device=dev)
+        kernels.reset_launch_counts()
+        losses, cons = [], []
+        for s in range(n_steps):
+            per = [lm_batch_numpy(dc, s, node=i) for i in range(n)]
+            bt = {k: torch.from_numpy(np.stack([b[k] for b in per])).to(dev) for k in per[0]}
+            state, m = step(state, bt)
+            losses.append(float(m["loss"]))
+            cons.append(float(m["consensus_err"]))
+        runs[dev] = (losses, cons, _leaves(state.params), kernels.launch_counts())
+    (gl, gc, gp, glaunch), (cl, cc, cp, _) = runs["cuda"], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    cons_rel = max(abs(a - b) / abs(b) for a, b in zip(gc, cc))
+    param_drift = max(float((gp[k].cpu() - cp[k]).abs().max()) for k in cp)
+    emit("dsgd_card_vs_cpu", arch=cfg.name, workers=n, steps=n_steps, losses_cuda=gl,
+         losses_cpu=cl, loss_max_rel_diff=loss_rel, consensus_cuda=gc, consensus_cpu=cc,
+         consensus_max_rel_diff=cons_rel, param_max_abs_diff=param_drift,
+         gossip_launches_cuda=glaunch["gossip_mix_batched"])
+    assert glaunch["gossip_mix_batched"] == SMOLLM_LEAVES * n_steps
+    assert loss_rel <= 1e-4, f"DSGD card vs CPU: losses differ by {loss_rel} relative"
+
+
 KERNEL_INFO = {
     "edge_laplacian": dict(route="cuda", source="src/repro_torch/csrc/edge_laplacian.cu",
                            replaces="src/repro/kernels/edge_laplacian/kernel.py:62"),
@@ -445,6 +792,10 @@ KERNEL_INFO = {
                           replaces="src/repro/kernels/edge_laplacian/kernel.py:87"),
     "hop_step": dict(route="cuda", source="src/repro_torch/csrc/hop_bfs.cu",
                      replaces="src/repro/kernels/hop_bfs/kernel.py:54"),
+    "gossip_mix_batched": dict(route="cuda", source="src/repro_torch/csrc/gossip_mix.cu",
+                               replaces="src/repro/kernels/gossip_mix/kernel.py:50"),
+    "gossip_mix": dict(route="cuda", source="src/repro_torch/csrc/gossip_mix.cu",
+                       replaces="src/repro/kernels/gossip_mix/kernel.py:82"),
 }
 
 
@@ -465,11 +816,22 @@ def main() -> int:
     phase_consensus(res64.topology)
     phase_profile()
 
+    state, topo, dsgd_launches, step1_err = phase_main_dsgd()
+    timing.update(phase_gossip_kernels(state, topo))
+    timing["gossip_mix_batched"]["max_abs_err"] = step1_err
+    row_launches = phase_rowloop(state, topo)
+    phase_profile_dsgd(state, topo)
+    del state
+    torch.cuda.empty_cache()
+    phase_dsgd_card_vs_cpu()
+
+    path_launches = {"gossip_mix_batched": dsgd_launches["gossip_mix_batched"],
+                     "gossip_mix": row_launches["gossip_mix"]}
     rows = []
     for name, info in KERNEL_INFO.items():
         t = timing[name]
         rows.append(dict(
-            name=name, **info, launches=launches[name],
+            name=name, **info, launches=path_launches.get(name, launches[name]),
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], call_ms=t["call_ms"]))

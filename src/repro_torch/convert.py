@@ -1,9 +1,11 @@
-"""Carry solver state between the JAX reference and the port.
+"""Carry solver state, model weights and DSGD state between the JAX
+reference and the port.
 
 The functions take and give plain numpy leaves, so this module imports
 neither JAX nor ``repro``: the caller turns a reference ``ProblemSpec`` /
-``ADMMState`` into numpy with ``jax.tree.map(np.asarray, ...)`` (which keeps
-the dataclass / NamedTuple and its static fields) and hands it here.
+``ADMMState`` / parameter dict / ``DSGDState`` into numpy with
+``jax.tree.map(np.asarray, ...)`` (which keeps the dataclass / NamedTuple
+and its static fields) and hands it here.
 """
 from __future__ import annotations
 
@@ -15,9 +17,12 @@ import torch
 from .core.constraints import ConstraintSet
 from .core.engine import ADMMState, ProblemSpec, split_lam
 from .device import resolve_device
+from .dsgd.trainer import DSGDState
+from .optim import AdamWState, SGDState
 
 __all__ = ["spec_from_numpy", "state_from_numpy", "state_to_numpy",
-           "lam_to_numpy", "constraints_from_numpy"]
+           "lam_to_numpy", "constraints_from_numpy", "model_params_from_numpy",
+           "model_params_to_numpy", "dsgd_state_from_numpy"]
 
 
 def _t(a, dtype, dev):
@@ -95,3 +100,44 @@ def constraints_from_numpy(n: int, M, e_cap, edge_ok, equality: bool,
         edge_ok=np.asarray(edge_ok, dtype=bool),
         resource_bw=(np.zeros(M.shape[0]) if resource_bw is None
                      else np.asarray(resource_bw, dtype=np.float64)))
+
+
+def _leaf(a, dev) -> torch.Tensor:
+    """One numpy leaf as a tensor of the same dtype; a bfloat16 array (as
+    numpy holds JAX's bfloat16) keeps its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def model_params_from_numpy(tree, device: str = "cuda") -> dict:
+    """The port's nested parameter dict from the reference's, leaf for
+    leaf (dtypes kept, layer leaves stacked (L, ...) in both)."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: model_params_from_numpy(v, dev) for k, v in tree.items()}
+    return _leaf(tree, dev)
+
+
+def model_params_to_numpy(params) -> dict:
+    """The port's parameter dict as numpy leaves, with the reference's keys;
+    bfloat16 leaves come back as float32 (exact)."""
+    if isinstance(params, dict):
+        return {k: model_params_to_numpy(v) for k, v in params.items()}
+    t = params.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def dsgd_state_from_numpy(ref, device: str = "cuda") -> DSGDState:
+    """The port's :class:`DSGDState` from a reference ``DSGDState`` with
+    numpy leaves: stacked (n, ...) params, the SGD (momentum, step) or AdamW
+    (mu, nu, step) state, and the step counter."""
+    dev = resolve_device(device)
+    opt = ref.opt
+    if hasattr(opt, "momentum"):
+        opt = SGDState(model_params_from_numpy(opt.momentum, dev), _leaf(opt.step, dev))
+    else:
+        opt = AdamWState(model_params_from_numpy(opt.mu, dev),
+                         model_params_from_numpy(opt.nu, dev), _leaf(opt.step, dev))
+    return DSGDState(model_params_from_numpy(ref.params, dev), opt, _leaf(ref.step, dev))

@@ -1,13 +1,15 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
 
 ``edge_laplacian`` (L(g) and the per-edge quadratic form of the ADMM
-constraint operator) and ``hop_bfs`` (one matmul-BFS hop of the SA warm
-start). Sources live in ``repro_torch/csrc``; :mod:`.build` compiles them
-at first use.
+constraint operator), ``hop_bfs`` (one matmul-BFS hop of the SA warm
+start) and ``gossip_mix`` (Eq. 1 neighbour mixing of DSGD gossip, batched
+over workers and for one worker). Sources live in ``repro_torch/csrc``;
+:mod:`.build` compiles them at first use.
 """
 from __future__ import annotations
 
 from .edge_laplacian import ops as _el_ops
+from .gossip_mix import ops as _gossip_ops
 from .hop_bfs import ops as _hop_ops
 
 __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts"]
@@ -17,6 +19,8 @@ WRAPPERS = {
     "edge_laplacian": _el_ops.edge_laplacian,
     "edge_quadform": _el_ops.edge_quadform,
     "hop_step": _hop_ops.hop_step,
+    "gossip_mix_batched": _gossip_ops.gossip_mix_batched,
+    "gossip_mix": _gossip_ops.gossip_mix,
 }
 
 

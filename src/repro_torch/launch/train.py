@@ -1,0 +1,144 @@
+"""DSGD training launcher of the port (the non-elastic path of
+``repro/launch/train.py``).
+
+n workers are stacked on one device; each step takes every worker's
+gradient in one vmapped pass, applies the optimizer, and gossips over the
+topology (BA-Topo by default, solved on the same device) through the
+``gossip_mix_batched`` kernel. Runs on ``cuda`` unless ``--device cpu``.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --reduced --workers 4 --steps 3 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --workers 8 --steps 10 --batch 4 --seq 256 --topo ba --r 16
+
+``--elastic``, ``--resume``, ``--ckpt-*`` and ``--sync dynamic`` are not
+offered yet.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..configs import get_arch, reduced_for_smoke
+from ..core.bandwidth import PaperConstants, homo_edge_bandwidth, min_edge_bandwidth, t_iter
+from ..data import DataConfig, bigram_table, lm_batch_numpy
+from ..data.pipeline import TABLE_STATS
+from ..device import resolve_device
+from ..dsgd import allreduce_train_step, dsgd_train_step, init_dsgd_state
+from ..models import param_count
+from ..optim import make_optimizer, warmup_cosine
+from .steps import topology_for
+
+__all__ = ["main", "parse_args"]
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="reduced config of the same family (CPU-sized)")
+    ap.add_argument("--workers", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=4, help="per-worker batch")
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--topo", default="ba",
+                    choices=["ba", "ring", "exponential", "equistatic", "torus"])
+    ap.add_argument("--r", type=int, default=None, help="edge budget (default 2n)")
+    ap.add_argument("--node-bw", default=None,
+                    help="comma-separated per-node GB/s — optimizes the BA "
+                         "topology under the §VI-A2 node scenario")
+    ap.add_argument("--topo-cache", default=None,
+                    help="JSON file of solved BA topologies "
+                         "(default benchmarks/artifacts/topo_cache_torch.json)")
+    ap.add_argument("--sync", default="gossip", choices=["gossip", "allreduce"])
+    ap.add_argument("--optimizer", default="sgd", choices=["sgd", "adamw"])
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--use-kernel", action=argparse.BooleanOptionalAction, default=True,
+                    help="gossip through the gossip_mix_batched kernel (default); "
+                         "--no-use-kernel takes the dense W matmul")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--json-out", default=None)
+    return ap.parse_args(argv)
+
+
+def main(argv=None, *, on_step: Callable | None = None) -> dict:
+    """Run the training loop; returns what ``--json-out`` writes. ``on_step``
+    (for callers in Python) is called as ``on_step(step, state, metrics)``
+    after every step."""
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = reduced_for_smoke(cfg)
+    n = args.workers
+
+    lr = warmup_cosine(args.lr, max(args.steps // 20, 1), args.steps)
+    opt_init, opt_update = make_optimizer(args.optimizer, lr)
+
+    node_bw = [float(v) for v in args.node_bw.split(",")] if args.node_bw else None
+    t0 = time.perf_counter()
+    topo = topology_for(n, kind=args.topo, r=args.r, seed=args.seed, node_bw=node_bw,
+                        device=dev, cache_path=args.topo_cache)
+    topo_s = time.perf_counter() - t0
+    if args.sync == "allreduce":
+        step = allreduce_train_step(cfg, n, opt_update, device=dev)
+        sync_desc = "allreduce"
+    else:
+        step = dsgd_train_step(cfg, topo, opt_update, use_kernel=args.use_kernel, device=dev)
+        sync_desc = f"gossip[{topo.name}] r_asym={topo.r_asym():.3f}"
+
+    # the paper's wall-clock model for this topology (Eq. 34/35)
+    pc = PaperConstants()
+    b_min = min_edge_bandwidth(homo_edge_bandwidth(topo)) if len(topo.edges) else pc.b_avail
+    iter_time = t_iter(b_min, pc) / 1e3  # s
+
+    state = init_dsgd_state(args.seed, cfg, n, opt_init, device=dev)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq, batch_size=args.batch,
+                    seed=args.seed, frontend_tokens=cfg.frontend_tokens, d_model=cfg.d_model)
+    bigram_table(cfg.vocab_size, args.seed)
+
+    print(f"arch={cfg.name} workers={n} device={dev} sync={sync_desc} "
+          f"modelled t_iter={iter_time * 1e3:.2f}ms (paper Eq. 34)", flush=True)
+    history, step_ms = [], []
+    start = time.perf_counter()
+    modeled_ms = 0.0
+    for s in range(args.steps):
+        t_step = time.perf_counter()
+        per = [lm_batch_numpy(dc, s, node=i) for i in range(n)]
+        batch = {k: torch.from_numpy(np.stack([b[k] for b in per])).to(dev) for k in per[0]}
+        state, metrics = step(state, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        step_ms.append(1e3 * (time.perf_counter() - t_step))
+        modeled_ms += iter_time * 1e3
+        if on_step is not None:
+            on_step(s, state, metrics)
+        if s % args.log_every == 0 or s == args.steps - 1:
+            m = {k: float(v) for k, v in metrics.items()}
+            m.update(step=s, wall_s=round(time.perf_counter() - start, 1),
+                     modelled_time_s=round(modeled_ms / 1e3, 4))
+            history.append(m)
+            print("  " + json.dumps(m), flush=True)
+    out = {"config": vars(args), "arch": cfg.name, "device": str(dev),
+           "param_count_per_worker": param_count(state.params) // n,
+           "topology": topo.name, "edges": len(topo.edges),
+           "r_asym": topo.r_asym() if len(topo.edges) else None,
+           "topology_s": topo_s, "bigram_table": TABLE_STATS.get((cfg.vocab_size, args.seed)),
+           "step_ms": step_ms, "history": history}
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(out, f, indent=1)
+        print(f"wrote {args.json_out}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -10,7 +10,12 @@ This file imports no JAX, so it also runs where JAX is not installed.
 Tolerances: L(g) within 1e-12 (fp64) or 1e-5 × the largest row sum
 (fp32); the quadratic form bitwise; the hop and its counts exactly; one
 float64 ADMM step card vs CPU within 1e-9; ``aspl_matmul`` bit-equal to
-``graph.aspl``.
+``graph.aspl``; the gossip kernels within one ulp of the output dtype (none
+for fp32) plus the float32 summation bound (deg+2)·2⁻²⁴·Σ|w·x| of their
+plain versions, which sum the neighbour terms in another order; the row
+loop of one-worker kernels bitwise equal to the batched kernel (the same
+products added in the same order); three DSGD steps of reduced smollm,
+card vs CPU, within 1e-4 relative in the losses.
 """
 import numpy as np
 import pytest
@@ -23,6 +28,7 @@ from repro_torch.core import graph as t_graph  # noqa: E402
 from repro_torch.core.anneal import greedy_degree_graph  # noqa: E402
 from repro_torch.core.warmstart import anneal_topology_batched, aspl_matmul  # noqa: E402
 from repro_torch.kernels.edge_laplacian import ops as tel  # noqa: E402
+from repro_torch.kernels.gossip_mix import ops as tgm  # noqa: E402
 from repro_torch.kernels.hop_bfs import ops as thop  # noqa: E402
 
 
@@ -152,3 +158,120 @@ def test_device_sa_on_card_keeps_invariants(cuda):
         d1 = np.bincount(np.asarray(e1).reshape(-1), minlength=n)
         assert (d0 == d1).all() and t_graph.is_connected(n, e1)
         assert t_graph.aspl(n, e1) <= t_graph.aspl(n, e0)
+
+
+def _gossip_table(n, deg, rng):
+    """A padded neighbour table of max degree ``deg``: row i's first k_i ≤
+    deg slots are distinct other rows, the rest point at i with weight 0."""
+    idx = np.empty((n, deg), np.int32)
+    w = np.zeros((n, deg + 1), np.float32)
+    for i in range(n):
+        others = [j for j in range(n) if j != i]
+        k = min(deg, len(others), int(rng.integers(1, deg + 1)) if i % 2 else deg)
+        pick = rng.choice(others, size=k, replace=False) if k else []
+        idx[i, :k] = pick
+        idx[i, k:] = i
+        ws = rng.random(k + 1)
+        w[i, :k + 1] = ws / ws.sum()
+    return idx, w
+
+
+def _gossip_tol(got, want, terms, deg, dtype):
+    """Per element: one ulp of ``dtype`` at the larger result (0 for fp32)
+    plus the float32 summation bound over the terms Σ|w·x|."""
+    bound = (deg + 2) * 2.0 ** -24 * terms
+    if dtype == torch.float32:
+        return bound
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    return bound + torch.ldexp(torch.full_like(bound, torch.finfo(dtype).eps), e - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("n,shape,deg", [(8, (130,), 3), (4, (4, 7), 1), (8, (8, 130), 7),
+                                         (3, (1000003,), 2), (6, (64, 64), 5), (1, (5,), 1),
+                                         (8, (17280,), 5)])
+def test_gossip_mix_batched_kernel_on_card(cuda, dtype, n, shape, deg):
+    rng = np.random.default_rng(n * 31 + deg)
+    idx_np, w_np = _gossip_table(n, deg, rng)
+    idx, w = torch.from_numpy(idx_np).to(cuda), torch.from_numpy(w_np).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n,) + shape).astype(np.float32)).to(cuda, dtype)
+    before = tgm.gossip_mix_batched.launches
+    got = tgm.gossip_mix_batched(x, idx, w)
+    want = tgm.gossip_mix_batched_plain(x, idx, w)
+    torch.cuda.synchronize()
+    assert tgm.gossip_mix_batched.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    terms = tgm.gossip_mix_batched_plain(x.double().abs(), idx, w.abs()).float()
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= _gossip_tol(got.float(), want.float(), terms, deg, dtype)).all())
+    # the row loop of one-worker kernels: the same sums in the same order
+    rows = torch.stack([tgm.gossip_mix(x[i], x[idx[i].long()], w[i].contiguous())
+                        for i in range(n)])
+    torch.cuda.synchronize()
+    assert torch.equal(rows, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,deg", [(130, 0), (7, 1), (4099, 5), (1 << 20, 7)])
+def test_gossip_mix_one_worker_kernel_on_card(cuda, dtype, M, deg):
+    rng = np.random.default_rng(M + deg)
+    x = torch.from_numpy(rng.standard_normal(M).astype(np.float32)).to(cuda, dtype)
+    nbrs = torch.from_numpy(rng.standard_normal((deg, M)).astype(np.float32)).to(cuda, dtype)
+    w_np = rng.random(deg + 1).astype(np.float32)
+    w = torch.from_numpy(w_np / w_np.sum()).to(cuda)
+    before = tgm.gossip_mix.launches
+    got = tgm.gossip_mix(x, nbrs, w)
+    want = tgm.gossip_mix_plain(x, nbrs, w)
+    torch.cuda.synchronize()
+    assert tgm.gossip_mix.launches == before + 1
+    terms = tgm.gossip_mix_plain(x.double().abs(), nbrs.double().abs(), w.abs()).float()
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= _gossip_tol(got.float(), want.float(), terms, deg, dtype)).all())
+
+
+@pytest.mark.cuda
+def test_gossip_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.zeros((4, 6), device=cuda)
+    idx = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    w = torch.zeros((4, 3), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgm.gossip_mix_batched(torch.zeros((6, 4), device=cuda).t(), idx, w)
+    with pytest.raises(TypeError, match="int32"):
+        tgm.gossip_mix_batched(x, idx.long(), w)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        tgm.gossip_mix_batched(x.double(), idx, w)
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        tgm.gossip_mix_batched(x, idx.cpu(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgm.gossip_mix(x[:, 0], torch.zeros((2, 4), device=cuda), torch.zeros(3, device=cuda))
+
+
+@pytest.mark.cuda
+def test_dsgd_steps_card_match_cpu(cuda):
+    from repro_torch.configs import get_arch, reduced_for_smoke
+    from repro_torch.core.topologies import make_baseline
+    from repro_torch.data import DataConfig, lm_batch_numpy
+    from repro_torch.dsgd import dsgd_train_step, init_dsgd_state
+    from repro_torch.optim import make_optimizer, warmup_cosine
+
+    cfg = reduced_for_smoke(get_arch("smollm-135m"))
+    n = 4
+    init, upd = make_optimizer("sgd", warmup_cosine(0.05, 1, 3))
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch_size=2, seed=0)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        state = init_dsgd_state(0, cfg, n, init, device=dev)
+        step = dsgd_train_step(cfg, make_baseline("ring", n), upd, device=dev)
+        kernels.reset_launch_counts()
+        losses[dev] = []
+        for s in range(3):
+            per = [lm_batch_numpy(dc, s, node=i) for i in range(n)]
+            batch = {k: torch.from_numpy(np.stack([b[k] for b in per])).to(dev) for k in per[0]}
+            state, m = step(state, batch)
+            losses[dev].append(float(m["loss"]))
+        if dev == "cuda":
+            assert kernels.launch_counts()["gossip_mix_batched"] == 3 * 11
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert abs(a - b) <= 1e-4 * abs(b)

@@ -23,6 +23,7 @@ from repro.kernels.hop_bfs import ops as jhop  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.edge_laplacian import ops as tel  # noqa: E402
+from repro_torch.kernels.gossip_mix import ops as tgm  # noqa: E402
 from repro_torch.kernels.hop_bfs import ops as thop  # noqa: E402
 
 
@@ -130,8 +131,12 @@ def test_cpu_path_never_counts_a_launch():
     tel.edge_laplacian(torch.rand(6, dtype=torch.float64), 4)
     tel.edge_quadform(torch.rand(4, 4), torch.tensor([0, 1]), torch.tensor([2, 3]))
     thop.hop_step(torch.ones(1, 4, 4, dtype=torch.bool), torch.ones(1, 4, 4, dtype=torch.bool))
+    tgm.gossip_mix_batched(torch.rand(3, 5), torch.zeros(3, 1, dtype=torch.int32),
+                           torch.rand(3, 2))
+    tgm.gossip_mix(torch.rand(5), torch.rand(2, 5), torch.rand(3))
     assert kernels.launch_counts() == {"edge_laplacian": 0, "edge_quadform": 0,
-                                       "hop_step": 0}
+                                       "hop_step": 0, "gossip_mix_batched": 0,
+                                       "gossip_mix": 0}
 
 
 def test_packed_edge_index_is_lexicographic():
