@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel against its plain PyTorch version at its path's shapes and times it,
-and drives the port's two paths on ``cuda``:
+and drives the port's three paths on ``cuda``:
 
 - the topology solve (``solve_topology`` at n=64, r=128 and the n=16 BCube
   scenario), checked against the CPU at n=16, evaluated by consensus
@@ -14,7 +14,15 @@ and drives the port's two paths on ``cuda``:
   (r=16) solved on the card, 10 steps, every gossip through the
   ``gossip_mix_batched`` kernel; then the row-loop oracle of one-worker
   ``gossip_mix`` kernels on the trained leaves, reduced smollm card vs CPU,
-  and one profiled full-width train step.
+  and one profiled full-width train step;
+- serving through the launcher (``repro_torch.launch.serve``): smollm-135m
+  at full width (batch 16, 2,048-token prompts, 128 new tokens), every
+  attention decode through the ``decode_attention`` kernel, and
+  mamba2-780m at full width (batch 8, 1,024-token prompts, 64 new tokens),
+  every SSD chunk of its prefill through ``ssd_intra_chunk``; then both
+  kernels at their serving shapes and at gemma2-9b's, reduced smollm,
+  gemma2 (long context) and mamba2 card vs CPU, and one profiled
+  full-width decode step.
 
 Every phase prints one JSON line; any failure raises and the script exits
 non-zero. Each path's kernel launches are counted from 0 over that path
@@ -28,8 +36,10 @@ numpy and ``repro_torch`` (from ``src/`` beside this file).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import types
 import subprocess
 import sys
 import time
@@ -37,6 +47,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -45,11 +56,14 @@ PATH_KERNELS = {
     "solve": ("edge_laplacian", "edge_quadform", "hop_step"),
     "dsgd": ("edge_laplacian", "edge_quadform", "hop_step", "gossip_mix_batched"),
     "rowloop": ("gossip_mix",),
+    "serve_dense": ("decode_attention",),
+    "serve_ssm": ("ssd_intra_chunk",),
 }
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM memory rate (NVIDIA data sheet)
 INT8_OP_PER_S = 1.979e15        # H100 SXM dense int8 tensor-core rate
+FP32_OP_PER_S = 67e12           # H100 SXM float32 rate outside the tensor cores
 TIMED_LAUNCHES = 1000
 WARMUP_LAUNCHES = 50
 
@@ -785,6 +799,345 @@ def phase_dsgd_card_vs_cpu() -> None:
     assert loss_rel <= 1e-4, f"DSGD card vs CPU: losses differ by {loss_rel} relative"
 
 
+# ---------------------------------------------------------------------------
+# phase 12: serving — the two serving kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _ulp(x: torch.Tensor, dtype) -> torch.Tensor:
+    """One ulp of ``dtype`` at |x| (zero for float32, whose bound is the
+    float32 summation bound alone)."""
+    if dtype == torch.float32:
+        return torch.zeros_like(x)
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.full_like(x, torch.finfo(dtype).eps), e - 1)
+
+
+def _decode_check(q, k, v, valid, cap) -> tuple[float, float, bool]:
+    """Max |kernel − plain|, its largest share of the tolerance, and whether
+    it is within: the float32 bound of ``decode_attention_bound`` plus, for
+    a bf16 or fp16 output, one ulp at the larger result."""
+    from repro_torch.kernels.decode_attention import ops as dec
+
+    got = dec.decode_attention(q, k, v, valid, attn_softcap=cap).float()
+    want = dec.decode_attention_plain(q, k, v, valid, attn_softcap=cap).float()
+    tol = dec.decode_attention_bound(q, k, v, valid, attn_softcap=cap)
+    tol = tol + _ulp(torch.maximum(got.abs(), want.abs()), q.dtype)
+    err = (got - want).abs()
+    return float(err.max()), float((err / tol.clamp_min(1e-30)).max()), bool((err <= tol).all())
+
+
+def _decode_case(B, C, Hq, Hkv, hd, dtype, cap, valid, gen) -> dict:
+    from repro_torch.kernels.decode_attention import ops as dec
+
+    q = torch.randn((B, Hq, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, C, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, C, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    err, share, ok = _decode_check(q, k, v, valid, cap)
+    library = None
+    if not cap:
+        q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        mask = valid[None, None, None, :]
+
+        def library():           # one PyTorch call of the same function
+            return torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, enable_gqa=True)
+    n_valid = int(valid.sum())
+    size = q.element_size()
+    # q read and the output written once, K and V of the valid keys read once
+    # (a masked key's values are not needed), the mask read once; the
+    # q·k and p·v products are 4·hd flops per (query head, valid key)
+    nbytes = 2 * B * Hq * hd * size + 2 * B * n_valid * Hkv * hd * size + C
+    flops = 4 * B * Hq * n_valid * hd
+    t = timings(lambda: dec.decode_attention(q, k, v, valid, attn_softcap=cap),
+                lambda: dec.decode_attention_plain(q, k, v, valid, attn_softcap=cap), library)
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / FP32_OP_PER_S
+    return dict(kernel="decode_attention", B=B, C=C, Hq=Hq, Hkv=Hkv, hd=hd,
+                dtype=str(dtype).replace("torch.", ""), softcap=cap, valid_keys=n_valid,
+                splits=dec.num_splits(B, Hkv, Hq // Hkv, C, torch.cuda.get_device_properties(
+                    0).multi_processor_count),
+                max_abs_err=err, share_of_tol=share, within=ok, **t,
+                bound_ms=1e3 * max(bytes_s, ops_s),
+                bound_by="operations" if ops_s > bytes_s else "bytes")
+
+
+def _ssd_check(args) -> tuple[float, float, bool]:
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    y, st = ssd.ssd_intra_chunk(*args)
+    wy, wst = ssd.ssd_intra_chunk_plain(*args)
+    by, bst = ssd.ssd_intra_chunk_bound(*args)
+    ey, est = (y - wy).abs(), (st - wst).abs()
+    share = max(float((ey / by.clamp_min(1e-30)).max()), float((est / bst.clamp_min(1e-30)).max()))
+    return (max(float(ey.max()), float(est.max())), share,
+            bool((ey <= by).all() and (est <= bst).all()))
+
+
+def _ssd_work(Bsz, nc, Q, H, P, N, size) -> tuple[float, float]:
+    """Bytes (inputs read once, outputs written once) and float32 operations
+    of one call, the causal half of G and of M·x only."""
+    tri = Q * (Q + 1) // 2
+    nbytes = (Bsz * nc * (Q * H * P * size + 2 * Q * H * 4 + 2 * Q * N * size)
+              + Bsz * nc * (Q * H * P + H * P * N) * 4)
+    flops = Bsz * nc * (2 * tri * N + H * (2 * tri * P + 4 * tri) + H * (2 * Q * P * N + Q * N))
+    return nbytes, flops
+
+
+def _ssd_case(Bsz, Q, H, P, N, dtype, gen, strided: bool) -> dict:
+    """One chunk (nc = 1) of a sequence, as the model calls the kernel. With
+    ``strided`` x, B and C are column slices of one (B, Q, d_inner + 2N)
+    conv output and the chunk a slice of two, as in mamba2_forward."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    di = H * P
+    xbc = torch.randn((Bsz, 2 * Q, di + 2 * N), generator=gen, device="cuda").to(dtype)
+    chunk = xbc[:, None, :Q] if strided else xbc[:, None, :Q].contiguous()
+    x = chunk[..., :di].unflatten(-1, (H, P))
+    Bm, Cm = chunk[..., di:di + N], chunk[..., di + N:]
+    dt = torch.nn.functional.softplus(torch.randn((Bsz, 1, Q, H), generator=gen,
+                                                  device="cuda"))
+    A = -torch.rand(H, generator=gen, device="cuda") - 0.05
+    la = torch.cumsum(A * dt, dim=2)
+    if not strided:
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    args = (x, dt, la, Bm, Cm)
+    err, share, ok = _ssd_check(args)
+    nbytes, flops = _ssd_work(Bsz, 1, Q, H, P, N, x.element_size())
+    big = Q * H >= 4096
+    t = (large_timings if big else timings)(lambda: ssd.ssd_intra_chunk(*args),
+                                            lambda: ssd.ssd_intra_chunk_plain(*args))
+    if big:                       # the kernel itself from a CUDA graph
+        t["ms"] = device_ms(lambda: ssd.ssd_intra_chunk(*args), launches=200)
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / FP32_OP_PER_S
+    return dict(kernel="ssd_intra_chunk", B=Bsz, nc=1, Q=Q, H=H, P=P, N=N,
+                dtype=str(dtype).replace("torch.", ""), strided=strided,
+                plan=ssd.kernel_plan(Q, H, P, N), max_abs_err=err, share_of_tol=share,
+                within=ok, **t, bound_ms=1e3 * max(bytes_s, ops_s),
+                bound_by="operations" if ops_s > bytes_s else "bytes", flops=flops,
+                bytes=nbytes)
+
+
+def phase_serve_kernels() -> dict:
+    """decode_attention at main_serve_dense's shape (B 16, C 2184, 9/3 heads,
+    hd 64, bf16, the valid keys of decode step 64), with a valid key only in
+    the last slot, at gemma2-9b's shape (B 4, C 4224, 16/8 heads, hd 256,
+    softcap 50, a 4,096 window that masks the early positions) in bf16 and
+    fp32, and at a ring-cache mask; ssd_intra_chunk at main_serve_ssm's shape
+    (B 8, Q 256, H 48, P 64, N 128, bf16) as the model hands it over (column
+    slices) and contiguous, and at the reduced shape (Q 32, H 8, P 32, N 16,
+    fp32). Returns the main-shape case per kernel."""
+    from repro_torch.models.attention import decode_valid
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cases = [
+        _decode_case(16, 2184, 9, 3, 64, torch.bfloat16, 0.0,
+                     decode_valid(2184, 2048 + 64, device="cuda"), gen),
+        _decode_case(16, 2184, 9, 3, 64, torch.bfloat16, 0.0,
+                     torch.arange(2184, device="cuda") == 2183, gen),
+        _decode_case(4, 4224, 16, 8, 256, torch.bfloat16, 50.0,
+                     decode_valid(4224, 4200, 4096, device="cuda"), gen),
+        _decode_case(4, 4224, 16, 8, 256, torch.float32, 50.0,
+                     decode_valid(4224, 4200, 4096, device="cuda"), gen),
+        _decode_case(4, 4096, 16, 8, 256, torch.bfloat16, 50.0,
+                     decode_valid(4096, 2500, ring=True, device="cuda"), gen),
+        _ssd_case(8, 256, 48, 64, 128, torch.bfloat16, gen, strided=True),
+        _ssd_case(8, 256, 48, 64, 128, torch.bfloat16, gen, strided=False),
+        _ssd_case(2, 32, 8, 32, 16, torch.float32, gen, strided=True),
+    ]
+    torch.cuda.synchronize()
+    emit("serve_kernel_checks", cases=cases,
+         library_note="decode_attention: torch.nn.functional.scaled_dot_product_attention("
+                      "enable_gqa=True, boolean mask), at the shapes without softcap; "
+                      "ssd_intra_chunk: no single PyTorch call computes it")
+    bad = [c for c in cases if not c["within"]]
+    assert not bad, f"serving kernels outside their tolerance: {bad}"
+    return {"decode_attention": cases[0], "ssd_intra_chunk": cases[5]}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: serving at full width through the launcher
+# ---------------------------------------------------------------------------
+
+SERVE_DENSE_ARGS = ["--arch", "smollm-135m", "--batch", "16", "--prompt-len", "2048",
+                    "--max-new", "128", "--seed", "0", "--device", "cuda"]
+SERVE_SSM_ARGS = ["--arch", "mamba2-780m", "--batch", "8", "--prompt-len", "1024",
+                  "--max-new", "64", "--seed", "0", "--device", "cuda"]
+
+
+def _serve(label: str, argv: list, kernel: str, per_run: int, checked: dict) -> dict:
+    """One launcher run with every kernel count from 0; ``checked`` collects
+    the path's first launch, held against the plain version on the same
+    inputs (the check's own calls are not counted)."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    toks = np.array(res["tokens"])
+    batch, new = int(argv[argv.index("--batch") + 1]), int(argv[argv.index("--max-new") + 1])
+    vocab = {"smollm-135m": 49152, "mamba2-780m": 50280}[res["arch"]]
+    out = {k: res[k] for k in ("arch", "param_count", "cache_len", "prefill_ms",
+                               "steady_step_ms", "tokens_per_s", "decode_tokens_per_s",
+                               "max_memory_allocated_bytes", "wall_s")}
+    out.update(batch=batch, generated_per_request=res["generated_per_request"],
+               step_ms_min=min(res["step_ms"]), step_ms_max=max(res["step_ms"]),
+               first_tokens=toks[:2, :8].tolist(), launches=launches, wall_s_outer=wall_s,
+               first_launch_vs_plain=checked)
+    emit(label, **out)
+    assert toks.shape == (batch, new) and (toks >= 0).all() and (toks < vocab).all(), \
+        f"{label}: tokens of shape {toks.shape} outside [0, {vocab})"
+    assert launches[kernel] == per_run, f"{label}: {kernel} launched {launches[kernel]} " \
+                                        f"times, expected {per_run}"
+    path = "serve_dense" if kernel == "decode_attention" else "serve_ssm"
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+    assert not missing, f"{label}: kernels never launched on the path: {missing}"
+    assert checked.get("within"), f"{label}: the first {kernel} launch is outside " \
+                                  f"its tolerance: {checked}"
+    return dict(res=res, launches=launches)
+
+
+@contextlib.contextmanager
+def _first_launch_checked(owner, attr: str, name: str, check):
+    """For the block, ``owner.<attr>`` (the kernel's ops module as a model
+    module holds it) becomes a namespace whose ``name`` launches the kernel
+    and, on its first call only, records ``check(*args, **kw)``: the kernel
+    held against its plain version on the path's own inputs, that check's
+    launch taken off the count. Yields the record."""
+    ops = getattr(owner, attr)
+    real = getattr(ops, name)
+    record: dict = {}
+
+    def wrapped(*args, **kw):
+        out = real(*args, **kw)
+        if not record:
+            n = real.launches
+            record.update(check(*args, **kw))
+            real.launches = n
+        return out
+
+    setattr(owner, attr, types.SimpleNamespace(**{name: wrapped}))
+    try:
+        yield record
+    finally:
+        setattr(owner, attr, ops)
+
+
+def phase_serve_dense() -> dict:
+    """smollm-135m at full width: 30 decode_attention launches per decode
+    step, 127 steps. The first launch (layer 0 of the first decode step, on
+    the real cache) is also held against the plain version."""
+    from repro_torch.models import attention
+
+    def check(q, k, v, valid, *, attn_softcap=0.0):
+        err, share, ok = _decode_check(q, k, v, valid, attn_softcap)
+        return dict(max_abs_err=err, share_of_tol=share, within=ok, C=int(k.shape[1]),
+                    valid_keys=int(valid.sum()))
+
+    with _first_launch_checked(attention, "_dec_ops", "decode_attention", check) as rec:
+        return _serve("main_serve_dense", SERVE_DENSE_ARGS, "decode_attention", 30 * 127, rec)
+
+
+def phase_serve_ssm() -> dict:
+    """mamba2-780m at full width: 4 ssd_intra_chunk launches per layer of
+    the prefill, 192 in all. The first launch (layer 0, chunk 0, the
+    model's strided slices) is also held against the plain version, and
+    the peak memory is counted from just after that check."""
+    from repro_torch.models import ssm
+
+    def check(*args):
+        err, share, ok = _ssd_check(args)
+        # the check's own scratch (the plain version's Q×Q×H blocks) stays
+        # out of the serving peak: the later chunks and layers reach the
+        # same peak as this one
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return dict(max_abs_err=err, share_of_tol=share, within=ok,
+                    x_strides=list(args[0].stride()))
+
+    with _first_launch_checked(ssm, "_ssd_ops", "ssd_intra_chunk", check) as rec:
+        return _serve("main_serve_ssm", SERVE_SSM_ARGS, "ssd_intra_chunk", 48 * 4, rec)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: serving on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def phase_serve_card_vs_cpu() -> None:
+    """Reduced fp32 smollm, gemma2 (long context: every layer windowed, a
+    ring cache of the 16-token window under a 24-token prompt) and mamba2:
+    the same weights and prompts on the card (kernels) and on the CPU (plain
+    versions). Prefill logits and the logits of 8 decode steps agree within
+    1e-5 relative to their largest magnitude, and the greedy tokens are
+    equal. With the CPU against the JAX package (tests/test_torch_serve.py,
+    tests/test_torch_ssm.py) this closes the chain JAX ⇄ port (CPU) ⇄ port
+    (card)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch, reduced_for_smoke
+    from repro_torch.models import transformer
+
+    rows = []
+    for arch, long_context, S in (("smollm-135m", False, 24), ("gemma2-9b", True, 24),
+                                  ("mamba2-780m", False, 70)):
+        cfg = reduced_for_smoke(get_arch(arch))
+        params = transformer.init_params(0, cfg)
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            1, cfg.vocab_size, (2, S)).astype(np.int64))
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            p = tree_map(lambda t: t.to(dev), params)
+            kernels.reset_launch_counts()
+            logits, caches = transformer.prefill(p, cfg, {"tokens": prompts.to(dev)},
+                                                 long_context=long_context)
+            seq, toks = [logits.float().cpu()], []
+            for t in range(8):
+                tok = logits[:, -1].argmax(-1)[:, None]
+                toks.append(tok.cpu())
+                logits, caches = transformer.decode_step(p, cfg, tok, caches, S + t,
+                                                         long_context=long_context)
+                seq.append(logits.float().cpu())
+            runs[dev] = (seq, torch.cat(toks, 1), kernels.launch_counts())
+        (gseq, gtok, glaunch), (cseq, ctok, _) = runs["cuda"], runs["cpu"]
+        rel = max(float((g - c).abs().max()) / float(c.abs().max()) for g, c in zip(gseq, cseq))
+        rows.append(dict(arch=cfg.name, long_context=long_context, prompt=S,
+                         logits_max_rel_diff=rel, tokens_equal=bool(torch.equal(gtok, ctok)),
+                         tokens=gtok.tolist(), launches_cuda={k: v for k, v in glaunch.items()
+                                                              if v}))
+    emit("serve_card_vs_cpu", rows=rows)
+    for r in rows:
+        assert r["logits_max_rel_diff"] <= 1e-5, f"serve card vs CPU {r['arch']}: {r}"
+        assert r["tokens_equal"], f"serve card vs CPU {r['arch']}: tokens differ"
+        kernel = "ssd_intra_chunk" if r["arch"].startswith("mamba2") else "decode_attention"
+        assert r["launches_cuda"].get(kernel, 0) > 0, f"{r['arch']}: {kernel} never launched"
+
+
+# ---------------------------------------------------------------------------
+# phase 15: where a full-width decode step's time goes
+# ---------------------------------------------------------------------------
+
+def phase_profile_serve() -> None:
+    """One decode step of main_serve_dense (smollm-135m, B 16, a 2,184-slot
+    cache filled by a 2,048-token prefill) under torch.profiler, after one
+    unprofiled warm-up step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+
+    cfg = get_arch("smollm-135m")
+    params = tree_map(lambda t: t.cuda(), transformer.init_params(0, cfg))
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (16, 2048)).astype(np.int64)).cuda()
+    logits, caches = transformer.prefill(params, cfg, {"tokens": prompts}, cache_cap=2184)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    logits, caches = transformer.decode_step(params, cfg, tok, caches, 2048)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    prof = _profiled(lambda: transformer.decode_step(params, cfg, tok, caches, 2049),
+                     match=("decode_attention",))
+    emit("profile_serve", arch=cfg.name, batch=16, cache_len=2184, pos=2049, step=prof)
+
+
 KERNEL_INFO = {
     "edge_laplacian": dict(route="cuda", source="src/repro_torch/csrc/edge_laplacian.cu",
                            replaces="src/repro/kernels/edge_laplacian/kernel.py:62"),
@@ -796,6 +1149,10 @@ KERNEL_INFO = {
                                replaces="src/repro/kernels/gossip_mix/kernel.py:50"),
     "gossip_mix": dict(route="cuda", source="src/repro_torch/csrc/gossip_mix.cu",
                        replaces="src/repro/kernels/gossip_mix/kernel.py:82"),
+    "decode_attention": dict(route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
+                             replaces="src/repro/kernels/decode_attention/kernel.py:71"),
+    "ssd_intra_chunk": dict(route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+                            replaces="src/repro/kernels/ssd_scan/kernel.py:60"),
 }
 
 
@@ -825,8 +1182,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_dsgd_card_vs_cpu()
 
+    timing.update(phase_serve_kernels())
+    dense = phase_serve_dense()
+    ssm_run = phase_serve_ssm()
+    phase_serve_card_vs_cpu()
+    phase_profile_serve()
+
     path_launches = {"gossip_mix_batched": dsgd_launches["gossip_mix_batched"],
-                     "gossip_mix": row_launches["gossip_mix"]}
+                     "gossip_mix": row_launches["gossip_mix"],
+                     "decode_attention": dense["launches"]["decode_attention"],
+                     "ssd_intra_chunk": ssm_run["launches"]["ssd_intra_chunk"]}
     rows = []
     for name, info in KERNEL_INFO.items():
         t = timing[name]

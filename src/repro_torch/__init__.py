@@ -1,5 +1,6 @@
 """PyTorch/CUDA port of ``repro``, the JAX package: the BA-Topo topology
-solver and DSGD training over the solved topology.
+solver, DSGD training over the solved topology, and serving (prefill and
+KV/SSM-cache decode).
 
 The package mirrors ``src/repro/`` module for module and never imports JAX
 or ``repro``: ``repro/core/__init__.py`` pulls in JAX, and the machine with
@@ -23,4 +24,4 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __all__ = ["configs", "convert", "core", "data", "device", "dsgd", "kernels", "launch",
-           "models", "optim"]
+           "models", "optim", "serve"]

@@ -18,11 +18,15 @@ from .core.constraints import ConstraintSet
 from .core.engine import ADMMState, ProblemSpec, split_lam
 from .device import resolve_device
 from .dsgd.trainer import DSGDState
+from .models.attention import KVCache
+from .models.ssm import SSMCache
+from .models.transformer import Caches
 from .optim import AdamWState, SGDState
 
 __all__ = ["spec_from_numpy", "state_from_numpy", "state_to_numpy",
            "lam_to_numpy", "constraints_from_numpy", "model_params_from_numpy",
-           "model_params_to_numpy", "dsgd_state_from_numpy"]
+           "model_params_to_numpy", "dsgd_state_from_numpy", "caches_from_numpy",
+           "caches_to_numpy"]
 
 
 def _t(a, dtype, dev):
@@ -120,13 +124,39 @@ def model_params_from_numpy(tree, device: str = "cuda") -> dict:
     return _leaf(tree, dev)
 
 
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bfloat16 comes back as float32 (exact)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def model_params_to_numpy(params) -> dict:
     """The port's parameter dict as numpy leaves, with the reference's keys;
     bfloat16 leaves come back as float32 (exact)."""
     if isinstance(params, dict):
         return {k: model_params_to_numpy(v) for k, v in params.items()}
-    t = params.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return _to_numpy(params)
+
+
+def caches_from_numpy(ref, device: str = "cuda") -> Caches:
+    """The port's :class:`Caches` from the reference's ``Caches`` with numpy
+    leaves (``kv`` a ``KVCache`` (k, v), ``ssm`` an ``SSMCache`` (conv,
+    state), unused fields ``()``); dtypes kept, bfloat16 bit for bit."""
+    dev = resolve_device(device)
+    kv = KVCache(*(_leaf(a, dev) for a in ref.kv)) if len(ref.kv) else ()
+    ssm = SSMCache(*(_leaf(a, dev) for a in ref.ssm)) if len(ref.ssm) else ()
+    if len(ref.shared_kv) or len(ref.cross_kv):
+        raise NotImplementedError("hybrid and audio caches are not ported yet (ROADMAP.md, "
+                                  "Queue 1, 'Non-dense model families')")
+    return Caches(kv=kv, ssm=ssm)
+
+
+def caches_to_numpy(caches: Caches) -> Caches:
+    """The port's caches as numpy leaves in the same ``Caches`` / ``KVCache``
+    / ``SSMCache`` layout (field names as the reference's); bfloat16 leaves
+    come back as float32 (exact)."""
+    return Caches(*(type(f)(*(_to_numpy(t) for t in f)) if len(f) else ()
+                    for f in caches))
 
 
 def dsgd_state_from_numpy(ref, device: str = "cuda") -> DSGDState:

@@ -2,15 +2,19 @@
 
 ``edge_laplacian`` (L(g) and the per-edge quadratic form of the ADMM
 constraint operator), ``hop_bfs`` (one matmul-BFS hop of the SA warm
-start) and ``gossip_mix`` (Eq. 1 neighbour mixing of DSGD gossip, batched
-over workers and for one worker). Sources live in ``repro_torch/csrc``;
-:mod:`.build` compiles them at first use.
+start), ``gossip_mix`` (Eq. 1 neighbour mixing of DSGD gossip, batched
+over workers and for one worker), ``decode_attention`` (one-token GQA
+attention over a KV cache) and ``ssd_scan`` (the Mamba-2 SSD intra-chunk
+dual form). Sources live in ``repro_torch/csrc``; :mod:`.build` compiles
+them at first use.
 """
 from __future__ import annotations
 
+from .decode_attention import ops as _dec_ops
 from .edge_laplacian import ops as _el_ops
 from .gossip_mix import ops as _gossip_ops
 from .hop_bfs import ops as _hop_ops
+from .ssd_scan import ops as _ssd_ops
 
 __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts"]
 
@@ -21,6 +25,8 @@ WRAPPERS = {
     "hop_step": _hop_ops.hop_step,
     "gossip_mix_batched": _gossip_ops.gossip_mix_batched,
     "gossip_mix": _gossip_ops.gossip_mix,
+    "decode_attention": _dec_ops.decode_attention,
+    "ssd_intra_chunk": _ssd_ops.ssd_intra_chunk,
 }
 
 

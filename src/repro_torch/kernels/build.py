@@ -26,7 +26,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "parse_ptxas"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("edge_laplacian", "hop_bfs", "gossip_mix")
+SOURCES = ("edge_laplacian", "hop_bfs", "gossip_mix", "decode_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

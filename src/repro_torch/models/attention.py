@@ -1,29 +1,48 @@
 """Grouped-query attention with full / sliding-window masks, optional score
-soft-capping (Gemma-2) and QKV bias (Qwen1.5): the full-sequence (train)
-path of ``repro/models/attention.py``.
+soft-capping (Gemma-2) and QKV bias (Qwen1.5); the full-sequence (train and
+prefill) and single-token decode paths of ``repro/models/attention.py``,
+with an explicit KV cache.
 
 Shapes:
   x              (B, S, D)
   q              (B, S, Hq, hd)
   k, v           (B, S, Hkv, hd)
+  cache k/v      (B, C, Hkv, hd)   C = cache capacity (full sequence or window)
 
 Masked scores are −1e30 and the softmax runs in float32, as in the
 reference. ``attend_full`` takes the score product in the input dtype and
-only then casts to float32, which is where the reference rounds. The KV
-cache and the single-token decode path wait for the serving slice.
+only then casts to float32, which is where the reference rounds. The
+reference returns a new cache and donates the old one; here the cache is
+written in place and returned.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..kernels.decode_attention import ops as _dec_ops
 from .common import apply_rope, dense_init, softcap
 
-__all__ = ["init_attn", "attend_full", "attend_chunked", "attn_forward"]
+__all__ = ["init_attn", "attend_full", "attend_chunked", "attn_forward", "attn_decode",
+           "decode_valid", "KVCache", "init_kv_cache"]
 
 _MASKED = -1e30
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, C, Hkv, hd)
+    v: torch.Tensor
+    # the ring-buffer write slot follows from the absolute position
+
+
+def init_kv_cache(batch: int, capacity: int, kv_heads: int, head_dim: int, dtype,
+                  device=None) -> KVCache:
+    shape = (batch, capacity, kv_heads, head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
 
 
 def init_attn(gen: torch.Generator, cfg, dtype, lead: tuple = ()) -> dict:
@@ -124,14 +143,14 @@ def attend_chunked(q, k, v, window: int, attn_softcap: float = 0.0, *, chunk: in
     return out.reshape(B, S, Hq, hd).to(q.dtype)
 
 
-def attn_forward(params, x, cfg, *, window: int = 0, positions=None, cache=None,
-                 chunked: bool = True):
-    """Full-sequence forward (train). Returns ``(out, None)``: the second
-    slot is the reference's new KV cache, which the port does not build yet."""
-    if cache is not None:
-        raise NotImplementedError(
-            "attn_forward with a KV cache is not ported yet: it waits for the "
-            "serving slice (ROADMAP.md, Queue 1, 'Serving and decode')")
+def attn_forward(params, x, cfg, *, window: int = 0, positions=None,
+                 cache: KVCache | None = None, chunked: bool = True):
+    """Full-sequence forward (train / prefill). Returns ``(out, cache)``.
+
+    With a cache of capacity C ≥ S, k and v go to slots [0, S) (the
+    reference's ``dynamic_update_slice`` at 0); with C < S the cache keeps
+    the last C positions at slot = position mod C (the reference's
+    ``roll(k[:, S−C:], S mod C)``). The cache is written in place."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
@@ -142,5 +161,66 @@ def attn_forward(params, x, cfg, *, window: int = 0, positions=None, cache=None,
         out = attend_chunked(q, k, v, window, cfg.attn_logit_softcap)
     else:
         out = attend_full(q, k, v, _causal_mask(S, window, x.device), cfg.attn_logit_softcap)
+    if cache is not None:
+        C = cache.k.shape[1]
+        if cache.k.shape[0] != B or tuple(cache.k.shape[2:]) != tuple(k.shape[2:]):
+            raise ValueError(f"cache {tuple(cache.k.shape)} does not fit keys "
+                             f"{tuple(k.shape)}: need (B, C, Hkv, hd)")
+        if C >= S:
+            cache.k[:, :S] = k
+            cache.v[:, :S] = v
+        else:
+            cache.k.copy_(torch.roll(k[:, S - C:], S % C, dims=1))
+            cache.v.copy_(torch.roll(v[:, S - C:], S % C, dims=1))
     hd = cfg.resolved_head_dim
-    return out.reshape(B, S, cfg.num_heads * hd) @ params["wo"], None
+    return out.reshape(B, S, cfg.num_heads * hd) @ params["wo"], cache
+
+
+def decode_valid(C: int, pos: int, window: int = 0, *, ring: bool = False,
+                 device=None) -> torch.Tensor:
+    """(C,) bool: the cache slots a token at absolute position ``pos`` sees.
+    Ring caches hold slots [0, slot] until they wrap, then all of them; a
+    linear cache holds [0, slot], cut to the last ``window`` positions when
+    ``window`` > 0."""
+    idx = torch.arange(C, device=device)
+    if ring:
+        slot = pos % C
+        return (idx <= slot) | (pos >= C)
+    valid = idx <= min(pos, C - 1)
+    if window > 0:
+        valid = valid & (idx > pos - window)
+    return valid
+
+
+def attn_decode(params, x, cfg, cache: KVCache, pos: int, *, window: int = 0,
+                ring: bool = False, use_kernel: bool = True, valid=None):
+    """Single-token decode: x (B, 1, D); ``pos`` the absolute position.
+
+    Two cache regimes (chosen by the serving layer):
+      linear (C ≥ max position): slot = min(pos, C−1), the window enforced by
+        the mask;
+      ring (C == window): slot = pos mod C, the buffer itself is the window.
+    The new k, v go into the cache in place (the reference donates it). The
+    attention runs through the ``decode_attention`` kernel unless
+    ``use_kernel`` is False, which takes the reference's ``attend_full``
+    route. ``valid`` may carry :func:`decode_valid`'s mask, computed once
+    per step for every layer of one window. Returns (out (B, 1, D), cache)."""
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q, k, v = _qkv(params, x, cfg)
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    C = cache.k.shape[1]
+    slot = pos % C if ring else min(pos, C - 1)
+    cache.k[:, slot] = k[:, 0]
+    cache.v[:, slot] = v[:, 0]
+    if valid is None:
+        valid = decode_valid(C, pos, window, ring=ring, device=x.device)
+    if use_kernel:
+        out = _dec_ops.decode_attention(q[:, 0], cache.k, cache.v, valid,
+                                        attn_softcap=cfg.attn_logit_softcap)[:, None]
+    else:
+        out = attend_full(q, cache.k, cache.v, valid[None, None, None, :],
+                          cfg.attn_logit_softcap)
+    return out.reshape(B, 1, cfg.num_heads * hd) @ params["wo"], cache

@@ -15,12 +15,19 @@ for fp32) plus the float32 summation bound (deg+2)·2⁻²⁴·Σ|w·x| of their
 plain versions, which sum the neighbour terms in another order; the row
 loop of one-worker kernels bitwise equal to the batched kernel (the same
 products added in the same order); three DSGD steps of reduced smollm,
-card vs CPU, within 1e-4 relative in the losses.
+card vs CPU, within 1e-4 relative in the losses; ``decode_attention``
+within the float32 bound of ``decode_attention_bound`` plus one output ulp;
+``ssd_intra_chunk`` within the float32 bounds of ``ssd_intra_chunk_bound``;
+reduced fp32 serving (smollm, gemma2 long context, mamba2), card vs CPU,
+within 1e-5 relative in the logits of the prefill and 8 decode steps, with
+equal greedy tokens.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from torch.utils._pytree import tree_map  # noqa: E402
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.core import engine as te  # noqa: E402
@@ -275,3 +282,156 @@ def test_dsgd_steps_card_match_cpu(cuda):
             assert kernels.launch_counts()["gossip_mix_batched"] == 3 * 11
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-4 * abs(b)
+
+
+def _ulp(x, dtype):
+    if dtype == torch.float32:
+        return torch.zeros_like(x)
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.full_like(x, torch.finfo(dtype).eps), e - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,Hq,Hkv,hd,dtype,cap,mask", [
+    (16, 2184, 9, 3, 64, torch.bfloat16, 0.0, "linear"),       # smollm-135m serving
+    (4, 4224, 16, 8, 256, torch.bfloat16, 50.0, "window"),     # gemma2-9b local layer
+    (4, 4224, 16, 8, 256, torch.float32, 50.0, "window"),
+    (4, 4096, 16, 8, 256, torch.bfloat16, 50.0, "ring"),
+    (2, 700, 8, 2, 128, torch.float16, 0.0, "last"),           # minitron head dim
+    (2, 40, 4, 1, 32, torch.float32, 0.0, "none"),             # reduced configs
+    (3, 129, 12, 2, 64, torch.bfloat16, 0.0, "linear"),        # group 6: two head chunks
+])
+def test_decode_attention_kernel_on_card(cuda, B, C, Hq, Hkv, hd, dtype, cap, mask):
+    """Within the float32 bound of decode_attention_bound plus one output ulp."""
+    from repro_torch.kernels.decode_attention import ops as tdec
+    from repro_torch.models.attention import decode_valid
+
+    gen = torch.Generator(device="cuda").manual_seed(C)
+    valid = {"linear": decode_valid(C, C - 20, device=cuda),
+             "window": decode_valid(C, C - 24, 4096, device=cuda),
+             "ring": decode_valid(C, 2500, ring=True, device=cuda),
+             "last": torch.arange(C, device=cuda) == C - 1,
+             "none": torch.zeros(C, dtype=torch.bool, device=cuda)}[mask]
+    q = torch.randn((B, Hq, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, C, Hkv, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, C, Hkv, hd), generator=gen, device=cuda).to(dtype)
+    before = tdec.decode_attention.launches
+    got = tdec.decode_attention(q, k, v, valid, attn_softcap=cap)
+    want = tdec.decode_attention_plain(q, k, v, valid, attn_softcap=cap)
+    torch.cuda.synchronize()
+    assert tdec.decode_attention.launches == before + 1 and got.dtype == dtype
+    got, want = got.float(), want.float()
+    tol = tdec.decode_attention_bound(q, k, v, valid, attn_softcap=cap)
+    tol = tol + _ulp(torch.maximum(got.abs(), want.abs()), dtype)
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_decode_attention_reads_a_stacked_cache_slice(cuda):
+    """A layer's slice of a stacked (L, B, C, Hkv, hd) cache, as decode_step
+    hands it over, gives what the same keys give contiguous."""
+    from repro_torch.kernels.decode_attention import ops as tdec
+
+    stack = torch.randn((3, 2, 300, 2, 64), device=cuda, dtype=torch.bfloat16)
+    vstack = torch.randn((3, 2, 300, 2, 64), device=cuda, dtype=torch.bfloat16)
+    q = torch.randn((2, 6, 64), device=cuda, dtype=torch.bfloat16)
+    valid = torch.arange(300, device=cuda) < 250
+    a = tdec.decode_attention(q, stack[1], vstack[1], valid)
+    b = tdec.decode_attention(q, stack[1].contiguous(), vstack[1].contiguous(), valid)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bsz,nc,Q,H,P,N,dtype,strided", [
+    (8, 1, 256, 48, 64, 128, torch.bfloat16, True),           # mamba2-780m prefill
+    (2, 1, 32, 8, 32, 16, torch.float32, True),               # the reduced config
+    (2, 3, 50, 5, 30, 18, torch.float32, False),              # ragged against every tile
+    (1, 2, 256, 3, 64, 128, torch.float16, False),
+])
+def test_ssd_intra_chunk_kernel_on_card(cuda, Bsz, nc, Q, H, P, N, dtype, strided):
+    """Within the float32 bounds of ssd_intra_chunk_bound."""
+    from repro_torch.kernels.ssd_scan import ops as tssd
+
+    gen = torch.Generator(device="cuda").manual_seed(Q * H)
+    di = H * P
+    xbc = torch.randn((Bsz, nc, Q + 3, di + 2 * N), generator=gen, device=cuda).to(dtype)
+    xbc = xbc[:, :, :Q] if strided else xbc[:, :, :Q].contiguous()
+    x = xbc[..., :di].unflatten(-1, (H, P))
+    Bm, Cm = xbc[..., di:di + N], xbc[..., di + N:]
+    if not strided:
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    dt = torch.nn.functional.softplus(torch.randn((Bsz, nc, Q, H), generator=gen, device=cuda))
+    la = torch.cumsum(-(torch.rand(H, generator=gen, device=cuda) + 0.05) * dt, dim=2)
+    before = tssd.ssd_intra_chunk.launches
+    y, st = tssd.ssd_intra_chunk(x, dt, la, Bm, Cm)
+    wy, wst = tssd.ssd_intra_chunk_plain(x, dt, la, Bm, Cm)
+    torch.cuda.synchronize()
+    assert tssd.ssd_intra_chunk.launches == before + 1
+    by, bst = tssd.ssd_intra_chunk_bound(x, dt, la, Bm, Cm)
+    assert bool(((y - wy).abs() <= by).all()) and bool(((st - wst).abs() <= bst).all())
+
+
+@pytest.mark.cuda
+def test_serving_wrappers_raise_instead_of_falling_back(cuda):
+    from repro_torch.kernels.decode_attention import ops as tdec
+    from repro_torch.kernels.ssd_scan import ops as tssd
+
+    q = torch.zeros((2, 4, 48), device=cuda)
+    kv = torch.zeros((2, 8, 2, 48), device=cuda)
+    valid = torch.ones(8, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        tdec.decode_attention(q, kv, kv, valid)
+    q = torch.zeros((2, 4, 64), device=cuda)
+    kv = torch.zeros((2, 8, 2, 64), device=cuda)
+    with pytest.raises(TypeError, match="bool"):
+        tdec.decode_attention(q, kv, kv, valid.int())
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        tdec.decode_attention(q, kv, kv, valid.cpu())
+    with pytest.raises(ValueError, match="head dimension must be contiguous"):
+        tdec.decode_attention(q, kv.transpose(2, 3).contiguous().transpose(2, 3), kv, valid)
+    x = torch.zeros((1, 1, 8, 2, 4), device=cuda)
+    dt = torch.zeros((1, 1, 8, 2), device=cuda)
+    bc = torch.zeros((1, 1, 8, 3), device=cuda)
+    with pytest.raises(ValueError, match="dense past"):
+        tssd.ssd_intra_chunk(x.transpose(3, 4).contiguous().transpose(3, 4), dt, dt, bc, bc)
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        tssd.ssd_intra_chunk(x, dt.cpu(), dt, bc, bc)
+    with pytest.raises(ValueError, match="shared memory"):
+        z = torch.zeros((1, 1, 8192, 1, 64), device=cuda)
+        tssd.ssd_intra_chunk(z, z[..., 0], z[..., 0], torch.zeros((1, 1, 8192, 128), device=cuda),
+                             torch.zeros((1, 1, 8192, 128), device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,long_context", [("smollm-135m", False), ("gemma2-9b", True),
+                                               ("mamba2-780m", False)])
+def test_reduced_serving_card_matches_cpu(cuda, arch, long_context):
+    """Prefill and 8 greedy decode steps of a reduced fp32 model: logits
+    within 1e-5 relative to their largest magnitude, tokens equal."""
+    from repro_torch.configs import get_arch, reduced_for_smoke
+    from repro_torch.models import transformer
+
+    cfg = reduced_for_smoke(get_arch(arch))
+    params = transformer.init_params(0, cfg)
+    S = 70 if arch.startswith("mamba2") else 24
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab_size, (2, S)))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        kernels.reset_launch_counts()
+        logits, caches = transformer.prefill(p, cfg, {"tokens": prompts.to(dev)},
+                                             long_context=long_context)
+        out, toks = [logits.cpu()], []
+        for t in range(8):
+            tok = logits[:, -1].argmax(-1)[:, None]
+            toks.append(tok.cpu())
+            logits, caches = transformer.decode_step(p, cfg, tok, caches, S + t,
+                                                     long_context=long_context)
+            out.append(logits.cpu())
+        runs[dev] = (out, torch.cat(toks, 1), kernels.launch_counts())
+    kernel = "ssd_intra_chunk" if arch.startswith("mamba2") else "decode_attention"
+    assert runs["cuda"][2][kernel] > 0 and runs["cpu"][2][kernel] == 0
+    assert torch.equal(runs["cuda"][1], runs["cpu"][1])
+    for g, c in zip(runs["cuda"][0], runs["cpu"][0]):
+        assert float((g - c).abs().max()) <= 1e-5 * float(c.abs().max())

@@ -22,9 +22,11 @@ from repro.kernels.edge_laplacian import ops as jel  # noqa: E402
 from repro.kernels.hop_bfs import ops as jhop  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as tdec  # noqa: E402
 from repro_torch.kernels.edge_laplacian import ops as tel  # noqa: E402
 from repro_torch.kernels.gossip_mix import ops as tgm  # noqa: E402
 from repro_torch.kernels.hop_bfs import ops as thop  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as tssd  # noqa: E402
 
 
 def _edges(n):
@@ -134,9 +136,17 @@ def test_cpu_path_never_counts_a_launch():
     tgm.gossip_mix_batched(torch.rand(3, 5), torch.zeros(3, 1, dtype=torch.int32),
                            torch.rand(3, 2))
     tgm.gossip_mix(torch.rand(5), torch.rand(2, 5), torch.rand(3))
+    tdec.decode_attention(torch.rand(1, 2, 64), torch.rand(1, 3, 1, 64), torch.rand(1, 3, 1, 64),
+                          torch.ones(3, dtype=torch.bool))
+    tssd.ssd_intra_chunk(torch.rand(1, 1, 4, 2, 4), torch.rand(1, 1, 4, 2),
+                         -torch.rand(1, 1, 4, 2), torch.rand(1, 1, 4, 3), torch.rand(1, 1, 4, 3))
     assert kernels.launch_counts() == {"edge_laplacian": 0, "edge_quadform": 0,
                                        "hop_step": 0, "gossip_mix_batched": 0,
-                                       "gossip_mix": 0}
+                                       "gossip_mix": 0, "decode_attention": 0,
+                                       "ssd_intra_chunk": 0}
+    assert set(kernels.WRAPPERS) == set(kernels.launch_counts())
+    assert set(build.SOURCES) == {"edge_laplacian", "hop_bfs", "gossip_mix",
+                                  "decode_attention", "ssd_scan"}
 
 
 def test_packed_edge_index_is_lexicographic():
