@@ -116,6 +116,14 @@ def device_ms(fn, launches: int = TIMED_LAUNCHES) -> float:
     return ms
 
 
+def rotating(calls):
+    """One callable that runs ``calls`` in turn, one per call: timed by
+    :func:`device_ms` over layer slices of one stacked cache bigger than the
+    50 MB L2, each call finds its operands cold, as the decode step does."""
+    turn = iter(range(1 << 62))
+    return lambda: calls[next(turn) % len(calls)]()
+
+
 def timings(kernel, plain, library=None) -> dict:
     return dict(ms=device_ms(kernel), plain_ms=device_ms(plain),
                 library_ms=None if library is None else device_ms(library),
@@ -233,8 +241,9 @@ def _hop_step_case(R, n, rng):
     # product is of 0/1 bytes, so its peak is the int8 tensor-core rate
     bytes_s = (3 * R * n * n + 4 * R * n) / HBM_BYTES_PER_S
     ops_s = 2 * R * n ** 3 / INT8_OP_PER_S
+    bm, cw = ops.hop_plan(R, n, torch.cuda.get_device_properties(0).multi_processor_count)
     return dict(
-        max_abs_err=0.0, tol=0.0,
+        max_abs_err=0.0, tol=0.0, plan=dict(rows_per_block=bm, words_per_block=cw),
         **timings(lambda: ops.hop_step(reach, adj),
                   lambda: ops.hop_step_plain(reach, adj),
                   lambda: torch.bmm(reach_f, adj_f)),
@@ -246,7 +255,9 @@ def _hop_step_case(R, n, rng):
 def phase_kernels() -> dict:
     """Checks at the main path's shapes — n=64 (main_n64) and n=16
     (main_bcube, ragged against every tile) in fp32, the SA's one restart
-    per hop — and at n=256, fp64 and R=4; returns the n=64 case per kernel."""
+    per hop — and at n=256, fp64 and R=4, and hop_step from n=5 to n=2,000
+    (past the plan that holds all of adj's columns in one block); returns
+    the n=64 case per kernel."""
     rng = np.random.default_rng(0)
     cases = []
     for n, dtypes in ((16, (torch.float32,)), (64, (torch.float32, torch.float64)),
@@ -257,7 +268,7 @@ def phase_kernels() -> dict:
                               **_edge_laplacian_case(n, dtype, rng)))
             cases.append(dict(kernel="edge_quadform", n=n, dtype=tag,
                               **_edge_quadform_case(n, dtype, rng)))
-    for R, n in ((1, 16), (1, 64), (4, 64), (4, 256)):
+    for R, n in ((1, 5), (1, 16), (1, 64), (4, 64), (4, 256), (1, 2000)):
         cases.append(dict(kernel="hop_step", R=R, n=n, dtype="bool",
                           **_hop_step_case(R, n, rng)))
     torch.cuda.synchronize()
@@ -826,21 +837,30 @@ def _decode_check(q, k, v, valid, cap) -> tuple[float, float, bool]:
     return float(err.max()), float((err / tol.clamp_min(1e-30)).max()), bool((err <= tol).all())
 
 
+DECODE_LAYERS = 4
+
+
 def _decode_case(B, C, Hq, Hkv, hd, dtype, cap, valid, gen) -> dict:
+    """The kernel held against the plain version on layer 0 of a stacked
+    (4, B, C, Hkv, hd) cache, as decode_step hands a layer over. Times: warm
+    (one layer's slice replayed, L2-resident where it fits) and cold (the
+    four layers in turn, 107 MB at main_serve_dense's shape, so each call
+    reads from HBM); SDPA timed both ways at the shapes without softcap."""
     from repro_torch.kernels.decode_attention import ops as dec
 
+    L = DECODE_LAYERS
     q = torch.randn((B, Hq, hd), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((B, C, Hkv, hd), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((B, C, Hkv, hd), generator=gen, device="cuda").to(dtype)
-    err, share, ok = _decode_check(q, k, v, valid, cap)
+    ks = torch.randn((L, B, C, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    vs = torch.randn((L, B, C, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    err, share, ok = _decode_check(q, ks[0], vs[0], valid, cap)
+    kern = [lambda i=i: dec.decode_attention(q, ks[i], vs[i], valid, attn_softcap=cap)
+            for i in range(L)]
     library = None
     if not cap:
-        q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
         mask = valid[None, None, None, :]
-
-        def library():           # one PyTorch call of the same function
-            return torch.nn.functional.scaled_dot_product_attention(
-                q4, k4, v4, attn_mask=mask, enable_gqa=True)
+        library = [lambda i=i: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], ks[i].transpose(1, 2), vs[i].transpose(1, 2), attn_mask=mask,
+            enable_gqa=True) for i in range(L)]       # one PyTorch call of the same function
     n_valid = int(valid.sum())
     size = q.element_size()
     # q read and the output written once, K and V of the valid keys read once
@@ -848,14 +868,21 @@ def _decode_case(B, C, Hq, Hkv, hd, dtype, cap, valid, gen) -> dict:
     # q·k and p·v products are 4·hd flops per (query head, valid key)
     nbytes = 2 * B * Hq * hd * size + 2 * B * n_valid * Hkv * hd * size + C
     flops = 4 * B * Hq * n_valid * hd
-    t = timings(lambda: dec.decode_attention(q, k, v, valid, attn_softcap=cap),
-                lambda: dec.decode_attention_plain(q, k, v, valid, attn_softcap=cap), library)
+    k0, v0 = ks[0], vs[0]
+    warm = timings(kern[0], lambda: dec.decode_attention_plain(q, k0, v0, valid, attn_softcap=cap),
+                   None if library is None else library[0])
+    ms = device_ms(rotating(kern), launches=400)
+    library_ms = None if library is None else device_ms(rotating(library), launches=400)
     bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / FP32_OP_PER_S
+    plan = dec.decode_plan(B, Hq, Hkv, hd, C, size,
+                           torch.cuda.get_device_properties(0).multi_processor_count)
+    del ks, vs
     return dict(kernel="decode_attention", B=B, C=C, Hq=Hq, Hkv=Hkv, hd=hd,
                 dtype=str(dtype).replace("torch.", ""), softcap=cap, valid_keys=n_valid,
-                splits=dec.num_splits(B, Hkv, Hq // Hkv, C, torch.cuda.get_device_properties(
-                    0).multi_processor_count),
-                max_abs_err=err, share_of_tol=share, within=ok, **t,
+                plan=plan._asdict(), max_abs_err=err, share_of_tol=share, within=ok,
+                ms=ms, ms_warm=warm["ms"], plain_ms=warm["plain_ms"], library_ms=library_ms,
+                library_ms_warm=warm["library_ms"], call_ms=warm["call_ms"],
+                plain_call_ms=warm["plain_call_ms"], timed_layers=L,
                 bound_ms=1e3 * max(bytes_s, ops_s),
                 bound_by="operations" if ops_s > bytes_s else "bytes")
 
@@ -946,7 +973,9 @@ def phase_serve_kernels() -> dict:
     torch.cuda.synchronize()
     emit("serve_kernel_checks", cases=cases,
          library_note="decode_attention: torch.nn.functional.scaled_dot_product_attention("
-                      "enable_gqa=True, boolean mask), at the shapes without softcap; "
+                      "enable_gqa=True, boolean mask), at the shapes without softcap; ms and "
+                      "library_ms cold (4 layer slices of one stacked cache in turn), "
+                      "ms_warm and library_ms_warm one slice replayed; "
                       "ssd_intra_chunk: no single PyTorch call computes it")
     bad = [c for c in cases if not c["within"]]
     assert not bad, f"serving kernels outside their tolerance: {bad}"
@@ -1199,7 +1228,8 @@ def main() -> int:
             name=name, **info, launches=path_launches.get(name, launches[name]),
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=t["library_ms"], call_ms=t["call_ms"]))
+            library_ms=t["library_ms"], call_ms=t["call_ms"],
+            **{k: t[k] for k in ("ms_warm", "library_ms_warm") if k in t}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,25 +12,35 @@ they lie, through their strides, and masks the ragged edge itself.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
-from .. import build as _build
+from .. import launch_util as _lu
 
 __all__ = ["decode_attention", "decode_attention_plain", "decode_attention_bound",
-           "num_splits"]
+           "decode_plan", "DecodePlan"]
 
-_P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _I, _P],
+    "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
+                         _F, _I, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (32, 64, 128, 256)
-_GROUP_PER_BLOCK = 4          # query heads of one KV head that one block serves
 _MIN_KEYS_PER_SPLIT = 128
-_sm_count: dict[int, int] = {}
+_MAX_SPAN = 32_768            # keys a split at most: its mask bytes sit in shared memory
+#: What one bulk copy costs in :func:`decode_plan`'s model, in bytes of K/V.
+COPY_BYTES = 512
+#: The kernel's constants (csrc/decode_attention.cu): keys a lane group
+#: takes from a tile, consumer threads a block (at hd ≤ 128 and at hd 256;
+#: the producer warp comes on top), ring stages, the mbarriers' bytes.
+KPL, MAX_THREADS, MAX_THREADS_256, MAX_STAGES, BAR_BYTES = 4, 320, 128, 8, 128
+#: Dynamic shared memory a block may take on the H100, the SM's shared
+#: memory, and the most the ring takes.
+SMEM_BYTES, SMEM_PER_SM, RING_BYTES = 232_448, 233_472, 196_608
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -75,27 +85,151 @@ def decode_attention_bound(q, k, v, valid, *, attn_softcap: float = 0.0) -> torc
     return bound.reshape(B, Hq, hd)
 
 
-def num_splits(B: int, Hkv: int, group: int, C: int, sm_count: int) -> int:
-    """Key-range splits per (batch, KV head): enough blocks for two waves
-    of ``sm_count`` SMs, and at least 128 keys in each split."""
-    blocks = B * Hkv * -(-group // _GROUP_PER_BLOCK)
-    want = -(-2 * sm_count // blocks)
-    return max(1, min(want, -(-C // _MIN_KEYS_PER_SPLIT)))
+class DecodePlan(NamedTuple):
+    """How the kernel cuts one call: ``gn`` query heads a unit (a divisor
+    of the group, ≤ 4), ``qpb`` units of one KV head and ``hb`` KV heads a
+    block, ``lgu`` lane groups a unit (``threads`` consumer threads in all,
+    and a producer warp), tiles of ``kt`` keys in a ring of ``stages``
+    buffers, ``splits`` key ranges of ``span`` keys, ``smem`` bytes of
+    dynamic shared memory; ``head_blocks`` blocks a sequence for each
+    split."""
+    gn: int
+    qpb: int
+    hb: int
+    lgu: int
+    kt: int
+    stages: int
+    splits: int
+    span: int
+    threads: int
+    smem: int
+    head_blocks: int
 
 
-def _check_card(**tensors) -> None:
-    for what, t in tensors.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"{what} must lie on the CPU or a CUDA device, not {t.device}")
-        if t.device.index != torch.cuda.current_device():
-            raise ValueError(f"{what} lies on {t.device}, but the current CUDA device "
-                             f"is cuda:{torch.cuda.current_device()}")
+def _divisors(x: int) -> list[int]:
+    return [d for d in range(x, 0, -1) if x % d == 0]
 
 
-def _sms(dev: torch.device) -> int:
-    if dev.index not in _sm_count:
-        _sm_count[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _sm_count[dev.index]
+def _valid_bytes(span: int) -> int:
+    return -(-span // 128) * 128
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(B: int, Hq: int, Hkv: int, hd: int, C: int, size: int,
+                sm_count: int) -> DecodePlan:
+    """The kernel's plan for q (B, Hq, hd) against C keys of ``size``-byte
+    elements on a card of ``sm_count`` SMs.
+
+    - GN = the largest divisor of the group up to 4 (no padded head);
+      LPK = min(32, hd / (16 / size)) lanes a key; within 320 consumer
+      threads (128 at hd 256) and whole warps, as many lane groups a unit
+      as fit, KT = 4 keys each; one producer warp on top issues the copies.
+    - Blocks an SM: one, or two at hd 256 (the kernel's launch bound
+      there), whose lane groups then hide each other's latency.
+    - Stages: as many as fit in 192 KB (one block an SM) or in half of the
+      SM's 228 KB (two), 3 to 8.
+    - Splits, for each head split (``hb`` KV heads and ``qpb`` query-head
+      chunks a block): for one or two full waves of ``sm_count`` SMs
+      (two only where that fills the last wave 5 % better), at least 128
+      and at most 32,768 keys a split; the span is ``ceil(C / splits)`` and
+      splits that would be empty are dropped.
+    - Among the head splits it keeps the one whose slowest SM moves the
+      fewest bytes: waves × the K/V bytes of a block, plus the partial rows
+      the last split block writes and reads back, plus
+      :data:`COPY_BYTES` for each bulk copy (one a tile for K and one for V
+      when the block takes every KV head, else one a key). Ties go to more
+      heads a block.
+    """
+    group = Hq // Hkv
+    gn = max(d for d in (1, 2, 3, 4) if group % d == 0)
+    qcn = group // gn
+    lpk = min(32, hd // (16 // size))
+    per_warp = 32 // lpk
+    resident = 2 if hd >= 256 else 1
+    max_threads = MAX_THREADS_256 if hd >= 256 else MAX_THREADS
+    block_smem = min(SMEM_BYTES, SMEM_PER_SM // resident - 1024)
+    reserve = BAR_BYTES + _valid_bytes(min(C, _MAX_SPAN))
+    slots = sm_count * resident
+    best = None
+    for hb in _divisors(Hkv):
+        for qpb in _divisors(qcn):
+            units = hb * qpb
+            step = per_warp // math.gcd(units, per_warp)
+            lgu = step * (max_threads // (units * step * lpk))
+            stage = 2 * KPL * lgu * hb * hd * size
+            while lgu >= step and reserve + 3 * stage > block_smem:
+                lgu -= step
+                stage = 2 * KPL * lgu * hb * hd * size
+            if lgu < step:
+                continue
+            kt = KPL * lgu
+            head_blocks = (Hkv // hb) * (qcn // qpb)
+            pairs = B * head_blocks
+            most = max(1, -(-C // _MIN_KEYS_PER_SPLIT))
+            least = -(-C // _MAX_SPAN)
+            splits, fill = 1, 0.0
+            for waves in (1, 2):
+                s_ = max(1, least, min(waves * slots // pairs, most))
+                blocks = pairs * s_
+                f = blocks / (-(-blocks // slots) * slots)
+                if f > fill + 0.05:       # two waves only for a much fuller last wave
+                    splits, fill = s_, f
+            span = -(-C // splits)
+            splits = -(-C // span)
+            waves = -(-(pairs * splits) // slots)
+            rows = units * gn
+            tail = 8 * rows * splits * hd if splits > 1 else 0
+            copies = 2 * (-(-span // kt) if hb == Hkv else span)
+            cost = (waves * resident * span * hb * hd * size * 2 + tail
+                    + COPY_BYTES * copies)
+            key = (cost, -units, -hb)
+            if best is None or key < best[0]:
+                best = (key, hb, qpb, lgu, kt, stage, splits, span, head_blocks)
+    if best is None:
+        raise ValueError(f"decode_attention: no plan fits Hq={Hq}, Hkv={Hkv}, hd={hd}")
+    _, hb, qpb, lgu, kt, stage, splits, span, head_blocks = best
+    ring = min(RING_BYTES, block_smem - BAR_BYTES - _valid_bytes(span))
+    stages = max(3, min(MAX_STAGES, ring // stage))
+    threads = hb * qpb * lgu * lpk
+    # the block merge reuses the ring: the lane groups' (m, l, acc) and
+    # each row's weights
+    rows = hb * qpb * gn
+    scratch = ((threads // lpk) * gn * (hd + 2) + rows * (lgu + 2)) * 4
+    smem = BAR_BYTES + _valid_bytes(span) + max(stages * stage, scratch)
+    return DecodePlan(gn, qpb, hb, lgu, kt, stages, splits, span, threads, smem, head_blocks)
+
+
+def _plan_args(q, k, v):
+    """The cached plan of a call's shapes and strides, and the kernel's
+    int64 argument array (csrc/decode_attention.cu's ``plan``)."""
+    B, Hq, hd = (int(s) for s in q.shape)
+    C, Hkv = int(k.shape[1]), int(k.shape[2])
+    key = (B, Hq, Hkv, hd, C, k.stride(), v.stride(), q.dtype, q.device.index)
+    hit = _args.get(key)
+    if hit is not None:
+        return hit
+    size = q.element_size()
+    for what, t in (("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{what}'s head dimension must be contiguous")
+        if any((t.stride(d) * size) % 16 for d in range(3)):
+            raise ValueError(f"{what} must start 16-byte aligned with 16-byte aligned "
+                             "strides")
+    plan = decode_plan(B, Hq, Hkv, hd, C, size, _lu.sm_count(q.device.index))
+    ks, vs = k.stride(), v.stride()
+    if (plan.hb == Hkv and ks[2] == hd and ks[1] == Hkv * hd and vs[2] == hd
+            and vs[1] == Hkv * hd):
+        mode = 0                      # a tile of keys x every head: one copy
+    elif ks[2] == hd and vs[2] == hd:
+        mode = 1                      # one copy a key
+    else:
+        mode = 2                      # one copy a key and head
+    arr = (ctypes.c_longlong * 22)(
+        B, Hq, Hkv, hd, C, ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], _DTYPES[q.dtype],
+        plan.gn, plan.qpb, plan.hb, plan.lgu, plan.stages, plan.splits, plan.span, mode,
+        plan.threads, plan.smem)
+    hit = _args[key] = (plan, arr)
+    return hit
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -128,37 +262,35 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention takes head dims {_HEAD_DIMS}, not {hd}")
     if valid.dtype != torch.bool:
         raise TypeError(f"valid must be bool, not {valid.dtype}")
-    _check_card(q=q, k=k, v=v, valid=valid)
+    dev = q.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev or valid.device != dev:
+        raise ValueError(f"q, k, v and valid must lie on the CPU or a CUDA device, all on "
+                         f"one, not {q.device}, {k.device}, {v.device}, {valid.device}")
     if not q.is_contiguous() or not valid.is_contiguous():
         raise ValueError("q and valid must be contiguous")
-    if q.data_ptr() % 16:
-        raise ValueError("q must start 16-byte aligned")
-    size = q.element_size()
-    for what, t in (("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"{what}'s head dimension must be contiguous")
-        if t.data_ptr() % 16 or any((t.stride(d) * size) % 16 for d in range(3)):
-            raise ValueError(f"{what} must start 16-byte aligned with 16-byte aligned "
-                             "strides")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("q, k and v must start 16-byte aligned")
     out = torch.empty_like(q)
     if B == 0 or Hq == 0 or C == 0:
         return out
-    group = Hq // Hkv
-    splits = num_splits(B, Hkv, group, C, _sms(q.device))
-    rows = B * Hq * (splits if splits > 1 else 0)
-    part_ml = torch.empty((max(rows, 1), 2), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((max(rows, 1), hd), dtype=torch.float32, device=q.device)
-    lib = _build.load("decode_attention", _SIGNATURES)
-    err = lib.decode_attention(
+    plan, args = _plan_args(q, k, v)
+    if plan.splits > 1:
+        rows = B * Hq * plan.splits
+        ml, acc, tickets = _lu.workspace(
+            "decode_attention", dev, (2 * rows, torch.float32), (hd * rows, torch.float32),
+            (B * plan.head_blocks, torch.int32))
+    else:
+        ml = acc = tickets = 0
+    index = dev.index
+    err = _lu.library("decode_attention", _SIGNATURES).decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        part_ml.data_ptr(), part_acc.data_ptr(), B, Hq, Hkv, hd, C,
-        k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
-        float(attn_softcap), splits, _DTYPES[q.dtype],
-        torch.cuda.current_stream().cuda_stream)
+        ml, acc, tickets, args, float(attn_softcap), index, _lu.raw_stream(index))
     if err != 0:
-        raise RuntimeError(f"decode_attention kernel launch failed with CUDA error {err}")
+        _lu.raise_launch_error("decode_attention", err, index)
     decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+
+_args: dict[tuple, tuple] = {}

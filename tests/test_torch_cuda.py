@@ -9,14 +9,20 @@ fixture decides at run time). On the card:
 This file imports no JAX, so it also runs where JAX is not installed.
 Tolerances: L(g) within 1e-12 (fp64) or 1e-5 × the largest row sum
 (fp32); the quadratic form bitwise; the hop and its counts exactly; one
-float64 ADMM step card vs CPU within 1e-9; ``aspl_matmul`` bit-equal to
+float64 ADMM step card vs CPU within 1e-9 (the bit-packed hop also around
+the 32-column word boundaries, past the plan that holds all of adj's
+columns in one block, on directed graphs and on uint8 bytes > 1);
+``aspl_matmul`` bit-equal to
 ``graph.aspl``; the gossip kernels within one ulp of the output dtype (none
 for fp32) plus the float32 summation bound (deg+2)·2⁻²⁴·Σ|w·x| of their
 plain versions, which sum the neighbour terms in another order; the row
 loop of one-worker kernels bitwise equal to the batched kernel (the same
 products added in the same order); three DSGD steps of reduced smollm,
 card vs CPU, within 1e-4 relative in the losses; ``decode_attention``
-within the float32 bound of ``decode_attention_bound`` plus one output ulp;
+within the float32 bound of ``decode_attention_bound`` plus one output ulp,
+one launch a call, at one split and many, at a cache shorter than a tile,
+through each way of bringing a tile in, and after two calls in a row and a
+CUDA-graph replay (the fused merge leaves its tickets at zero);
 ``ssd_intra_chunk`` within the float32 bounds of ``ssd_intra_chunk_bound``;
 reduced fp32 serving (smollm, gemma2 long context, mamba2), card vs CPU,
 within 1e-5 relative in the logits of the prefill and 8 decode steps, with
@@ -96,6 +102,40 @@ def test_hop_step_kernel_on_card(cuda, R, n):
         torch.cuda.synchronize()
         assert torch.equal(got, want) and torch.equal(got_rows, want_rows)
         reach = got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,n", [(1, 31), (1, 32), (1, 33), (2, 63), (1, 64), (3, 65),
+                                 (1, 127), (4, 129), (4, 256), (1, 1000), (1, 2000)])
+@pytest.mark.parametrize("kind", ["symmetric", "directed", "uint8"])
+def test_hop_step_bits_bitwise_on_card(cuda, R, n, kind):
+    """The bit-packed hop, three hops deep, bitwise against the plain
+    version: around the 32-column word boundaries, at n = 1,000 and past
+    n = 1,300 (where one block no longer holds all of adj's columns), on
+    directed graphs (adj not symmetric) and on uint8 inputs whose nonzero
+    bytes are not all 1."""
+    rng = np.random.default_rng(1000 * R + n)
+    p = min(1.0, 3.0 / n)
+    if kind == "directed":
+        adj = rng.random((R, n, n)) < p
+    else:
+        adj = np.stack([_random_adj(n, p, rng) for _ in range(R)])
+    reach = adj | np.eye(n, dtype=bool)[None]
+    if kind == "uint8":
+        scale = rng.integers(1, 256, (R, n, n)).astype(np.uint8)
+        reach_t = torch.from_numpy(reach.astype(np.uint8) * scale).to(cuda)
+        adj_t = torch.from_numpy(adj.astype(np.uint8) * scale).to(cuda)
+    else:
+        reach_t, adj_t = torch.from_numpy(reach).to(cuda), torch.from_numpy(adj).to(cuda)
+    before = thop.hop_step.launches
+    for _ in range(3):
+        got, got_rows = thop.hop_step(reach_t, adj_t)
+        want, want_rows = thop.hop_step_plain(reach_t, adj_t)
+        torch.cuda.synchronize()
+        assert got.dtype == reach_t.dtype
+        assert torch.equal(got, want) and torch.equal(got_rows, want_rows)
+        reach_t = got
+    assert thop.hop_step.launches == before + 3
 
 
 @pytest.mark.cuda
@@ -324,6 +364,99 @@ def test_decode_attention_kernel_on_card(cuda, B, C, Hq, Hkv, hd, dtype, cap, ma
     tol = tdec.decode_attention_bound(q, k, v, valid, attn_softcap=cap)
     tol = tol + _ulp(torch.maximum(got.abs(), want.abs()), dtype)
     assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,Hq,Hkv,hd,dtype", [
+    (2, 20, 6, 2, 64, torch.bfloat16),        # C shorter than one 32-key tile, group 3
+    (1, 100, 1, 1, 64, torch.float32),        # one split
+    (2, 300, 12, 2, 64, torch.float16),       # group 6: two chunks of 3 heads, many splits
+    (1, 3000, 8, 1, 128, torch.bfloat16),     # one KV head, many splits
+])
+def test_decode_attention_plans_on_card(cuda, B, C, Hq, Hkv, hd, dtype):
+    """One launch per call and within the float32 bound plus one output ulp,
+    with one split and with many (the fused merge), at a C shorter than a
+    tile and at groups of 1, 3, 6 and 8."""
+    from repro_torch.kernels.decode_attention import ops as tdec
+    from repro_torch.models.attention import decode_valid
+
+    gen = torch.Generator(device="cuda").manual_seed(B * C + Hq)
+    valid = decode_valid(C, C - 3, device=cuda)
+    q = torch.randn((B, Hq, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, C, Hkv, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, C, Hkv, hd), generator=gen, device=cuda).to(dtype)
+    before = tdec.decode_attention.launches
+    got = tdec.decode_attention(q, k, v, valid)
+    want = tdec.decode_attention_plain(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert tdec.decode_attention.launches == before + 1
+    got, want = got.float(), want.float()
+    tol = tdec.decode_attention_bound(q, k, v, valid)
+    tol = tol + _ulp(torch.maximum(got.abs(), want.abs()), dtype)
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_decode_attention_merge_resets_its_tickets(cuda):
+    """The fused split merge leaves its tickets at zero: two calls in a row
+    give the same bits, and a CUDA graph of one call, replayed with new
+    queries written into its input, gives the plain version's answer each
+    time (a ticket left behind would merge too early or never)."""
+    from repro_torch.kernels.decode_attention import ops as tdec
+    from repro_torch.models.attention import decode_valid
+
+    B, C, Hq, Hkv, hd = 16, 2184, 9, 3, 64
+    assert tdec.decode_plan(B, Hq, Hkv, hd, C, 2, torch.cuda.get_device_properties(
+        0).multi_processor_count).splits > 1
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    valid = decode_valid(C, 2100, device=cuda)
+    q = torch.randn((B, Hq, hd), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((B, C, Hkv, hd), generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn((B, C, Hkv, hd), generator=gen, device=cuda).to(torch.bfloat16)
+    first = tdec.decode_attention(q, k, v, valid)
+    second = tdec.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tdec.decode_attention(q, k, v, valid)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tdec.decode_attention(q, k, v, valid)
+    for _ in range(3):
+        q.copy_(torch.randn((B, Hq, hd), generator=gen, device=cuda).to(torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tdec.decode_attention_plain(q, k, v, valid).float()
+        got = out.float()
+        tol = tdec.decode_attention_bound(q, k, v, valid)
+        tol = tol + _ulp(torch.maximum(got.abs(), want.abs()), torch.bfloat16)
+        assert bool(((got - want).abs() <= tol).all())
+    again = tdec.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
+
+
+@pytest.mark.cuda
+def test_decode_attention_copy_modes_agree(cuda):
+    """The three ways the kernel brings a tile in — one copy of keys × all
+    heads (a contiguous slice), one copy a key (a head subset of a wider
+    cache) and one a key and head (heads strided) — give the same bits."""
+    from repro_torch.kernels.decode_attention import ops as tdec
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    B, C, Hkv, hd = 2, 500, 2, 64
+    wide = torch.randn((B, C, 2 * Hkv, hd), generator=gen, device=cuda).to(torch.float16)
+    heads_first = torch.randn((B, Hkv, C, hd), generator=gen, device=cuda).to(torch.float16)
+    q = torch.randn((B, 6, hd), generator=gen, device=cuda).to(torch.float16)
+    valid = torch.arange(C, device=cuda) < 480
+    for kv in (wide[:, :, :Hkv], heads_first.transpose(1, 2)):
+        strided = tdec.decode_attention(q, kv, kv, valid)
+        dense = tdec.decode_attention(q, kv.contiguous(), kv.contiguous(), valid)
+        torch.cuda.synchronize()
+        assert torch.equal(strided, dense)
 
 
 @pytest.mark.cuda

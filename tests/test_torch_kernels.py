@@ -111,6 +111,25 @@ def test_hop_step_takes_the_restart_axis():
     assert torch.equal(u8_rows, rows)
 
 
+@pytest.mark.parametrize("R,n", [(1, 5), (1, 16), (1, 31), (1, 64), (4, 64), (3, 100),
+                                 (1, 129), (4, 256), (1, 1000), (1, 2000)])
+def test_hop_plan_covers_every_output_word_once(R, n):
+    """Every (row, 32-column word) of every restart lies in exactly one
+    block; there are blocks for half a wave of 132 SMs where the shape has
+    rows of four for it (a full wave where the columns must be split); the
+    block's shared memory fits the card."""
+    bm, cw = thop.hop_plan(R, n, 132)
+    nw = -(-n // 32)
+    bands, chunks = -(-n // bm), -(-nw // cw)
+    seen = np.zeros((n, nw), dtype=int)
+    for band in range(bands):
+        for chunk in range(chunks):
+            seen[band * bm:(band + 1) * bm, chunk * cw:(chunk + 1) * cw] += 1
+    assert (seen == 1).all()
+    assert thop.hop_smem_bytes(n, bm, cw) <= thop.SMEM_BYTES
+    assert R * bands * chunks >= min(132 if chunks > 1 else 66, R * (n // 4))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="complete edge list"):
         tel.edge_laplacian(torch.zeros(5, dtype=torch.float64), 4)

@@ -146,10 +146,53 @@ def test_decode_attention_wrapper_rejects_bad_shapes():
 
 
 def test_num_splits_fills_the_card_and_keeps_128_keys():
-    assert tdec.num_splits(16, 3, 3, 2184, 132) == 6       # smollm serving: 288 blocks
-    assert tdec.num_splits(4, 8, 2, 4224, 132) == 9        # gemma2: 288 blocks
-    assert tdec.num_splits(1, 1, 1, 100, 132) == 1         # short cache: one split
-    assert tdec.num_splits(64, 8, 8, 4096, 132) == 1       # many blocks: one split
+    """The plan's splits: one wave of 132 SMs at smollm's and gemma2's
+    serving shapes (gemma2's hd 256 runs two blocks an SM), at least 128
+    keys a split, one split where the blocks fill the card already."""
+    smollm = tdec.decode_plan(16, 9, 3, 64, 2184, 2, 132)
+    assert (smollm.splits, smollm.head_blocks) == (8, 1)                # 128 blocks
+    gemma2 = tdec.decode_plan(4, 16, 8, 256, 4224, 2, 132)
+    assert 4 * gemma2.head_blocks * gemma2.splits == 256                # two an SM
+    assert smollm.span >= 128 and gemma2.span >= 128
+    assert tdec.decode_plan(1, 1, 1, 64, 100, 2, 132).splits == 1       # short cache
+    assert tdec.decode_plan(256, 8, 8, 128, 4096, 2, 132).splits == 1   # many blocks
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,hd,C,size", [
+    (16, 9, 3, 64, 2184, 2), (4, 16, 8, 256, 4224, 2), (4, 16, 8, 256, 4224, 4),
+    (4, 16, 8, 256, 4096, 2), (2, 8, 2, 128, 700, 2), (2, 4, 1, 32, 40, 4),
+    (3, 12, 2, 64, 129, 2), (1, 1, 1, 64, 100, 2), (64, 8, 8, 128, 4096, 2),
+    (2, 32, 1, 128, 512, 2), (1, 14, 2, 64, 300, 2), (2, 6, 2, 64, 20, 2),
+])
+def test_decode_plan_covers_every_key_and_head_once(B, Hq, Hkv, hd, C, size):
+    """Every key lies in exactly one split and every query head in exactly
+    one unit of one head block, with no padded head; the blocks fill a wave
+    of 132 SMs where 128-key splits allow it; the block fits the card."""
+    p = tdec.decode_plan(B, Hq, Hkv, hd, C, size, 132)
+    group = Hq // Hkv
+    assert group % p.gn == 0 and p.gn <= 4
+    keys = np.zeros(C, dtype=int)
+    for s in range(p.splits):
+        keys[s * p.span:min(C, (s + 1) * p.span)] += 1
+    assert (keys == 1).all() and (p.splits - 1) * p.span < C
+    heads = np.zeros(Hq, dtype=int)
+    qcn = group // p.gn
+    for hc in range(p.head_blocks):
+        h0, qc0 = (hc // (qcn // p.qpb)) * p.hb, (hc % (qcn // p.qpb)) * p.qpb
+        for u in range(p.hb * p.qpb):
+            first = (h0 + u // p.qpb) * group + (qc0 + u % p.qpb) * p.gn
+            heads[first:first + p.gn] += 1
+    assert (heads == 1).all()
+    lpk = min(32, hd // (16 // size))
+    assert p.threads == p.hb * p.qpb * p.lgu * lpk and p.threads % 32 == 0
+    assert p.threads <= (tdec.MAX_THREADS_256 if hd >= 256 else tdec.MAX_THREADS)
+    assert p.kt == tdec.KPL * p.lgu
+    assert 3 <= p.stages <= tdec.MAX_STAGES and p.smem <= tdec.SMEM_BYTES
+    assert p.smem >= tdec.BAR_BYTES + p.span + p.stages * 2 * p.kt * p.hb * hd * size
+    blocks = B * p.head_blocks * p.splits
+    slots = 132 * (2 if hd >= 256 else 1)
+    if B * p.head_blocks * -(-C // 128) >= slots:
+        assert blocks / (-(-blocks // slots) * slots) >= 0.9   # the last wave 90 % full
 
 
 # ---------------------------------------------------------------------------
