@@ -7,7 +7,8 @@ kernel against its plain PyTorch version at its path's shapes and times it,
 and drives the port's three paths on ``cuda``:
 
 - the topology solve (``solve_topology`` at n=64, r=128 and the n=16 BCube
-  scenario), checked against the CPU at n=16, evaluated by consensus
+  scenario; every CG matvec's ``A_op`` in one ``edge_laplacian_blocks``
+  launch), checked against the CPU at n=16, evaluated by consensus
   simulation, with short profiled windows of its device stages;
 - DSGD training of smollm-135m at full width through the launcher
   (``repro_torch.launch.train``): n=8 workers on one card, BA topology
@@ -19,10 +20,11 @@ and drives the port's three paths on ``cuda``:
   at full width (batch 16, 2,048-token prompts, 128 new tokens), every
   attention decode through the ``decode_attention`` kernel, and
   mamba2-780m at full width (batch 8, 1,024-token prompts, 64 new tokens),
-  every SSD chunk of its prefill through ``ssd_intra_chunk``; then both
-  kernels at their serving shapes and at gemma2-9b's, reduced smollm,
-  gemma2 (long context) and mamba2 card vs CPU, and one profiled
-  full-width decode step.
+  every layer's SSD chunks of its prefill through one ``ssd_intra_chunk``
+  launch (the bf16 tensor-core route); then both kernels at their serving
+  shapes and at gemma2-9b's, reduced smollm, gemma2 (long context) and
+  mamba2 card vs CPU, one profiled full-width decode step and one profiled
+  mamba2-780m prefill.
 
 Every phase prints one JSON line; any failure raises and the script exits
 non-zero. Each path's kernel launches are counted from 0 over that path
@@ -53,8 +55,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 #: The kernels each path must launch, counted from 0 over that path alone.
 PATH_KERNELS = {
-    "solve": ("edge_laplacian", "edge_quadform", "hop_step"),
-    "dsgd": ("edge_laplacian", "edge_quadform", "hop_step", "gossip_mix_batched"),
+    "solve": ("edge_laplacian", "edge_laplacian_blocks", "edge_quadform", "hop_step"),
+    "dsgd": ("edge_laplacian", "edge_laplacian_blocks", "edge_quadform", "hop_step",
+             "gossip_mix_batched"),
     "rowloop": ("gossip_mix",),
     "serve_dense": ("decode_attention",),
     "serve_ssm": ("ssd_intra_chunk",),
@@ -63,6 +66,7 @@ PATH_KERNELS = {
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM memory rate (NVIDIA data sheet)
 INT8_OP_PER_S = 1.979e15        # H100 SXM dense int8 tensor-core rate
+BF16_OP_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate
 FP32_OP_PER_S = 67e12           # H100 SXM float32 rate outside the tensor cores
 TIMED_LAUNCHES = 1000
 WARMUP_LAUNCHES = 50
@@ -215,6 +219,76 @@ def _edge_quadform_case(n, dtype, rng):
         bound_ms=1e3 * size * (n * n + m) / HBM_BYTES_PER_S, bound_by="bytes")
 
 
+def _edge_laplacian_blocks_case(n, dtype, rng):
+    """The fused form against the L-only kernel followed by the torch ops,
+    bitwise; timed against its plain version. Bound: g, λ, S, T and y read
+    once, the 2n² + n outputs written once."""
+    from repro_torch.kernels.edge_laplacian import ops
+
+    m = n * (n - 1) // 2
+    g = torch.from_numpy(rng.random(m)).to(device="cuda", dtype=dtype)
+    S, T = (torch.from_numpy(rng.standard_normal((n, n))).to(device="cuda", dtype=dtype)
+            for _ in range(2))
+    y = torch.from_numpy(rng.standard_normal(n)).to(device="cuda", dtype=dtype)
+    lam = torch.tensor(-0.7, dtype=dtype, device="cuda")
+    out = torch.empty(2 * n * n + n, dtype=dtype, device="cuda")
+    ops.edge_laplacian_blocks(g, lam, S, T, y, out)
+    L = ops.edge_laplacian(g, n)
+    I = torch.eye(n, dtype=dtype, device="cuda")
+    want = torch.cat([(L - lam * I + S).reshape(-1), (L + lam * I + T).reshape(-1),
+                      torch.diagonal(L) + y])
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    assert torch.equal(out.view(bits), want.view(bits)), \
+        f"edge_laplacian_blocks n={n} {dtype}: not bitwise equal to the kernel + torch ops"
+    out2 = torch.empty_like(out)
+    return dict(
+        max_abs_err=0.0, tol=0.0,
+        **timings(lambda: ops.edge_laplacian_blocks(g, lam, S, T, y, out),
+                  lambda: ops.edge_laplacian_blocks_plain(g, lam, S, T, y, out2)),
+        bound_ms=1e3 * g.element_size() * (m + 1 + 4 * n * n + 2 * n) / HBM_BYTES_PER_S,
+        bound_by="bytes")
+
+
+def _a_op_case(n, r):
+    """``A_op`` on a homogeneous fp32 spec at the main path's n: the fused
+    form (one launch) against the composition it replaced (the L-only kernel
+    and eight torch ops), bitwise, each timed from a CUDA graph and eagerly,
+    with the launches of one eager call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import engine as te
+
+    spec = te.make_homo_spec(n, r, te.ADMMConfig(device="cuda"))
+    st = te.init_state(spec, np.random.default_rng(n).random(spec.m) * 0.3, 0.5)
+    st, _ = te.step(spec, st)
+    X = st.X
+
+    def composition():
+        x, S, y, T = X[:4]
+        g, lam = x[:-1], x[-1]
+        L = te._L_of_g(spec, g)
+        return torch.cat([(L - lam * spec.I + S).reshape(-1),
+                          (L + lam * spec.I + T).reshape(-1), torch.diagonal(L) + y])
+
+    def fused():
+        return te.A_op(spec, X)
+
+    bits = torch.int32
+    assert torch.equal(fused().view(bits), composition().view(bits)), \
+        f"A_op n={n}: the fused form differs from the composition"
+    launches = {}
+    for name, fn in (("fused", fused), ("composition", composition)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launches[name] = sum(1 for ev in prof.events() if str(ev.device_type).endswith("CUDA"))
+    return dict(n=n, r=r, dtype="fp32", bitwise_equal=True,
+                fused_ms=device_ms(fused), composition_ms=device_ms(composition),
+                fused_call_ms=eager_ms(fused), composition_call_ms=eager_ms(composition),
+                device_launches=launches)
+
+
 def _random_graphs(R, n, rng):
     """(R, n, n) bool adjacency of sparse random graphs (about 4 edges per
     node) — the SA's operands — and the BFS start reach = I ∨ adj."""
@@ -256,8 +330,10 @@ def phase_kernels() -> dict:
     """Checks at the main path's shapes — n=64 (main_n64) and n=16
     (main_bcube, ragged against every tile) in fp32, the SA's one restart
     per hop — and at n=256, fp64 and R=4, and hop_step from n=5 to n=2,000
-    (past the plan that holds all of adj's columns in one block); returns
-    the n=64 case per kernel."""
+    (past the plan that holds all of adj's columns in one block); the fused
+    ``edge_laplacian_blocks`` bitwise at n = 5, 16, 64 and 256, and ``A_op``
+    at n=64 fused against the composition it replaced; returns the n=64
+    case per kernel."""
     rng = np.random.default_rng(0)
     cases = []
     for n, dtypes in ((16, (torch.float32,)), (64, (torch.float32, torch.float64)),
@@ -268,11 +344,17 @@ def phase_kernels() -> dict:
                               **_edge_laplacian_case(n, dtype, rng)))
             cases.append(dict(kernel="edge_quadform", n=n, dtype=tag,
                               **_edge_quadform_case(n, dtype, rng)))
+            cases.append(dict(kernel="edge_laplacian_blocks", n=n, dtype=tag,
+                              **_edge_laplacian_blocks_case(n, dtype, rng)))
     for R, n in ((1, 5), (1, 16), (1, 64), (4, 64), (4, 256), (1, 2000)):
         cases.append(dict(kernel="hop_step", R=R, n=n, dtype="bool",
                           **_hop_step_case(R, n, rng)))
+    for n in (5, 256):
+        for dtype in (torch.float32, torch.float64):
+            _edge_laplacian_blocks_case(n, dtype, rng)        # bitwise only
+    a_op = _a_op_case(64, 128)
     torch.cuda.synchronize()
-    emit("kernel_checks", cases=cases)
+    emit("kernel_checks", cases=cases, a_op=a_op)
     # the main path's shapes: ADMM in fp32 at n=64, SA one restart at n=64
     main = {}
     for c in cases:
@@ -474,7 +556,8 @@ def _profiled(fn, match: tuple = ()) -> dict:
 
 def phase_profile() -> None:
     """Short windows of the n=64 main path's three device stages, each run
-    once unprofiled to warm up: 60 ADMM steps (pipeline stack), 100 SA
+    once unprofiled to warm up: 60 ADMM steps (pipeline stack; the
+    ``edge_laplacian_blocks`` launches count its ``A_op`` calls), 100 SA
     moves, 100 polish iterations."""
     from repro_torch.core import BATopoConfig, HomogeneousADMM
     from repro_torch.core.anneal import greedy_degree_graph
@@ -498,7 +581,8 @@ def phase_profile() -> None:
     out = {}
     for name, fn in stages.items():
         fn()
-        out[name] = _profiled(fn)
+        out[name] = _profiled(fn, match=("edge_laplacian_blocks",) if name.startswith("admm")
+                              else ())
     emit("profile", n=n, r=r, stages=out)
 
 
@@ -899,28 +983,66 @@ def _ssd_check(args) -> tuple[float, float, bool]:
             bool((ey <= by).all() and (est <= bst).all()))
 
 
-def _ssd_work(Bsz, nc, Q, H, P, N, size) -> tuple[float, float]:
-    """Bytes (inputs read once, outputs written once) and float32 operations
-    of one call, the causal half of G and of M·x only."""
+def _ssd_work(Bsz, nc, Q, H, P, N, size) -> tuple[float, float, float]:
+    """Bytes (inputs read once, outputs written once), the float32 FMA
+    design's operations (the causal half of G and of M·x) and the
+    tensor-core design's operations (G's causal half once, y and the states
+    three times each: the three bf16 terms) of one call."""
     tri = Q * (Q + 1) // 2
     nbytes = (Bsz * nc * (Q * H * P * size + 2 * Q * H * 4 + 2 * Q * N * size)
               + Bsz * nc * (Q * H * P + H * P * N) * 4)
     flops = Bsz * nc * (2 * tri * N + H * (2 * tri * P + 4 * tri) + H * (2 * Q * P * N + Q * N))
-    return nbytes, flops
+    tc_ops = Bsz * nc * (2 * tri * N + 3 * H * 2 * tri * P + 3 * H * 2 * Q * P * N)
+    return nbytes, flops, tc_ops
 
 
-def _ssd_case(Bsz, Q, H, P, N, dtype, gen, strided: bool) -> dict:
-    """One chunk (nc = 1) of a sequence, as the model calls the kernel. With
-    ``strided`` x, B and C are column slices of one (B, Q, d_inner + 2N)
-    conv output and the chunk a slice of two, as in mamba2_forward."""
+def _ssd_witness(x, dt, la, Bm, Cm):
+    """The same function by cuBLAS and elementwise ops in float32 (TF32 off):
+    ``torch.bmm`` for G, the masked M, ``torch.matmul`` for y and the
+    states. A yardstick of what the library does with these products, not a
+    single library call."""
+    Bsz, nc, Q, H, P = x.shape
+    N = Bm.shape[-1]
+    BC = Bsz * nc
+    Cf, Bf = Cm.float().reshape(BC, Q, N), Bm.float().reshape(BC, Q, N)
+    G = torch.bmm(Cf, Bf.transpose(1, 2))                             # (BC, Q, Q)
+    laT = la.reshape(BC, Q, H).transpose(1, 2)                        # (BC, H, Q)
+    dtT = dt.reshape(BC, Q, H).transpose(1, 2)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    M = torch.where(causal, G[:, None] * torch.exp(laT[..., :, None] - laT[..., None, :])
+                    * dtT[..., None, :], 0.0)
+    xh = x.float().reshape(BC, Q, H, P).transpose(1, 2)               # (BC, H, Q, P)
+    y = torch.matmul(M, xh)
+    w = torch.exp(laT[..., -1:] - laT) * dtT                          # (BC, H, Q)
+    st = torch.matmul((xh * w[..., None]).transpose(2, 3), Bf[:, None])
+    return y, st
+
+
+def _ssd_registers(dtype) -> list:
+    """``nvcc -Xptxas -v`` of the kernel the dtype's route launches."""
+    from repro_torch.kernels import build
+
+    want = "tc_kernel" if dtype == torch.bfloat16 else \
+        {torch.float32: "kernelIfE", torch.float16: "kernelI6__halfE"}[dtype]
+    return [dict(r, kernel=r["kernel"][-60:]) for r in
+            build.parse_ptxas(build.ptxas_logs.get("ssd_scan", "")) if want in r["kernel"]]
+
+
+def _ssd_case(Bsz, Q, H, P, N, dtype, gen, strided: bool, nc: int = 1) -> dict:
+    """``nc`` chunks of a sequence in one call, as the model calls the
+    kernel (one launch a layer). With ``strided`` x, B and C are column
+    slices of one (B, nc·Q + Q, d_inner + 2N) conv output, as in
+    mamba2_forward."""
     from repro_torch.kernels.ssd_scan import ops as ssd
 
     di = H * P
-    xbc = torch.randn((Bsz, 2 * Q, di + 2 * N), generator=gen, device="cuda").to(dtype)
-    chunk = xbc[:, None, :Q] if strided else xbc[:, None, :Q].contiguous()
+    xbc = torch.randn((Bsz, nc * Q + Q, di + 2 * N), generator=gen, device="cuda").to(dtype)
+    chunk = xbc[:, :nc * Q].unflatten(1, (nc, Q))
+    if not strided:
+        chunk = chunk.contiguous()
     x = chunk[..., :di].unflatten(-1, (H, P))
     Bm, Cm = chunk[..., di:di + N], chunk[..., di + N:]
-    dt = torch.nn.functional.softplus(torch.randn((Bsz, 1, Q, H), generator=gen,
+    dt = torch.nn.functional.softplus(torch.randn((Bsz, nc, Q, H), generator=gen,
                                                   device="cuda"))
     A = -torch.rand(H, generator=gen, device="cuda") - 0.05
     la = torch.cumsum(A * dt, dim=2)
@@ -928,19 +1050,26 @@ def _ssd_case(Bsz, Q, H, P, N, dtype, gen, strided: bool) -> dict:
         x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
     args = (x, dt, la, Bm, Cm)
     err, share, ok = _ssd_check(args)
-    nbytes, flops = _ssd_work(Bsz, 1, Q, H, P, N, x.element_size())
-    big = Q * H >= 4096
+    plan = ssd.kernel_plan(Q, H, P, N, dtype)
+    nbytes, flops, tc_ops = _ssd_work(Bsz, nc, Q, H, P, N, x.element_size())
+    big = nc * Q * H >= 4096
     t = (large_timings if big else timings)(lambda: ssd.ssd_intra_chunk(*args),
                                             lambda: ssd.ssd_intra_chunk_plain(*args))
     if big:                       # the kernel itself from a CUDA graph
-        t["ms"] = device_ms(lambda: ssd.ssd_intra_chunk(*args), launches=200)
-    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / FP32_OP_PER_S
-    return dict(kernel="ssd_intra_chunk", B=Bsz, nc=1, Q=Q, H=H, P=P, N=N,
+        t["ms"] = device_ms(lambda: ssd.ssd_intra_chunk(*args), launches=200 // nc)
+        t["witness_ms"] = large_timings(lambda: _ssd_witness(*args), None)["ms"]
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    ops_s = (tc_ops / BF16_OP_PER_S if plan["route"] == "tensor_core"
+             else flops / FP32_OP_PER_S)
+    return dict(kernel="ssd_intra_chunk", B=Bsz, nc=nc, Q=Q, H=H, P=P, N=N,
                 dtype=str(dtype).replace("torch.", ""), strided=strided,
-                plan=ssd.kernel_plan(Q, H, P, N), max_abs_err=err, share_of_tol=share,
-                within=ok, **t, bound_ms=1e3 * max(bytes_s, ops_s),
-                bound_by="operations" if ops_s > bytes_s else "bytes", flops=flops,
-                bytes=nbytes)
+                route=plan["route"], plan=plan, ptxas=_ssd_registers(dtype),
+                max_abs_err=err, share_of_tol=share, within=ok, **t,
+                bound_ms=1e3 * max(bytes_s, ops_s),
+                bound_by="operations" if ops_s > bytes_s else "bytes",
+                bytes_bound_ms=1e3 * bytes_s, ops_bound_ms=1e3 * ops_s,
+                fp32_fma_bound_ms=1e3 * flops / FP32_OP_PER_S, flops=flops,
+                tc_ops=tc_ops, bytes=nbytes)
 
 
 def phase_serve_kernels() -> dict:
@@ -949,9 +1078,11 @@ def phase_serve_kernels() -> dict:
     the last slot, at gemma2-9b's shape (B 4, C 4224, 16/8 heads, hd 256,
     softcap 50, a 4,096 window that masks the early positions) in bf16 and
     fp32, and at a ring-cache mask; ssd_intra_chunk at main_serve_ssm's shape
-    (B 8, Q 256, H 48, P 64, N 128, bf16) as the model hands it over (column
-    slices) and contiguous, and at the reduced shape (Q 32, H 8, P 32, N 16,
-    fp32). Returns the main-shape case per kernel."""
+    (B 8, Q 256, H 48, P 64, N 128, bf16: the tensor-core route) as the
+    model hands it over (column slices) and contiguous, its four chunks in
+    one launch, in fp32 (the CUDA-core route), at the reduced shape (Q 32,
+    H 8, P 32, N 16, fp32, three chunks) and ragged (Q 50, P 30, N 18,
+    bf16). Returns the main-shape case per kernel."""
     from repro_torch.models.attention import decode_valid
 
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -968,7 +1099,10 @@ def phase_serve_kernels() -> dict:
                      decode_valid(4096, 2500, ring=True, device="cuda"), gen),
         _ssd_case(8, 256, 48, 64, 128, torch.bfloat16, gen, strided=True),
         _ssd_case(8, 256, 48, 64, 128, torch.bfloat16, gen, strided=False),
-        _ssd_case(2, 32, 8, 32, 16, torch.float32, gen, strided=True),
+        _ssd_case(8, 256, 48, 64, 128, torch.bfloat16, gen, strided=True, nc=4),
+        _ssd_case(2, 32, 8, 32, 16, torch.float32, gen, strided=True, nc=3),
+        _ssd_case(2, 50, 5, 30, 18, torch.bfloat16, gen, strided=False, nc=3),
+        _ssd_case(8, 256, 48, 64, 128, torch.float32, gen, strided=True),
     ]
     torch.cuda.synchronize()
     emit("serve_kernel_checks", cases=cases,
@@ -976,7 +1110,11 @@ def phase_serve_kernels() -> dict:
                       "enable_gqa=True, boolean mask), at the shapes without softcap; ms and "
                       "library_ms cold (4 layer slices of one stacked cache in turn), "
                       "ms_warm and library_ms_warm one slice replayed; "
-                      "ssd_intra_chunk: no single PyTorch call computes it")
+                      "ssd_intra_chunk: no single PyTorch call computes it; witness_ms is "
+                      "torch.bmm for G, the masked M, torch.matmul for y and the states "
+                      "(float32 cuBLAS), a yardstick; bound: the larger of bytes at 3.35 TB/s "
+                      "and the route's operations (tensor_core: G once, y and states three "
+                      "times, at 989 TFLOP/s bf16; cuda_core: float32 FMA at 67 TFLOP/s)")
     bad = [c for c in cases if not c["within"]]
     assert not bad, f"serving kernels outside their tolerance: {bad}"
     return {"decode_attention": cases[0], "ssd_intra_chunk": cases[5]}
@@ -1070,10 +1208,16 @@ def phase_serve_dense() -> dict:
         return _serve("main_serve_dense", SERVE_DENSE_ARGS, "decode_attention", 30 * 127, rec)
 
 
+#: main_serve_ssm's time to first token with the CUDA-core SSD kernel
+#: launched once per chunk (an earlier run, NVIDIA H100 80GB HBM3, 700 W),
+#: printed beside this run's; the two runs are on different machines.
+SSM_TTFT_MS_BEFORE = 371.4
+
+
 def phase_serve_ssm() -> dict:
-    """mamba2-780m at full width: 4 ssd_intra_chunk launches per layer of
-    the prefill, 192 in all. The first launch (layer 0, chunk 0, the
-    model's strided slices) is also held against the plain version, and
+    """mamba2-780m at full width: one ssd_intra_chunk launch per layer of
+    the prefill over its four chunks, 48 in all. The first launch (layer 0,
+    the model's strided slices) is also held against the plain version, and
     the peak memory is counted from just after that check."""
     from repro_torch.models import ssm
 
@@ -1088,7 +1232,11 @@ def phase_serve_ssm() -> dict:
                     x_strides=list(args[0].stride()))
 
     with _first_launch_checked(ssm, "_ssd_ops", "ssd_intra_chunk", check) as rec:
-        return _serve("main_serve_ssm", SERVE_SSM_ARGS, "ssd_intra_chunk", 48 * 4, rec)
+        out = _serve("main_serve_ssm", SERVE_SSM_ARGS, "ssd_intra_chunk", 48, rec)
+    emit("serve_ssm_ttft", ttft_ms=out["res"]["prefill_ms"],
+         ttft_ms_one_launch_per_chunk=SSM_TTFT_MS_BEFORE,
+         note="the second from an earlier run on another machine")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1167,9 +1315,34 @@ def phase_profile_serve() -> None:
     emit("profile_serve", arch=cfg.name, batch=16, cache_len=2184, pos=2049, step=prof)
 
 
+def phase_profile_prefill() -> None:
+    """One mamba2-780m prefill at main_serve_ssm's width (batch 8, 1,024-token
+    prompts) under torch.profiler, after one unprofiled warm-up prefill:
+    busy and idle share, launches, top kernels, and ssd_intra_chunk's share
+    of the device time."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+
+    cfg = get_arch("mamba2-780m")
+    params = tree_map(lambda t: t.cuda(), transformer.init_params(0, cfg))
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (8, 1024)).astype(np.int64)).cuda()
+
+    def prefill():
+        logits, _ = transformer.prefill(params, cfg, {"tokens": prompts})
+        return logits[:, -1].argmax(-1).cpu()          # the first token, on the host
+
+    prefill()
+    prof = _profiled(prefill, match=("ssd_intra_chunk",))
+    emit("profile_prefill", arch=cfg.name, batch=8, prompt=1024, prefill=prof)
+    del params
+
+
 KERNEL_INFO = {
     "edge_laplacian": dict(route="cuda", source="src/repro_torch/csrc/edge_laplacian.cu",
                            replaces="src/repro/kernels/edge_laplacian/kernel.py:62"),
+    "edge_laplacian_blocks": dict(route="cuda", source="src/repro_torch/csrc/edge_laplacian.cu",
+                                  replaces="src/repro/kernels/edge_laplacian/kernel.py:62"),
     "edge_quadform": dict(route="cuda", source="src/repro_torch/csrc/edge_laplacian.cu",
                           replaces="src/repro/kernels/edge_laplacian/kernel.py:87"),
     "hop_step": dict(route="cuda", source="src/repro_torch/csrc/hop_bfs.cu",
@@ -1216,6 +1389,7 @@ def main() -> int:
     ssm_run = phase_serve_ssm()
     phase_serve_card_vs_cpu()
     phase_profile_serve()
+    phase_profile_prefill()
 
     path_launches = {"gossip_mix_batched": dsgd_launches["gossip_mix_batched"],
                      "gossip_mix": row_launches["gossip_mix"],

@@ -377,9 +377,24 @@ def split_lam(spec: ProblemSpec, flat: torch.Tensor) -> tuple:
 
 def A_op(spec: ProblemSpec, X) -> torch.Tensor:
     """Constraint operator (Eq. 23, plus Eq. 29 rows when heterogeneous),
-    as one flat constraint-space tensor."""
+    as one flat constraint-space tensor. With ``spec.edge_kernel`` on a
+    CUDA tensor the three dense blocks come from one
+    ``edge_laplacian_blocks`` launch and the heterogeneous rows are written
+    into slices of the same output (bit-equal to the composition below)."""
     x, S, y, T = X[:4]
     g, lam = x[:-1], x[-1]
+    if spec.edge_kernel and g.device.type == "cuda":
+        n = spec.n
+        out = torch.empty(sum(lam_sizes(spec)), dtype=g.dtype, device=g.device)
+        _el_ops.edge_laplacian_blocks(g, lam, S, T, y, out)
+        if spec.hetero:
+            z, nu, s = X[4], X[5], X[6]
+            o = 2 * n * n + n
+            r4 = torch.matmul(spec.M, z, out=out[o:o + spec.q])
+            if not spec.equality:
+                r4.add_(s)
+            torch.sub(g, z, out=out[o + spec.q:]).add_(nu)
+        return out
     L = _L_of_g(spec, g)
     I = spec.I
     blocks = [(L - lam * I + S).reshape(-1), (L + lam * I + T).reshape(-1),

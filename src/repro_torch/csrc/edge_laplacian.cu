@@ -6,14 +6,22 @@
 //     m = n(n-1)/2, in all_edges(n) (lexicographic) order;
 //   * edge_quadform_2d (body _edge_quadform_kernel): per edge l = {i, j},
 //     <dL/dg_l, P> = P_ii + P_jj - P_ij - P_ji.
-// Both run on every CG matvec of the ADMM X-step (engine._L_of_g and
-// engine._edge_quadform), in float32 (the pipeline default) and float64.
+// and, as a second form of the first, edge_laplacian_blocks: A_op's three
+// dense blocks (L - lam*I + S, L + lam*I + T, diag(L) + y) straight from g
+// into the flat constraint-space vector. The quadratic form runs on every
+// CG matvec of the ADMM X-step (engine._edge_quadform), the blocks form on
+// every A_op (engine.A_op), L alone in engine._L_of_g and init_state; in
+// float32 (the pipeline default) and float64.
 //
 // What bounds them on the H100: bytes. Each reads its inputs once and
 // writes its output once, with no arithmetic worth counting.
 //   edge_laplacian: 4 or 8 bytes x (m + n^2).
 //     n = 64:  24.4 KB fp32, 48.9 KB fp64  ->  7 ns / 15 ns at 3.35 TB/s.
 //     n = 256: 392.7 KB fp32, 785.4 KB fp64 -> 117 ns / 234 ns.
+//   edge_laplacian_blocks: 4 or 8 bytes x (m + 1 + 4n^2 + 2n): g, lam, S,
+//     T and y read once, 2n^2 + n outputs written once; 22 ns at n = 64
+//     fp32. A_op composed from L and eight torch ops takes nine launches;
+//     this form takes one.
 //   edge_quadform: 4 or 8 bytes x (n^2 + m): P read once, the form written
 //     once, the same figures as edge_laplacian. The endpoints are not part
 //     of the bound: on the ADMM path the edge list is the complete
@@ -47,6 +55,8 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
 // Sum over the block; the result is valid in thread 0. blockDim.x must be a
 // multiple of 32.
@@ -85,6 +95,45 @@ __global__ void edge_laplacian_kernel(const T* __restrict__ g, T* __restrict__ L
   if (threadIdx.x == 0) row[a] = deg;
 }
 
+// A_op's dense blocks straight from g, one block per row a, into the flat
+// constraint-space output: out[a·n + b] = (L − λI + S)_ab, out[n² + a·n + b]
+// = (L + λI + T)_ab, out[2n² + a] = L_aa + y_a. Each entry rounds as the
+// plain composition does: L_ab as above, λI_ab = λ·(1 or 0) (so ±0 or NaN
+// off the diagonal, as λ·I gives), then one rounded subtract or add at a
+// time in the composition's order, and the degree by the same block_sum
+// with the same block size, so the output is bit-equal to edge_laplacian
+// followed by the torch ops.
+template <typename T>
+__global__ void edge_laplacian_blocks_kernel(const T* __restrict__ g, const T* __restrict__ lam,
+                                             const T* __restrict__ S, const T* __restrict__ Tm,
+                                             const T* __restrict__ y, T* __restrict__ out,
+                                             int n) {
+  const int a = blockIdx.x;
+  const size_t nn = static_cast<size_t>(n) * n;
+  const size_t row = static_cast<size_t>(a) * n;
+  const T lv = *lam;
+  const T lam_off = mul_rn(lv, T(0));
+  T deg = T(0);
+  for (int b = threadIdx.x; b < n; b += blockDim.x) {
+    if (b == a) continue;
+    const long long lo = a < b ? a : b;
+    const long long hi = a < b ? b : a;
+    const long long l = lo * n - lo * (lo + 1) / 2 + (hi - lo - 1);
+    const T v = g[l];
+    const T L = sub_rn(T(0), v);
+    out[row + b] = add_rn(sub_rn(L, lam_off), S[row + b]);
+    out[nn + row + b] = add_rn(add_rn(L, lam_off), Tm[row + b]);
+    deg += v;
+  }
+  deg = block_sum(deg);
+  if (threadIdx.x == 0) {
+    const T lam_on = mul_rn(lv, T(1));
+    out[row + a] = add_rn(sub_rn(deg, lam_on), S[row + a]);
+    out[nn + row + a] = add_rn(add_rn(deg, lam_on), Tm[row + a]);
+    out[2 * nn + a] = add_rn(deg, y[a]);
+  }
+}
+
 template <typename T>
 __global__ void edge_quadform_kernel(const T* __restrict__ P, const int64_t* __restrict__ ei,
                                      const int64_t* __restrict__ ej, T* __restrict__ out,
@@ -117,6 +166,18 @@ int launch_edge_laplacian(const void* g, void* L, int n, void* stream) {
 }
 
 template <typename T>
+int launch_edge_laplacian_blocks(const void* g, const void* lam, const void* S, const void* Tm,
+                                 const void* y, void* out, int n, void* stream) {
+  if (n > 0) {
+    edge_laplacian_blocks_kernel<T>
+        <<<n, laplacian_threads(n), 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(g), static_cast<const T*>(lam), static_cast<const T*>(S),
+            static_cast<const T*>(Tm), static_cast<const T*>(y), static_cast<T*>(out), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_edge_quadform(const void* P, const void* ei, const void* ej, void* out, long long m,
                          int n, void* stream) {
   if (m > 0) {
@@ -140,6 +201,16 @@ int edge_laplacian_f32(const void* g, void* L, int n, void* stream) {
 
 int edge_laplacian_f64(const void* g, void* L, int n, void* stream) {
   return launch_edge_laplacian<double>(g, L, n, stream);
+}
+
+int edge_laplacian_blocks_f32(const void* g, const void* lam, const void* S, const void* Tm,
+                              const void* y, void* out, int n, void* stream) {
+  return launch_edge_laplacian_blocks<float>(g, lam, S, Tm, y, out, n, stream);
+}
+
+int edge_laplacian_blocks_f64(const void* g, const void* lam, const void* S, const void* Tm,
+                              const void* y, void* out, int n, void* stream) {
+  return launch_edge_laplacian_blocks<double>(g, lam, S, Tm, y, out, n, stream);
 }
 
 int edge_quadform_f32(const void* P, const void* ei, const void* ej, void* out, long long m,

@@ -1,11 +1,11 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
 
-``edge_laplacian`` (L(g) and the per-edge quadratic form of the ADMM
-constraint operator), ``hop_bfs`` (one matmul-BFS hop of the SA warm
-start), ``gossip_mix`` (Eq. 1 neighbour mixing of DSGD gossip, batched
-over workers and for one worker), ``decode_attention`` (one-token GQA
-attention over a KV cache) and ``ssd_scan`` (the Mamba-2 SSD intra-chunk
-dual form). Sources live in ``repro_torch/csrc``; :mod:`.build` compiles
+``edge_laplacian`` (L(g), A_op's dense blocks from L(g) in one launch,
+and the per-edge quadratic form of the ADMM constraint operator),
+``hop_bfs`` (one matmul-BFS hop of the SA warm start), ``gossip_mix``
+(Eq. 1 neighbour mixing of DSGD gossip, batched over workers and for one
+worker), ``decode_attention`` (one-token GQA attention over a KV cache)
+and ``ssd_scan`` (the Mamba-2 SSD intra-chunk dual form). Sources live in ``repro_torch/csrc``; :mod:`.build` compiles
 them at first use.
 """
 from __future__ import annotations
@@ -21,6 +21,7 @@ __all__ = ["WRAPPERS", "launch_counts", "reset_launch_counts"]
 #: Every kernel wrapper of the port, by kernel name.
 WRAPPERS = {
     "edge_laplacian": _el_ops.edge_laplacian,
+    "edge_laplacian_blocks": _el_ops.edge_laplacian_blocks,
     "edge_quadform": _el_ops.edge_quadform,
     "hop_step": _hop_ops.hop_step,
     "gossip_mix_batched": _gossip_ops.gossip_mix_batched,

@@ -1,4 +1,5 @@
-"""The ADMM constraint-operator pair: L(g) and the per-edge quadratic form.
+"""The ADMM constraint-operator pair: L(g) and the per-edge quadratic form,
+and a second form of L(g) that writes A_op's three dense blocks at once.
 
 Each function has a CUDA kernel (``csrc/edge_laplacian.cu``) and a plain
 PyTorch version beside it. The wrapper takes the plain version only for a
@@ -13,10 +14,10 @@ import functools
 import numpy as np
 import torch
 
-from .. import build as _build
+from .. import launch_util as _lu
 
-__all__ = ["edge_laplacian", "edge_quadform", "edge_laplacian_plain",
-           "edge_quadform_plain", "packed_edge_index"]
+__all__ = ["edge_laplacian", "edge_quadform", "edge_laplacian_blocks", "edge_laplacian_plain",
+           "edge_quadform_plain", "edge_laplacian_blocks_plain", "packed_edge_index"]
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _P = ctypes.c_void_p
@@ -24,6 +25,7 @@ _SIGNATURES = {
     **{f"edge_laplacian_{s}": [_P, _P, ctypes.c_int, _P] for s in ("f32", "f64")},
     **{f"edge_quadform_{s}": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P]
        for s in ("f32", "f64")},
+    **{f"edge_laplacian_blocks_{s}": [_P] * 6 + [ctypes.c_int, _P] for s in ("f32", "f64")},
 }
 
 
@@ -46,6 +48,23 @@ def edge_laplacian_plain(g: torch.Tensor, lidx: torch.Tensor) -> torch.Tensor:
     g_ext = torch.cat([g, g.new_zeros(1)])
     G = g_ext[lidx]
     return torch.diag(G.sum(dim=1)) - G
+
+
+def edge_laplacian_blocks_plain(g: torch.Tensor, lam: torch.Tensor, S: torch.Tensor,
+                                T: torch.Tensor, y: torch.Tensor,
+                                out: torch.Tensor) -> torch.Tensor:
+    """A_op's dense blocks by the composition the engine's plain route
+    takes: ``out[:n²] = L − λ·I + S``, ``out[n²:2n²] = L + λ·I + T``,
+    ``out[2n²:2n²+n] = diag(L) + y`` (row-major), with L from
+    :func:`edge_laplacian_plain`. Returns ``out``."""
+    n = S.shape[0]
+    nn = n * n
+    L = edge_laplacian_plain(g, packed_edge_index(n, str(g.device)))
+    I = torch.eye(n, dtype=g.dtype, device=g.device)
+    out[:nn] = (L - lam * I + S).reshape(-1)
+    out[nn:2 * nn] = (L + lam * I + T).reshape(-1)
+    out[2 * nn:2 * nn + n] = torch.diagonal(L) + y
+    return out
 
 
 def edge_quadform_plain(P: torch.Tensor, ei: torch.Tensor,
@@ -87,15 +106,58 @@ def edge_laplacian(g: torch.Tensor, n: int) -> torch.Tensor:
     if g.dtype not in _SUFFIX:
         raise TypeError(f"edge_laplacian takes float32 or float64, not {g.dtype}")
     L = torch.empty((n, n), dtype=g.dtype, device=g.device)
-    lib = _build.load("edge_laplacian", _SIGNATURES)
+    lib = _lu.library("edge_laplacian", _SIGNATURES)
     fn = getattr(lib, f"edge_laplacian_{_SUFFIX[g.dtype]}")
-    _raise_on(fn(g.data_ptr(), L.data_ptr(), n,
-                 torch.cuda.current_stream().cuda_stream), "edge_laplacian")
+    _raise_on(fn(g.data_ptr(), L.data_ptr(), n, _lu.raw_stream(g.device.index)),
+              "edge_laplacian")
     edge_laplacian.launches += 1
     return L
 
 
 edge_laplacian.launches = 0
+
+
+def edge_laplacian_blocks(g: torch.Tensor, lam: torch.Tensor, S: torch.Tensor,
+                          T: torch.Tensor, y: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """A_op's three dense blocks from L(g), written into the flat
+    constraint-space vector ``out`` in one launch: ``out[:n²] = L − λI +
+    S``, ``out[n²:2n²] = L + λI + T``, ``out[2n²:2n²+n] = diag(L) + y``.
+
+    ``g``: (m,) in ``all_edges(n)`` order (the complete edge list, as
+    :func:`edge_laplacian`); ``lam``: a 0-dim tensor, read on the device;
+    ``S``, ``T``: (n, n); ``y``: (n,); ``out``: 1-D with at least 2n² + n
+    entries (the rest is left as it is). One dtype, float32 or float64,
+    every tensor contiguous. Bit-equal to :func:`edge_laplacian` followed by
+    the torch ops of :func:`edge_laplacian_blocks_plain`. Returns ``out``.
+    """
+    n = int(S.shape[0]) if S.dim() == 2 else -1
+    m = n * (n - 1) // 2
+    if (S.dim() != 2 or tuple(S.shape) != (n, n) or tuple(T.shape) != (n, n)
+            or tuple(y.shape) != (n,) or tuple(g.shape) != (m,) or lam.dim() != 0
+            or out.dim() != 1 or out.shape[0] < 2 * n * n + n):
+        raise ValueError(f"edge_laplacian_blocks needs g (m,), lam (), S and T (n, n), y (n,) "
+                         f"and out (≥ 2n²+n,); got g {tuple(g.shape)}, lam {tuple(lam.shape)}, "
+                         f"S {tuple(S.shape)}, T {tuple(T.shape)}, y {tuple(y.shape)}, "
+                         f"out {tuple(out.shape)}")
+    tensors = (("g", g), ("lam", lam), ("S", S), ("T", T), ("y", y), ("out", out))
+    if any(t.dtype != g.dtype for _, t in tensors):
+        raise TypeError("edge_laplacian_blocks: g, lam, S, T, y and out must share one dtype, "
+                        f"got {[str(t.dtype) for _, t in tensors]}")
+    if all(t.device.type == "cpu" for _, t in tensors):
+        return edge_laplacian_blocks_plain(g, lam, S, T, y, out)
+    for what, t in tensors:
+        _check_cuda(t, what)
+    if g.dtype not in _SUFFIX:
+        raise TypeError(f"edge_laplacian_blocks takes float32 or float64, not {g.dtype}")
+    lib = _lu.library("edge_laplacian", _SIGNATURES)
+    fn = getattr(lib, f"edge_laplacian_blocks_{_SUFFIX[g.dtype]}")
+    _raise_on(fn(g.data_ptr(), lam.data_ptr(), S.data_ptr(), T.data_ptr(), y.data_ptr(),
+                 out.data_ptr(), n, _lu.raw_stream(g.device.index)), "edge_laplacian_blocks")
+    edge_laplacian_blocks.launches += 1
+    return out
+
+
+edge_laplacian_blocks.launches = 0
 
 
 def edge_quadform(P: torch.Tensor, ei: torch.Tensor,
@@ -121,10 +183,10 @@ def edge_quadform(P: torch.Tensor, ei: torch.Tensor,
         raise TypeError(f"ei/ej must be int64, not {ei.dtype}/{ej.dtype}")
     m, n = int(ei.shape[0]), int(P.shape[0])
     out = torch.empty(m, dtype=P.dtype, device=P.device)
-    lib = _build.load("edge_laplacian", _SIGNATURES)
+    lib = _lu.library("edge_laplacian", _SIGNATURES)
     fn = getattr(lib, f"edge_quadform_{_SUFFIX[P.dtype]}")
     _raise_on(fn(P.data_ptr(), ei.data_ptr(), ej.data_ptr(), out.data_ptr(),
-                 m, n, torch.cuda.current_stream().cuda_stream), "edge_quadform")
+                 m, n, _lu.raw_stream(P.device.index)), "edge_quadform")
     edge_quadform.launches += 1
     return out
 

@@ -29,7 +29,7 @@ from ..kernels.ssd_scan import ops as _ssd_ops
 from .common import dense_init, rms_norm
 
 __all__ = ["SSMCache", "init_mamba2", "mamba2_forward", "mamba2_decode", "init_ssm_cache",
-           "ssd_chunk_scan"]
+           "ssd_chunk_scan", "INTRA_CALL_BYTES"]
 
 
 class SSMCache(NamedTuple):
@@ -95,17 +95,39 @@ def _causal_depthwise_conv(xBC, w, b):
     return _silu(out + b)
 
 
+#: Bytes of float32 output (y_intra and chunk states) one ``ssd_intra_chunk``
+#: call may produce: past it a layer's chunks go to the kernel in groups.
+INTRA_CALL_BYTES = 1 << 30
+
+
+def _intra_chunk_groups(xc, dtc, la, Bc, Cc) -> tuple[int, list]:
+    """``ssd_intra_chunk`` over every chunk, in groups of G chunks whose
+    float32 outputs stay under ``INTRA_CALL_BYTES`` (at least one chunk a
+    call; one call where all fit). Returns (G, [(y_intra, chunk_states) of
+    each group])."""
+    Bsz, nc, Q, H, P = xc.shape
+    N = Bc.shape[-1]
+    group = max(1, INTRA_CALL_BYTES // (4 * Bsz * (Q * H * P + H * P * N)))
+    return group, [_ssd_ops.ssd_intra_chunk(xc[:, c:c + group], dtc[:, c:c + group],
+                                            la[:, c:c + group], Bc[:, c:c + group],
+                                            Cc[:, c:c + group]) for c in range(0, nc, group)]
+
+
 def ssd_chunk_scan(x, dt, A, B_mat, C_mat, chunk: int, h0=None, use_kernel: bool = True):
     """Chunked SSD scan.
 
     x: (B, S, H, P); dt: (B, S, H) float32 (post-softplus); A: (H,) negative;
     B_mat/C_mat: (B, S, N). Returns (y (B, S, H, P) in x's dtype, final
-    state (B, H, P, N) float32). With ``use_kernel`` each chunk's quadratic
-    part goes through the ``ssd_intra_chunk`` kernel, one launch per chunk
-    as in the reference; False takes the reference's einsum route. There G
-    = C·Bᵀ stays float32: the reference's einsum of two x-dtype operands
-    would round it to x's dtype, but XLA removes that round trip inside the
-    compiled scan, so the reference computes it in float32 too.
+    state (B, H, P, N) float32). With ``use_kernel`` the quadratic part of
+    every chunk goes through the ``ssd_intra_chunk`` kernel in one launch
+    (in groups past ``INTRA_CALL_BYTES``) before the loop over chunks,
+    which then only adds the incoming state's part and carries the state;
+    the reference calls its kernel once per chunk inside its scan, but the
+    intra-chunk half does not depend on the carried state. False takes the
+    reference's einsum route, chunk by chunk. There G = C·Bᵀ stays
+    float32: the reference's einsum of two x-dtype operands would round it
+    to x's dtype, but XLA removes that round trip inside the compiled scan,
+    so the reference computes it in float32 too.
     """
     Bsz, S, H, P = x.shape
     N = B_mat.shape[-1]
@@ -128,14 +150,16 @@ def ssd_chunk_scan(x, dt, A, B_mat, C_mat, chunk: int, h0=None, use_kernel: bool
     la = torch.cumsum(A[None, None, None, :] * dtc, dim=2)          # (B,nc,Q,H) log-decay
     h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device) if h0 is None
          else h0.float())
-    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    if use_kernel:
+        group, intra = _intra_chunk_groups(xc, dtc, la, Bc, Cc)
+    else:
+        causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
     ys = []
     for c in range(nc):
         xq, dtq, laq, Bq, Cq = xc[:, c], dtc[:, c], la[:, c], Bc[:, c], Cc[:, c]
         if use_kernel:
-            y_intra, st = _ssd_ops.ssd_intra_chunk(
-                xq[:, None], dtq[:, None], laq[:, None], Bq[:, None], Cq[:, None])
-            y_intra, st = y_intra[:, 0], st[:, 0]
+            y_g, st_g = intra[c // group]
+            y_intra, st = y_g[:, c % group], st_g[:, c % group]
         else:
             Ldec = torch.exp(laq[:, :, None, :] - laq[:, None, :, :])     # (B,Qt,Qs,H)
             Ldec = torch.where(causal[None, :, :, None], Ldec, 0.0)

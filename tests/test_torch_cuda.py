@@ -23,7 +23,10 @@ within the float32 bound of ``decode_attention_bound`` plus one output ulp,
 one launch a call, at one split and many, at a cache shorter than a tile,
 through each way of bringing a tile in, and after two calls in a row and a
 CUDA-graph replay (the fused merge leaves its tickets at zero);
-``ssd_intra_chunk`` within the float32 bounds of ``ssd_intra_chunk_bound``;
+``ssd_intra_chunk`` within the float32 bounds of ``ssd_intra_chunk_bound``
+on both routes (bfloat16 on the tensor cores, four chunks in one launch);
+``edge_laplacian_blocks`` and the fused ``A_op`` bitwise equal to the L-only
+kernel followed by the torch ops;
 reduced fp32 serving (smollm, gemma2 long context, mamba2), card vs CPU,
 within 1e-5 relative in the logits of the prefill and 8 decode steps, with
 equal greedy tokens.
@@ -138,6 +141,76 @@ def test_hop_step_bits_bitwise_on_card(cuda, R, n, kind):
     assert thop.hop_step.launches == before + 3
 
 
+def _a_op_composition(spec, X, L):
+    """A_op's blocks as the engine composed them before the fused form."""
+    x, S, y, T = X[:4]
+    g, lam = x[:-1], x[-1]
+    blocks = [(L - lam * spec.I + S).reshape(-1), (L + lam * spec.I + T).reshape(-1),
+              torch.diagonal(L) + y]
+    if spec.hetero:
+        z, nu, s = X[4], X[5], X[6]
+        r4 = spec.M @ z
+        if not spec.equality:
+            r4 = r4 + s
+        blocks += [r4, g - z + nu]
+    return torch.cat(blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 16, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lam", [0.37, -0.7])
+def test_edge_laplacian_blocks_bitwise_on_card(cuda, n, dtype, lam):
+    """One launch writes A_op's three dense blocks bit-equal to the L-only
+    kernel followed by the torch ops (λ·I's signed zeros included)."""
+    rng = np.random.default_rng(n)
+    g = torch.from_numpy(rng.random(n * (n - 1) // 2)).to(device=cuda, dtype=dtype)
+    S, T = (torch.from_numpy(rng.standard_normal((n, n))).to(device=cuda, dtype=dtype)
+            for _ in range(2))
+    y = torch.from_numpy(rng.standard_normal(n)).to(device=cuda, dtype=dtype)
+    lam_t = torch.tensor(lam, dtype=dtype, device=cuda)
+    out = torch.full((2 * n * n + n + 5,), 7.0, dtype=dtype, device=cuda)
+    before = tel.edge_laplacian_blocks.launches
+    tel.edge_laplacian_blocks(g, lam_t, S, T, y, out)
+    assert tel.edge_laplacian_blocks.launches == before + 1
+    L = tel.edge_laplacian(g, n)
+    I = torch.eye(n, dtype=dtype, device=cuda)
+    want = torch.cat([(L - lam_t * I + S).reshape(-1), (L + lam_t * I + T).reshape(-1),
+                      torch.diagonal(L) + y])
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    torch.cuda.synchronize()
+    assert torch.equal(out[:2 * n * n + n].view(bits), want.view(bits))
+    assert bool((out[2 * n * n + n:] == 7.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hetero", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_a_op_fused_form_bitwise_on_card(cuda, hetero, dtype):
+    """A_op on the card: one edge_laplacian_blocks launch (and no other of
+    the port's kernels), the heterogeneous rows written into slices of the
+    same output, bit-equal to the composition with the L-only kernel."""
+    from repro_torch.core.constraints import bcube_constraints
+
+    cfg = te.ADMMConfig(device="cuda", dtype=dtype)
+    if hetero:
+        cs = bcube_constraints(p=4, k=2)
+        spec = te.make_hetero_spec(16, 48, cs.M, cs.e_cap, cfg, equality=False,
+                                   edge_ok=cs.edge_ok)
+    else:
+        spec = te.make_homo_spec(64, 128, cfg)
+    st = te.init_state(spec, np.random.default_rng(spec.n).random(spec.m) * 0.3, 0.5)
+    st, _ = te.step(spec, st)
+    kernels.reset_launch_counts()
+    got = te.A_op(spec, st.X)
+    counts = kernels.launch_counts()
+    assert counts["edge_laplacian_blocks"] == 1 and sum(counts.values()) == 1, counts
+    want = _a_op_composition(spec, st.X, te._L_of_g(spec, st.X[0][:-1]))
+    bits = torch.int32 if dtype == "float32" else torch.int64
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_raise_instead_of_falling_back(cuda):
     g = torch.rand(6, dtype=torch.float16, device=cuda)
@@ -175,7 +248,7 @@ def test_admm_step_card_matches_cpu(cuda, hetero):
             st, res = te.step(spec, st)
         out[dev] = (st, float(res), kernels.launch_counts())
     (cpu, cpu_res, _), (gpu, gpu_res, counts) = out["cpu"], out["cuda"]
-    assert counts["edge_laplacian"] > 0 and counts["edge_quadform"] > 0
+    assert counts["edge_laplacian_blocks"] > 0 and counts["edge_quadform"] > 0
     for a, b in zip(gpu.X + gpu.Y + gpu.D, cpu.X + cpu.Y + cpu.D):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0, atol=1e-9)
     assert abs(gpu_res - cpu_res) <= 1e-9
@@ -478,6 +551,7 @@ def test_decode_attention_reads_a_stacked_cache_slice(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("Bsz,nc,Q,H,P,N,dtype,strided", [
     (8, 1, 256, 48, 64, 128, torch.bfloat16, True),           # mamba2-780m prefill
+    (8, 4, 256, 48, 64, 128, torch.bfloat16, True),           # its four chunks, one launch
     (2, 1, 32, 8, 32, 16, torch.float32, True),               # the reduced config
     (2, 3, 50, 5, 30, 18, torch.float32, False),              # ragged against every tile
     (1, 2, 256, 3, 64, 128, torch.float16, False),

@@ -159,13 +159,49 @@ def test_cpu_path_never_counts_a_launch():
                           torch.ones(3, dtype=torch.bool))
     tssd.ssd_intra_chunk(torch.rand(1, 1, 4, 2, 4), torch.rand(1, 1, 4, 2),
                          -torch.rand(1, 1, 4, 2), torch.rand(1, 1, 4, 3), torch.rand(1, 1, 4, 3))
-    assert kernels.launch_counts() == {"edge_laplacian": 0, "edge_quadform": 0,
-                                       "hop_step": 0, "gossip_mix_batched": 0,
-                                       "gossip_mix": 0, "decode_attention": 0,
-                                       "ssd_intra_chunk": 0}
+    tel.edge_laplacian_blocks(torch.rand(6), torch.tensor(0.5), torch.rand(4, 4),
+                              torch.rand(4, 4), torch.rand(4), torch.empty(36))
+    assert kernels.launch_counts() == {"edge_laplacian": 0, "edge_laplacian_blocks": 0,
+                                       "edge_quadform": 0, "hop_step": 0,
+                                       "gossip_mix_batched": 0, "gossip_mix": 0,
+                                       "decode_attention": 0, "ssd_intra_chunk": 0}
     assert set(kernels.WRAPPERS) == set(kernels.launch_counts())
     assert set(build.SOURCES) == {"edge_laplacian", "hop_bfs", "gossip_mix",
                                   "decode_attention", "ssd_scan"}
+
+
+@pytest.mark.parametrize("hetero", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_edge_laplacian_blocks_plain_is_the_a_op_composition(hetero, dtype):
+    """A_op's dense blocks from ``edge_laplacian_blocks_plain`` (and the
+    wrapper on the CPU) are bit-equal to the engine's composition, on a
+    homogeneous and a heterogeneous spec, at λ > 0 and λ < 0 (λ·I's signed
+    zeros); entries past 2n² + n are left alone."""
+    from repro_torch.core import engine as te
+    from repro_torch.core.constraints import bcube_constraints
+
+    cfg = te.ADMMConfig(device="cpu", dtype=dtype)
+    if hetero:
+        cs = bcube_constraints(p=4, k=2)
+        spec = te.make_hetero_spec(16, 48, cs.M, cs.e_cap, cfg, equality=False,
+                                   edge_ok=cs.edge_ok)
+    else:
+        spec = te.make_homo_spec(12, 24, cfg)
+    n = spec.n
+    st = te.init_state(spec, np.random.default_rng(n).random(spec.m) * 0.3, 0.5)
+    st, _ = te.step(spec, st)
+    bits = torch.int32 if dtype == "float32" else torch.int64
+    for lam_sign in (1.0, -1.0):
+        x = st.X[0].clone()
+        x[-1] = lam_sign * x[-1].abs()
+        X = (x,) + tuple(st.X[1:])
+        want = te.A_op(spec, X)[:2 * n * n + n]
+        for fn in (tel.edge_laplacian_blocks_plain, tel.edge_laplacian_blocks):
+            out = torch.full((2 * n * n + n + 3,), 7.0, dtype=want.dtype)
+            got = fn(x[:-1], x[-1], X[1], X[3], X[2], out)
+            assert got is out
+            assert torch.equal(out[:2 * n * n + n].view(bits), want.view(bits))
+            assert (out[2 * n * n + n:] == 7.0).all()
 
 
 def test_packed_edge_index_is_lexicographic():

@@ -217,24 +217,31 @@ def _model(seed=0):
         jax.tree.map(np.asarray, jparams), "cpu")
 
 
-def test_ssm_prefill_and_decode_match_jax(monkeypatch):
-    """The port's prefill goes through the SSD kernel wrapper once per chunk
-    per layer (the reference's prefill takes its einsum route); logits and
-    caches agree, then 4 decode steps from the JAX prefill's cache."""
-    jcfg, tcfg, jparams, tparams = _model()
-    S = 70                                       # chunks of 32: three, the last ragged
-    toks = np.random.default_rng(2).integers(0, jcfg.vocab_size, (2, S)).astype(np.int32)
+def _counting_ssd(monkeypatch):
+    """Record the xc shape of every ``ssd_intra_chunk`` call the model makes."""
     calls = []
     wrapped = tssm._ssd_ops.ssd_intra_chunk
 
     def counting(*a):
-        calls.append(a[0].shape)
+        calls.append(tuple(a[0].shape))
         return wrapped(*a)
 
     monkeypatch.setattr(tssm._ssd_ops, "ssd_intra_chunk", counting)
+    return calls
+
+
+def test_ssm_prefill_and_decode_match_jax(monkeypatch):
+    """The port's prefill goes through the SSD kernel wrapper once per layer,
+    over all three chunks (the reference calls its kernel once per chunk, and
+    its prefill takes its einsum route); logits and caches agree, then 4
+    decode steps from the JAX prefill's cache."""
+    jcfg, tcfg, jparams, tparams = _model()
+    S = 70                                       # chunks of 32: three, the last ragged
+    toks = np.random.default_rng(2).integers(0, jcfg.vocab_size, (2, S)).astype(np.int32)
+    calls = _counting_ssd(monkeypatch)
     jlog, jcaches = jtr.prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)})
     tlog, tcaches = ttr.prefill(tparams, tcfg, {"tokens": _to_t(toks)})
-    assert len(calls) == tcfg.num_layers * 3 and calls[0][1] == 1     # nc = 1 per call
+    assert len(calls) == tcfg.num_layers and calls[0][1] == 3         # nc = 3 per call
     _close(tlog.numpy(), jlog)
     _close(tcaches.ssm.conv.numpy(), jcaches.ssm.conv)
     _close(tcaches.ssm.state.numpy(), jcaches.ssm.state)
@@ -248,6 +255,24 @@ def test_ssm_prefill_and_decode_match_jax(monkeypatch):
         _close(tl.numpy(), jl)
         tok = np.argmax(np.asarray(jl)[:, -1], axis=-1)[:, None].astype(np.int32)
     _close(caches.ssm.state.numpy(), jcaches.ssm.state)
+
+
+def test_ssm_prefill_chunk_cap_groups_calls(monkeypatch):
+    """With ``INTRA_CALL_BYTES`` at one chunk's float32 outputs each layer
+    takes one call per chunk, and the prefill gives the same logits and
+    caches as one call per layer (and the reference's, as above)."""
+    jcfg, tcfg, jparams, tparams = _model()
+    toks = np.random.default_rng(2).integers(0, jcfg.vocab_size, (2, 70)).astype(np.int32)
+    whole, whole_caches = ttr.prefill(tparams, tcfg, {"tokens": _to_t(toks)})
+    H, P, N, Q = tcfg.ssm_heads, tcfg.ssm_head_dim, tcfg.ssm_state, tcfg.ssm_chunk
+    monkeypatch.setattr(tssm, "INTRA_CALL_BYTES", 4 * 2 * (Q * H * P + H * P * N))
+    calls = _counting_ssd(monkeypatch)
+    tlog, tcaches = ttr.prefill(tparams, tcfg, {"tokens": _to_t(toks)})
+    assert len(calls) == tcfg.num_layers * 3 and all(c[1] == 1 for c in calls)
+    assert torch.equal(tlog, whole)
+    assert torch.equal(tcaches.ssm.state, whole_caches.ssm.state)
+    jlog, _ = jtr.prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)})
+    _close(tlog.numpy(), jlog)
 
 
 def test_ssm_engine_greedy_tokens_match_jax():
