@@ -7,9 +7,11 @@ kernel against its plain PyTorch version at its path's shapes and times it,
 and drives the port's three paths on ``cuda``:
 
 - the topology solve (``solve_topology`` at n=64, r=128 and the n=16 BCube
-  scenario; every CG matvec's ``A_op`` in one ``edge_laplacian_blocks``
-  launch), checked against the CPU at n=16, evaluated by consensus
-  simulation, with short profiled windows of its device stages;
+  scenario; every CG matvec A·Aᵀλ in one ``edge_schur_matvec`` launch, the
+  right-hand side's ``A_op`` in one ``edge_laplacian_blocks`` launch and
+  the last ``AT_op`` in one ``edge_adjoint`` launch), checked against the
+  CPU at n=16, evaluated by consensus simulation, with short profiled
+  windows of its device stages;
 - DSGD training of smollm-135m at full width through the launcher
   (``repro_torch.launch.train``): n=8 workers on one card, BA topology
   (r=16) solved on the card, 10 steps, every gossip through the
@@ -55,9 +57,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 #: The kernels each path must launch, counted from 0 over that path alone.
 PATH_KERNELS = {
-    "solve": ("edge_laplacian", "edge_laplacian_blocks", "edge_quadform", "hop_step"),
-    "dsgd": ("edge_laplacian", "edge_laplacian_blocks", "edge_quadform", "hop_step",
-             "gossip_mix_batched"),
+    "solve": ("edge_laplacian", "edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec",
+              "hop_step"),
+    "dsgd": ("edge_laplacian", "edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec",
+             "hop_step", "gossip_mix_batched"),
     "rowloop": ("gossip_mix",),
     "serve_dense": ("decode_attention",),
     "serve_ssm": ("ssd_intra_chunk",),
@@ -249,11 +252,124 @@ def _edge_laplacian_blocks_case(n, dtype, rng):
         bound_by="bytes")
 
 
+def _adjoint_operands(n, dtype, rng, hetero=False):
+    P, Q = (torch.from_numpy(rng.standard_normal((n, n))).to(device="cuda", dtype=dtype)
+            for _ in range(2))
+    w = torch.from_numpy(rng.standard_normal(n)).to(device="cuda", dtype=dtype)
+    v = (torch.from_numpy(rng.standard_normal(n * (n - 1) // 2)).to(device="cuda", dtype=dtype)
+         if hetero else None)
+    return P, Q, w, v
+
+
+def _trace_tol(P, Q) -> float:
+    """2n·u·(Σ|P_ii| + Σ|Q_ii|): how far two orders of summing the two
+    diagonals may move −tr P + tr Q."""
+    u = torch.finfo(P.dtype).eps / 2
+    return 2 * P.shape[0] * u * float(P.diagonal().abs().sum() + Q.diagonal().abs().sum())
+
+
+def _adjoint_composition(P, Q, w, v=None):
+    """AT_op's x-part as the card composed it before ``edge_adjoint``: the
+    ``edge_quadform`` kernel and ten torch ops."""
+    from repro_torch.kernels.edge_laplacian import ops
+
+    ei, ej = ops.edge_endpoints(P.shape[0], "cuda")
+    xg = ops.edge_quadform(P + Q, ei, ej) + (w[ei] + w[ej])
+    if v is not None:
+        xg = xg + v
+    return torch.cat([xg, (-torch.trace(P) + torch.trace(Q))[None]])
+
+
+def _edge_adjoint_case(n, dtype, rng, hetero=False, timed=True):
+    """``edge_adjoint`` against the torch composition on the card: the edge
+    entries bitwise, −tr P + tr Q within :func:`_trace_tol`. Timed against
+    its plain version and the composition it replaced (the ``edge_quadform``
+    kernel and torch ops). Bound: P, Q, w (and v) read once, the m + 1
+    outputs written once."""
+    from repro_torch.kernels.edge_laplacian import ops
+
+    P, Q, w, v = _adjoint_operands(n, dtype, rng, hetero)
+    m = n * (n - 1) // 2
+    got = ops.edge_adjoint(P, Q, w, v)
+    want = ops.edge_adjoint_plain(P, Q, w, v)
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    assert torch.equal(got[:m].view(bits), want[:m].view(bits)), \
+        f"edge_adjoint n={n} {dtype} hetero={hetero}: edge entries not bitwise equal"
+    trace_err, tol = abs(float(got[m] - want[m])), _trace_tol(P, Q)
+    assert trace_err <= tol, f"edge_adjoint n={n} {dtype}: trace err {trace_err} > {tol}"
+    assert torch.equal(_adjoint_composition(P, Q, w, v)[:m].view(bits), got[:m].view(bits))
+    out = dict(max_abs_err=trace_err, tol=tol, trace_bitwise=trace_err == 0.0)
+    if not timed:
+        return out
+    size = P.element_size()
+    def composition():
+        return _adjoint_composition(P, Q, w, v)
+
+    return dict(
+        out, **timings(lambda: ops.edge_adjoint(P, Q, w, v),
+                       lambda: ops.edge_adjoint_plain(P, Q, w, v)),
+        composition_ms=device_ms(composition), composition_call_ms=eager_ms(composition),
+        bound_ms=1e3 * size * (2 * n * n + n + m + 1 + (m if hetero else 0)) / HBM_BYTES_PER_S,
+        bound_by="bytes")
+
+
+def _edge_schur_matvec_case(n, dtype, rng, hetero=False, timed=True):
+    """``edge_schur_matvec`` bitwise against ``edge_laplacian_blocks`` fed
+    ``edge_adjoint``'s output (and its adjoint output against
+    ``edge_adjoint``), and against the plain torch composition within
+    2n·u·(max row Σ|xg| + Σ|P_ii| + Σ|Q_ii|) + 2u·max|out|. Timed against
+    its plain version and the composition it replaced (the card's old
+    ``A_op(AT_op(λ))``: ``edge_quadform``, ten torch ops and
+    ``edge_laplacian_blocks``). Bound: P, Q and w read once, the 2n² + n
+    outputs written once."""
+    from repro_torch.kernels.edge_laplacian import ops
+
+    P, Q, w, v = _adjoint_operands(n, dtype, rng, hetero)
+    m, k = n * (n - 1) // 2, 2 * n * n + n
+    out = torch.empty(k, dtype=dtype, device="cuda")
+    x_adj = torch.empty(m + 1, dtype=dtype, device="cuda")
+    ops.edge_schur_matvec(P, Q, w, out, v=v, x_adj=x_adj)
+    x = ops.edge_adjoint(P, Q, w, v)
+    want = torch.empty_like(out)
+    ops.edge_laplacian_blocks(x[:-1], x[-1], P, Q, w, want)
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    assert torch.equal(out.view(bits), want.view(bits)) and \
+        torch.equal(x_adj.view(bits), x.view(bits)), \
+        f"edge_schur_matvec n={n} {dtype} hetero={hetero}: not bitwise equal to " \
+        "edge_laplacian_blocks fed edge_adjoint"
+    plain = ops.edge_schur_matvec_plain(P, Q, w, torch.empty_like(out), v)
+    G = torch.cat([x[:-1].abs(), x.new_zeros(1)])[ops.packed_edge_index(n, "cuda")]
+    u = torch.finfo(dtype).eps / 2
+    tol = (2 * n * u * float(G.sum(dim=1).max()) + _trace_tol(P, Q)
+           + 2 * u * float(plain.abs().max()))
+    err = float((out - plain).abs().max())
+    assert err <= tol, f"edge_schur_matvec n={n} {dtype}: err {err} > {tol}"
+    res = dict(max_abs_err=err, tol=tol, bitwise_vs_blocks_of_adjoint=True)
+    if not timed:
+        return res
+    out2, out3 = torch.empty_like(out), torch.empty_like(out)
+
+    def composition():
+        xc = _adjoint_composition(P, Q, w, v)
+        return ops.edge_laplacian_blocks(xc[:-1], xc[-1], P, Q, w, out3)
+
+    return dict(
+        res, **timings(lambda: ops.edge_schur_matvec(P, Q, w, out, v=v),
+                       lambda: ops.edge_schur_matvec_plain(P, Q, w, out2, v)),
+        composition_ms=device_ms(composition), composition_call_ms=eager_ms(composition),
+        bound_ms=1e3 * P.element_size() * (4 * n * n + 2 * n + (m if hetero else 0))
+        / HBM_BYTES_PER_S, bound_by="bytes")
+
+
 def _a_op_case(n, r):
-    """``A_op`` on a homogeneous fp32 spec at the main path's n: the fused
-    form (one launch) against the composition it replaced (the L-only kernel
-    and eight torch ops), bitwise, each timed from a CUDA graph and eagerly,
-    with the launches of one eager call."""
+    """``A_op`` and the CG matvec on a homogeneous fp32 spec at the main
+    path's n, each fused form (one launch) against the composition it
+    replaced: ``A_op`` bitwise against the L-only kernel and eight torch ops;
+    ``schur_matvec`` bitwise against ``A_op(AT_op(λ))`` through
+    ``edge_adjoint`` and ``edge_laplacian_blocks``, and within the trace's
+    tolerance of the card's old route (the ``edge_quadform`` kernel, ten
+    torch ops and ``edge_laplacian_blocks``). Each timed from a CUDA graph
+    and eagerly, with the device launches of one eager call."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import engine as te
@@ -262,6 +378,8 @@ def _a_op_case(n, r):
     st = te.init_state(spec, np.random.default_rng(n).random(spec.m) * 0.3, 0.5)
     st, _ = te.step(spec, st)
     X = st.X
+    lamv = torch.cat([b.reshape(-1) for b in st.lam])
+    P, Q, w = te.split_lam(spec, lamv)[:3]
 
     def composition():
         x, S, y, T = X[:4]
@@ -273,11 +391,28 @@ def _a_op_case(n, r):
     def fused():
         return te.A_op(spec, X)
 
+    def matvec():
+        return te.schur_matvec(spec, lamv)
+
+    def matvec_composition():
+        return te.A_op(spec, (_adjoint_composition(P, Q, w), P, w, Q))
+
     bits = torch.int32
     assert torch.equal(fused().view(bits), composition().view(bits)), \
         f"A_op n={n}: the fused form differs from the composition"
+    got = matvec()
+    assert torch.equal(got.view(bits), te.A_op(spec, te.AT_op(spec, lamv)).view(bits)), \
+        f"schur_matvec n={n}: differs from A_op(AT_op(λ)) through the fused forms"
+    matvec_err = float((got - matvec_composition()).abs().max())
+    # xg is bitwise, so only the diagonals' (deg ∓ xl) ± P_aa can move: by
+    # the trace's difference and two roundings
+    u = torch.finfo(torch.float32).eps / 2
+    matvec_tol = _trace_tol(P, Q) + 2 * u * float(got.abs().max())
+    assert matvec_err <= matvec_tol, \
+        f"schur_matvec n={n}: {matvec_err} from the old route > {matvec_tol}"
     launches = {}
-    for name, fn in (("fused", fused), ("composition", composition)):
+    for name, fn in (("fused", fused), ("composition", composition), ("matvec", matvec),
+                     ("matvec_composition", matvec_composition)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
@@ -286,6 +421,11 @@ def _a_op_case(n, r):
     return dict(n=n, r=r, dtype="fp32", bitwise_equal=True,
                 fused_ms=device_ms(fused), composition_ms=device_ms(composition),
                 fused_call_ms=eager_ms(fused), composition_call_ms=eager_ms(composition),
+                matvec_bitwise_vs_fused_forms=True, matvec_err_vs_old_route=matvec_err,
+                matvec_tol=matvec_tol,
+                matvec_ms=device_ms(matvec), matvec_composition_ms=device_ms(matvec_composition),
+                matvec_call_ms=eager_ms(matvec),
+                matvec_composition_call_ms=eager_ms(matvec_composition),
                 device_launches=launches)
 
 
@@ -331,9 +471,11 @@ def phase_kernels() -> dict:
     (main_bcube, ragged against every tile) in fp32, the SA's one restart
     per hop — and at n=256, fp64 and R=4, and hop_step from n=5 to n=2,000
     (past the plan that holds all of adj's columns in one block); the fused
-    ``edge_laplacian_blocks`` bitwise at n = 5, 16, 64 and 256, and ``A_op``
-    at n=64 fused against the composition it replaced; returns the n=64
-    case per kernel."""
+    ``edge_laplacian_blocks`` bitwise at n = 5, 16, 64 and 256;
+    ``edge_adjoint`` and ``edge_schur_matvec`` timed at n = 16, 64 and 256
+    in fp32 and fp64 and checked at n = 5, 16, 64 and 256, homogeneous and
+    heterogeneous; ``A_op`` and the CG matvec at n=64 fused against the
+    compositions they replaced; returns the n=64 case per kernel."""
     rng = np.random.default_rng(0)
     cases = []
     for n, dtypes in ((16, (torch.float32,)), (64, (torch.float32, torch.float64)),
@@ -352,9 +494,25 @@ def phase_kernels() -> dict:
     for n in (5, 256):
         for dtype in (torch.float32, torch.float64):
             _edge_laplacian_blocks_case(n, dtype, rng)        # bitwise only
+    adjoint_checks = []
+    for n in (16, 64, 256):
+        for dtype in (torch.float32, torch.float64):
+            tag = "fp32" if dtype == torch.float32 else "fp64"
+            cases.append(dict(kernel="edge_adjoint", n=n, dtype=tag,
+                              **_edge_adjoint_case(n, dtype, rng)))
+            cases.append(dict(kernel="edge_schur_matvec", n=n, dtype=tag,
+                              **_edge_schur_matvec_case(n, dtype, rng)))
+    for n in (5, 16, 64, 256):
+        for dtype in (torch.float32, torch.float64):
+            for hetero in (False, True):
+                adjoint_checks.append(dict(
+                    n=n, dtype="fp32" if dtype == torch.float32 else "fp64", hetero=hetero,
+                    edge_adjoint=_edge_adjoint_case(n, dtype, rng, hetero, timed=False),
+                    edge_schur_matvec=_edge_schur_matvec_case(n, dtype, rng, hetero,
+                                                              timed=False)))
     a_op = _a_op_case(64, 128)
     torch.cuda.synchronize()
-    emit("kernel_checks", cases=cases, a_op=a_op)
+    emit("kernel_checks", cases=cases, a_op=a_op, adjoint_checks=adjoint_checks)
     # the main path's shapes: ADMM in fp32 at n=64, SA one restart at n=64
     main = {}
     for c in cases:
@@ -398,6 +556,8 @@ def phase_solve(label: str, request, cut: str | None = None):
             f"{label}: r_asym {res.r_asym} worse than the best classic {classic}"
     missing = [k for k in PATH_KERNELS["solve"] if launches[k] == 0]
     assert not missing, f"{label}: kernels never launched on the path: {missing}"
+    assert launches["edge_quadform"] == 0, \
+        f"{label}: the standalone edge_quadform ran on the ADMM path"
     emit(label, n=request.n, r=request.r, scenario=request.scenario,
          restarts=cfg.restarts if request.restarts is None else request.restarts,
          cut=cut, r_asym=res.r_asym, best_classic_r_asym=classic,
@@ -557,7 +717,9 @@ def _profiled(fn, match: tuple = ()) -> dict:
 def phase_profile() -> None:
     """Short windows of the n=64 main path's three device stages, each run
     once unprofiled to warm up: 60 ADMM steps (pipeline stack; the
-    ``edge_laplacian_blocks`` launches count its ``A_op`` calls), 100 SA
+    ``edge_schur_matvec`` launches count its CG matvecs, the
+    ``edge_laplacian_blocks`` and ``edge_adjoint`` launches its right-hand
+    sides and last adjoints; no ``edge_quadform`` may launch there), 100 SA
     moves, 100 polish iterations."""
     from repro_torch.core import BATopoConfig, HomogeneousADMM
     from repro_torch.core.anneal import greedy_degree_graph
@@ -578,12 +740,17 @@ def phase_profile() -> None:
         "polish_100_iters": lambda: polish_weights_batched(
             n, [edges], [metropolis_weights(n, edges)], iters=100),
     }
+    admm_kernels = ("edge_schur_matvec", "edge_adjoint", "edge_laplacian_blocks",
+                    "edge_quadform")
     out = {}
     for name, fn in stages.items():
         fn()
-        out[name] = _profiled(fn, match=("edge_laplacian_blocks",) if name.startswith("admm")
-                              else ())
+        out[name] = _profiled(fn, match=admm_kernels if name.startswith("admm") else ())
     emit("profile", n=n, r=r, stages=out)
+    matched = out["admm_60_steps"].get("matched")
+    assert matched is not None, "the profiler saw no device activity in the ADMM steps"
+    assert matched["edge_schur_matvec"]["launches"] > 0 and \
+        matched["edge_quadform"]["launches"] == 0, f"ADMM steps' kernels: {matched}"
 
 
 # ---------------------------------------------------------------------------
@@ -1345,6 +1512,10 @@ KERNEL_INFO = {
                                   replaces="src/repro/kernels/edge_laplacian/kernel.py:62"),
     "edge_quadform": dict(route="cuda", source="src/repro_torch/csrc/edge_laplacian.cu",
                           replaces="src/repro/kernels/edge_laplacian/kernel.py:87"),
+    "edge_adjoint": dict(route="cuda", source="src/repro_torch/csrc/edge_laplacian.cu",
+                         replaces="src/repro/kernels/edge_laplacian/kernel.py:87"),
+    "edge_schur_matvec": dict(route="cuda", source="src/repro_torch/csrc/edge_laplacian.cu",
+                              replaces="src/repro/kernels/edge_laplacian/kernel.py:87"),
     "hop_step": dict(route="cuda", source="src/repro_torch/csrc/hop_bfs.cu",
                      replaces="src/repro/kernels/hop_bfs/kernel.py:54"),
     "gossip_mix_batched": dict(route="cuda", source="src/repro_torch/csrc/gossip_mix.cu",

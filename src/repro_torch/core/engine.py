@@ -19,10 +19,11 @@ Constraint-space vectors (the CG unknown λ, the right-hand side b, A X)
 are one flat tensor ``[vec P; vec Q; w (; u; v)]`` — see ``linalg``.
 
 Deviation from the reference: ``ADMMConfig.edge_kernel`` defaults to True,
-so on the card L(g) and the per-edge quadratic form run through the CUDA
-pair of ``kernels/edge_laplacian``; on the CPU the wrapper runs its plain
-version, the reference's ``lidx`` gather. ``False`` is kept as the caller's
-explicit choice of the plain form.
+so on the card L(g), A_op's dense blocks, AT_op's x-part and the CG matvec
+A·Aᵀλ (``schur_matvec``) run through the CUDA kernels of
+``kernels/edge_laplacian``, one launch each; on the CPU each wrapper runs
+its plain version, the reference's composition. ``False`` is kept as the
+caller's explicit choice of the plain form.
 
 Precision: the loop runs in the spec dtype; the squared primal residual
 and the CG inner products are float64 whatever it is (the reference's
@@ -50,7 +51,7 @@ __all__ = [
     "make_homo_spec", "make_hetero_spec", "init_state", "step",
     "solve_spec", "proj_psd", "proj_psd_ns", "proj_card_nonneg",
     "proj_binary_topr", "jacobi_diag", "resolve_psd_backend",
-    "A_op", "AT_op", "b_rhs", "lam_sizes", "split_lam",
+    "A_op", "AT_op", "schur_matvec", "b_rhs", "lam_sizes", "split_lam",
 ]
 
 # Inexact-ADMM CG tolerance schedule (DESIGN.md §9): relative tolerance
@@ -163,13 +164,6 @@ class ADMMState:
     cg: torch.Tensor    # cumulative X-step CG iterations, int32 0-dim
 
 
-def _edge_arrays(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """Endpoints of ``all_edges(n)`` (lexicographic i < j) as int64."""
-    iu = np.triu_indices(n, 1)
-    return (torch.from_numpy(iu[0].astype(np.int64)).to(device),
-            torch.from_numpy(iu[1].astype(np.int64)).to(device))
-
-
 def jacobi_diag(n: int, ei, ej, dtype, M=None, equality: bool = True) -> tuple:
     """Analytic diag(A Aᵀ) of the constraint operator as blocks
     (dP, dP, dw (, du, dv)) — see the reference's ``engine.jacobi_diag``."""
@@ -222,7 +216,7 @@ def _make_spec(n: int, r: int, cfg: ADMMConfig, edge_ok, M=None, e_cap=None,
     _validate_cfg(cfg)
     dev = resolve_device(cfg.device)
     dt = getattr(torch, cfg.dtype)
-    ei, ej = _edge_arrays(n, dev)
+    ei, ej = _el_ops.edge_endpoints(n, str(dev))
     m = int(ei.shape[0])
     ok = (torch.ones(m, dtype=torch.bool, device=dev) if edge_ok is None
           else torch.as_tensor(np.asarray(edge_ok, dtype=bool), device=dev))
@@ -354,13 +348,6 @@ def _L_of_g(spec: ProblemSpec, g: torch.Tensor) -> torch.Tensor:
     return _el_ops.edge_laplacian_plain(g, spec.lidx)
 
 
-def _edge_quadform(spec: ProblemSpec, P: torch.Tensor) -> torch.Tensor:
-    """⟨∂L/∂g_l, P⟩ = P_ii + P_jj − P_ij − P_ji per edge l = {i, j}."""
-    if spec.edge_kernel:
-        return _el_ops.edge_quadform(P, spec.ei, spec.ej)
-    return _el_ops.edge_quadform_plain(P, spec.ei, spec.ej)
-
-
 def lam_sizes(spec: ProblemSpec) -> tuple[int, ...]:
     """Lengths of the constraint-space blocks (P, Q, w (, u, v))."""
     n = spec.n
@@ -409,18 +396,48 @@ def A_op(spec: ProblemSpec, X) -> torch.Tensor:
 
 
 def AT_op(spec: ProblemSpec, lamv: torch.Tensor) -> tuple:
-    """Adjoint of :func:`A_op`: flat constraint-space tensor → X-space."""
+    """Adjoint of :func:`A_op`: flat constraint-space tensor → X-space. The
+    x-part ``[quadform(P + Q) + (w_i + w_j) (+ v), −tr P + tr Q]`` is one
+    ``edge_adjoint`` launch with ``spec.edge_kernel`` on a CUDA tensor; the
+    P, w and Q blocks are views of ``lamv``."""
     blocks = split_lam(spec, lamv)
     P, Q, w = blocks[:3]
-    xg = _edge_quadform(spec, P + Q) + (w[spec.ei] + w[spec.ej])
-    xl = -torch.trace(P) + torch.trace(Q)
+    v = blocks[4] if spec.hetero else None
+    adjoint = _el_ops.edge_adjoint if spec.edge_kernel else _el_ops.edge_adjoint_plain
+    x_adj = adjoint(P, Q, w, v)
     if not spec.hetero:
-        return (torch.cat([xg, xl[None]]), P, w, Q)
-    u, v = blocks[3], blocks[4]
-    x_adj = torch.cat([xg + v, xl[None]])
+        return (x_adj, P, w, Q)
+    u = blocks[3]
     z_adj = spec.M.T @ u - v
     s_adj = torch.zeros_like(u) if spec.equality else u
     return (x_adj, P, w, Q, z_adj, v, s_adj)
+
+
+def schur_matvec(spec: ProblemSpec, lamv: torch.Tensor) -> torch.Tensor:
+    """The CG matvec A·Aᵀλ = ``A_op(AT_op(λ))``. With ``spec.edge_kernel``
+    the three dense blocks come from one ``edge_schur_matvec`` launch (on a
+    CUDA tensor; its plain version, the composition, on the CPU); the
+    heterogeneous rows ``M·z + s`` and ``g − z + ν`` of the adjoint
+    (z = Mᵀu − v, s = u or 0, ν = v, g the adjoint's edge part, which the
+    kernel writes beside) go to slices of the same output by the torch ops
+    of :func:`A_op`."""
+    if not spec.edge_kernel:
+        return A_op(spec, AT_op(spec, lamv))
+    blocks = split_lam(spec, lamv)
+    P, Q, w = blocks[:3]
+    out = torch.empty_like(lamv)
+    if not spec.hetero:
+        return _el_ops.edge_schur_matvec(P, Q, w, out)
+    u, v = blocks[3], blocks[4]
+    x_adj = lamv.new_empty(spec.m + 1)
+    _el_ops.edge_schur_matvec(P, Q, w, out, v=v, x_adj=x_adj)
+    z_adj = spec.M.T @ u - v
+    o = 2 * spec.n * spec.n + spec.n
+    r4 = torch.matmul(spec.M, z_adj, out=out[o:o + spec.q])
+    if not spec.equality:
+        r4.add_(u)
+    torch.sub(x_adj[:-1], z_adj, out=out[o + spec.q:]).add_(v)
+    return out
 
 
 def b_rhs(spec: ProblemSpec) -> torch.Tensor:
@@ -492,7 +509,8 @@ def step(spec: ProblemSpec, state: ADMMState):
     Xn, lam, cg_it = pcg_solve(partial(A_op, spec), partial(AT_op, spec), V,
                                b_rhs(spec), lam0, jd=spec.jd,
                                tol=_cg_tolerance(spec, state.res),
-                               maxiter=spec.cg_maxiter)
+                               maxiter=spec.cg_maxiter,
+                               matvec=partial(schur_matvec, spec))
     if spec.hetero and spec.equality:
         Xn = Xn[:6] + (torch.zeros_like(Xn[6]),)
     D = tuple(d + rho * (xn - y1) for d, xn, y1 in zip(state.D, Xn, Y))

@@ -57,19 +57,23 @@ def pcg_solve(
     jd: torch.Tensor | None = None,
     tol=1e-10,
     maxiter: int = 2000,
+    matvec: Callable | None = None,
 ):
     """Solve X = V − Aᵀλ with (A Aᵀ)λ = A V − b via preconditioned CG.
 
     ``A_op`` maps an X-space tuple to a flat constraint-space tensor and
-    ``AT_op`` back. ``jd``: flat diag(A Aᵀ) for Jacobi preconditioning, or
+    ``AT_op`` back. ``matvec`` maps a flat constraint-space tensor to
+    A Aᵀ of it (default ``A_op(AT_op(·))``; the engine passes its one-launch
+    form). ``jd``: flat diag(A Aᵀ) for Jacobi preconditioning, or
     None. ``tol`` is a relative residual tolerance (a float or a float64
     0-dim tensor). Stops when ‖r‖ ≤ tol·‖rhs‖ or after ``maxiter``
     iterations.
 
     Returns ``(X, λ, iters)`` with ``iters`` an int32 0-dim tensor.
     """
-    def matvec(lam):
-        return A_op(AT_op(lam))
+    if matvec is None:
+        def matvec(lam):
+            return A_op(AT_op(lam))
 
     def precond(r):
         return r if jd is None else r / jd

@@ -6,43 +6,65 @@
 //     m = n(n-1)/2, in all_edges(n) (lexicographic) order;
 //   * edge_quadform_2d (body _edge_quadform_kernel): per edge l = {i, j},
 //     <dL/dg_l, P> = P_ii + P_jj - P_ij - P_ji.
-// and, as a second form of the first, edge_laplacian_blocks: A_op's three
-// dense blocks (L - lam*I + S, L + lam*I + T, diag(L) + y) straight from g
-// into the flat constraint-space vector. The quadratic form runs on every
-// CG matvec of the ADMM X-step (engine._edge_quadform), the blocks form on
-// every A_op (engine.A_op), L alone in engine._L_of_g and init_state; in
+// Each has a second form on the ADMM path, where the edge list is the
+// complete lexicographic one and the endpoints follow from l:
+//   * edge_laplacian_blocks: A_op's three dense blocks (L - lam*I + S,
+//     L + lam*I + T, diag(L) + y) straight from g into the flat
+//     constraint-space vector (engine.A_op: the CG's right-hand side);
+//   * edge_adjoint: AT_op's x-part, x = [quadform(P + Q)_l + (w_i + w_j)
+//     (+ v_l), -tr P + tr Q], from the flat constraint-space vector's P, Q,
+//     w (and v) blocks (engine.AT_op: the CG's last adjoint);
+//   * edge_schur_matvec: the CG matvec A·Aᵀλ's three dense blocks, L(xg) -
+//     xl*I + P, L(xg) + xl*I + Q, diag L(xg) + w, with (xg, xl) the adjoint
+//     above built on the fly (engine.schur_matvec), and the adjoint itself
+//     written on request (the heterogeneous rows need it).
+// The standalone edge_quadform keeps its any-edge-list form (int64
+// endpoints); edge_laplacian runs in engine._L_of_g and init_state. All in
 // float32 (the pipeline default) and float64.
 //
 // What bounds them on the H100: bytes. Each reads its inputs once and
 // writes its output once, with no arithmetic worth counting.
 //   edge_laplacian: 4 or 8 bytes x (m + n^2).
 //     n = 64:  24.4 KB fp32, 48.9 KB fp64  ->  7 ns / 15 ns at 3.35 TB/s.
-//     n = 256: 392.7 KB fp32, 785.4 KB fp64 -> 117 ns / 234 ns.
-//   edge_laplacian_blocks: 4 or 8 bytes x (m + 1 + 4n^2 + 2n): g, lam, S,
-//     T and y read once, 2n^2 + n outputs written once; 22 ns at n = 64
-//     fp32. A_op composed from L and eight torch ops takes nine launches;
-//     this form takes one.
-//   edge_quadform: 4 or 8 bytes x (n^2 + m): P read once, the form written
-//     once, the same figures as edge_laplacian. The endpoints are not part
-//     of the bound: on the ADMM path the edge list is the complete
-//     lexicographic one, so they follow from l. This kernel still reads them
-//     as int64 (16 B per edge, 57 % more bytes at n = 64); deriving them
-//     from l, as edge_laplacian does, is left to a later change.
+//   edge_laplacian_blocks: 4 or 8 bytes x (m + 1 + 4n^2 + 2n); 22 ns at
+//     n = 64 fp32.
+//   edge_quadform: 4 or 8 bytes x (n^2 + m) (P and the form; the endpoints
+//     are not counted), the same figures as edge_laplacian.
+//   edge_adjoint: 4 or 8 bytes x (2n^2 + n + m + 1) (+ m for v); 12 ns at
+//     n = 64 fp32.
+//   edge_schur_matvec: 4 or 8 bytes x (4n^2 + 2n) (+ 2m + 1 for v and the
+//     adjoint); 20 ns at n = 64 fp32.
 // Those bounds are far below the ~2-4 us a launch costs, so at the paper's
 // sizes the launch count, not the kernel body, sets the time. The design
 // therefore does each function in ONE launch, with no padding pass, no
-// scatter, no atomics and no second kernel:
-//   * edge_laplacian: one block per row a; threads stride over the columns
-//     b, compute the packed index l = lo*n - lo(lo+1)/2 + (hi-lo-1)
-//     analytically (as kernel.py:49-56 does) and gather g[l]. Off-diagonals
-//     are written as 0 - g (so they are bit-equal to the plain version's
+// scatter, no atomics and no second kernel. The CG matvec composed from
+// the pair and torch ops took 12 launches (AT_op 11, A_op 1); it takes one.
+//   * edge_laplacian and the row forms: one block per row a; threads stride
+//     over the columns b, compute the packed index l = lo*n - lo(lo+1)/2 +
+//     (hi-lo-1) analytically (as kernel.py:49-56 does). Off-diagonals are
+//     written as 0 - g (so they are bit-equal to the plain version's
 //     diag(G.1) - G); the row degree is a block reduction written to L[a,a].
-//     Every entry of L is written exactly once.
+//     Every entry is written exactly once.
+//   * edge_adjoint and edge_schur_matvec read no endpoint array: row a's
+//     entry b needs the diagonals of P and Q, row a and column a of P and Q,
+//     and w, so each block is independent and no grid-wide sync is needed;
+//     xg_ab is computed by both row a and row b, in the same order. Column a
+//     is a strided read (n^2 floats of P and Q, 8 MB at n = 1,024 fp32) that
+//     stays in the 50 MB L2; staging it through shared memory would add a
+//     barrier and buy nothing at these sizes.
+//   * xg rounds as the torch composition does, one add at a time with
+//     __fadd_rn/__fsub_rn (nothing contracted): ((((R_ii + R_jj) - R_ij) -
+//     R_ji) + (w_i + w_j)) (+ v_l), with R = P + Q entrywise and i the lower
+//     endpoint, so it is bit-equal to the composition on the card. xl =
+//     -tr P + tr Q comes from one fixed-order block reduction of the two
+//     diagonals (trace_diff), the same device function and block size in
+//     both forms and in every block; it differs from torch.trace's order
+//     within 2n*u*(sum|P_ii| + sum|Q_ii|). The L rows and the degree use
+//     edge_laplacian_blocks_kernel's block_sum and thread count, so
+//     edge_schur_matvec is bit-equal to edge_laplacian_blocks fed
+//     edge_adjoint's output.
 //   * edge_quadform: one thread per edge does the four gathers in the order
-//     of kernel.py:83. The ragged tail is masked by the bounds test, not
-//     padded. The sum is of adds only, rounded by __fadd_rn/__dadd_rn, so
-//     nothing can be contracted and the result is bit-equal to the plain
-//     version's ((P_ii + P_jj) - P_ij) - P_ji.
+//     of kernel.py:83, bit-equal to the plain version.
 //
 // Plain C interface for ctypes: every entry launches on the given stream,
 // never synchronises, and returns cudaGetLastError().
@@ -59,11 +81,13 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
 // Sum over the block; the result is valid in thread 0. blockDim.x must be a
-// multiple of 32.
+// multiple of 32. It starts with a barrier, so that two calls in a row do not
+// race on the partials.
 template <typename T>
 __device__ T block_sum(T v) {
   __shared__ __align__(8) unsigned char buf[32 * sizeof(double)];
   T* partial = reinterpret_cast<T*>(buf);
+  __syncthreads();
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -149,6 +173,100 @@ __global__ void edge_quadform_kernel(const T* __restrict__ P, const int64_t* __r
   out[l] = sub_rn(sub_rn(add_rn(pii, pjj), pij), pji);
 }
 
+// -tr P + tr Q as the torch composition writes it, by one fixed-order
+// reduction: each thread sums its strided share of the diagonals, then
+// block_sum. Every thread gets the result. The same blockDim gives the same
+// bits in every block and in both forms.
+template <typename T>
+__device__ T trace_diff(const T* __restrict__ P, const T* __restrict__ Q, int n) {
+  __shared__ T xl_shared;
+  T tp = T(0), tq = T(0);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const size_t d = static_cast<size_t>(i) * n + i;
+    tp = add_rn(tp, P[d]);
+    tq = add_rn(tq, Q[d]);
+  }
+  tp = block_sum(tp);
+  tq = block_sum(tq);
+  if (threadIdx.x == 0) xl_shared = add_rn(-tp, tq);
+  __syncthreads();
+  return xl_shared;
+}
+
+// AT_op's edge entry for i < j: quadform(P + Q)_l + (w_i + w_j) (+ v_l), one
+// rounding at a time in the composition's order.
+template <typename T>
+__device__ __forceinline__ T edge_xg(const T* __restrict__ P, const T* __restrict__ Q,
+                                     const T* __restrict__ w, const T* __restrict__ v,
+                                     int i, int j, long long l, int n) {
+  const size_t ii = static_cast<size_t>(i) * n + i, jj = static_cast<size_t>(j) * n + j;
+  const size_t ij = static_cast<size_t>(i) * n + j, ji = static_cast<size_t>(j) * n + i;
+  const T rii = add_rn(P[ii], Q[ii]);
+  const T rjj = add_rn(P[jj], Q[jj]);
+  const T rij = add_rn(P[ij], Q[ij]);
+  const T rji = add_rn(P[ji], Q[ji]);
+  T xg = add_rn(sub_rn(sub_rn(add_rn(rii, rjj), rij), rji), add_rn(w[i], w[j]));
+  if (v != nullptr) xg = add_rn(xg, v[l]);
+  return xg;
+}
+
+__device__ __forceinline__ long long packed_index(long long lo, long long hi, long long n) {
+  return lo * n - lo * (lo + 1) / 2 + (hi - lo - 1);
+}
+
+// x[l] for the edges {a, b}, b > a, of row a (block a), and x[m] = xl
+// (block 0).
+template <typename T>
+__global__ void edge_adjoint_kernel(const T* __restrict__ P, const T* __restrict__ Q,
+                                    const T* __restrict__ w, const T* __restrict__ v,
+                                    T* __restrict__ x, int n) {
+  const int a = blockIdx.x;
+  if (a == 0) {
+    const T xl = trace_diff(P, Q, n);
+    if (threadIdx.x == 0) x[static_cast<long long>(n) * (n - 1) / 2] = xl;
+  }
+  for (int b = a + 1 + threadIdx.x; b < n; b += blockDim.x) {
+    const long long l = packed_index(a, b, n);
+    x[l] = edge_xg(P, Q, w, v, a, b, l, n);
+  }
+}
+
+// A·Aᵀλ's dense blocks, row a per block: edge_laplacian_blocks_kernel with
+// g[l] replaced by xg of edge {a, b} and lam by xl, S = P, T = Q, y = w. With
+// x non-null the adjoint is written too: each edge by its lower endpoint's
+// row, xl by block 0.
+template <typename T>
+__global__ void edge_schur_matvec_kernel(const T* __restrict__ P, const T* __restrict__ Q,
+                                         const T* __restrict__ w, const T* __restrict__ v,
+                                         T* __restrict__ out, T* __restrict__ x, int n) {
+  const int a = blockIdx.x;
+  const size_t nn = static_cast<size_t>(n) * n;
+  const size_t row = static_cast<size_t>(a) * n;
+  const T xl = trace_diff(P, Q, n);
+  const T lam_off = mul_rn(xl, T(0));
+  T deg = T(0);
+  for (int b = threadIdx.x; b < n; b += blockDim.x) {
+    if (b == a) continue;
+    const int lo = a < b ? a : b;
+    const int hi = a < b ? b : a;
+    const long long l = packed_index(lo, hi, n);
+    const T xg = edge_xg(P, Q, w, v, lo, hi, l, n);
+    if (x != nullptr && a < b) x[l] = xg;
+    const T L = sub_rn(T(0), xg);
+    out[row + b] = add_rn(sub_rn(L, lam_off), P[row + b]);
+    out[nn + row + b] = add_rn(add_rn(L, lam_off), Q[row + b]);
+    deg += xg;
+  }
+  deg = block_sum(deg);
+  if (threadIdx.x == 0) {
+    const T lam_on = mul_rn(xl, T(1));
+    out[row + a] = add_rn(sub_rn(deg, lam_on), P[row + a]);
+    out[nn + row + a] = add_rn(add_rn(deg, lam_on), Q[row + a]);
+    out[2 * nn + a] = add_rn(deg, w[a]);
+    if (x != nullptr && a == 0) x[static_cast<long long>(n) * (n - 1) / 2] = xl;
+  }
+}
+
 int laplacian_threads(int n) {
   int t = ((n + 31) / 32) * 32;
   if (t < 32) t = 32;
@@ -191,6 +309,29 @@ int launch_edge_quadform(const void* P, const void* ei, const void* ej, void* ou
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_edge_adjoint(const void* P, const void* Q, const void* w, const void* v, void* x,
+                        int n, void* stream) {
+  if (n > 0) {
+    edge_adjoint_kernel<T><<<n, laplacian_threads(n), 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(P), static_cast<const T*>(Q), static_cast<const T*>(w),
+        static_cast<const T*>(v), static_cast<T*>(x), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_edge_schur_matvec(const void* P, const void* Q, const void* w, const void* v,
+                             void* out, void* x, int n, void* stream) {
+  if (n > 0) {
+    edge_schur_matvec_kernel<T>
+        <<<n, laplacian_threads(n), 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(P), static_cast<const T*>(Q), static_cast<const T*>(w),
+            static_cast<const T*>(v), static_cast<T*>(out), static_cast<T*>(x), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -221,6 +362,26 @@ int edge_quadform_f32(const void* P, const void* ei, const void* ej, void* out, 
 int edge_quadform_f64(const void* P, const void* ei, const void* ej, void* out, long long m,
                       int n, void* stream) {
   return launch_edge_quadform<double>(P, ei, ej, out, m, n, stream);
+}
+
+int edge_adjoint_f32(const void* P, const void* Q, const void* w, const void* v, void* x, int n,
+                     void* stream) {
+  return launch_edge_adjoint<float>(P, Q, w, v, x, n, stream);
+}
+
+int edge_adjoint_f64(const void* P, const void* Q, const void* w, const void* v, void* x, int n,
+                     void* stream) {
+  return launch_edge_adjoint<double>(P, Q, w, v, x, n, stream);
+}
+
+int edge_schur_matvec_f32(const void* P, const void* Q, const void* w, const void* v, void* out,
+                          void* x, int n, void* stream) {
+  return launch_edge_schur_matvec<float>(P, Q, w, v, out, x, n, stream);
+}
+
+int edge_schur_matvec_f64(const void* P, const void* Q, const void* w, const void* v, void* out,
+                          void* x, int n, void* stream) {
+  return launch_edge_schur_matvec<double>(P, Q, w, v, out, x, n, stream);
 }
 
 }  // extern "C"

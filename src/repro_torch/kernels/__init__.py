@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
 
-``edge_laplacian`` (L(g), A_op's dense blocks from L(g) in one launch,
-and the per-edge quadratic form of the ADMM constraint operator),
+``edge_laplacian`` (L(g) and the per-edge quadratic form of the ADMM
+constraint operator; in one launch each, A_op's dense blocks from L(g),
+AT_op's x-part and the CG matvec A·Aᵀλ),
 ``hop_bfs`` (one matmul-BFS hop of the SA warm start), ``gossip_mix``
 (Eq. 1 neighbour mixing of DSGD gossip, batched over workers and for one
 worker), ``decode_attention`` (one-token GQA attention over a KV cache)
@@ -23,6 +24,8 @@ WRAPPERS = {
     "edge_laplacian": _el_ops.edge_laplacian,
     "edge_laplacian_blocks": _el_ops.edge_laplacian_blocks,
     "edge_quadform": _el_ops.edge_quadform,
+    "edge_adjoint": _el_ops.edge_adjoint,
+    "edge_schur_matvec": _el_ops.edge_schur_matvec,
     "hop_step": _hop_ops.hop_step,
     "gossip_mix_batched": _gossip_ops.gossip_mix_batched,
     "gossip_mix": _gossip_ops.gossip_mix,

@@ -1,5 +1,7 @@
 """The ADMM constraint-operator pair: L(g) and the per-edge quadratic form,
-and a second form of L(g) that writes A_op's three dense blocks at once.
+and their forms on the ADMM path: A_op's three dense blocks from L(g), the
+adjoint AT_op's x-part, and the CG matvec A·Aᵀλ's dense blocks, each in one
+launch.
 
 Each function has a CUDA kernel (``csrc/edge_laplacian.cu``) and a plain
 PyTorch version beside it. The wrapper takes the plain version only for a
@@ -16,8 +18,10 @@ import torch
 
 from .. import launch_util as _lu
 
-__all__ = ["edge_laplacian", "edge_quadform", "edge_laplacian_blocks", "edge_laplacian_plain",
-           "edge_quadform_plain", "edge_laplacian_blocks_plain", "packed_edge_index"]
+__all__ = ["edge_laplacian", "edge_quadform", "edge_laplacian_blocks", "edge_adjoint",
+           "edge_schur_matvec", "edge_laplacian_plain", "edge_quadform_plain",
+           "edge_laplacian_blocks_plain", "edge_adjoint_plain", "edge_schur_matvec_plain",
+           "packed_edge_index", "edge_endpoints"]
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _P = ctypes.c_void_p
@@ -26,6 +30,8 @@ _SIGNATURES = {
     **{f"edge_quadform_{s}": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P]
        for s in ("f32", "f64")},
     **{f"edge_laplacian_blocks_{s}": [_P] * 6 + [ctypes.c_int, _P] for s in ("f32", "f64")},
+    **{f"edge_adjoint_{s}": [_P] * 5 + [ctypes.c_int, _P] for s in ("f32", "f64")},
+    **{f"edge_schur_matvec_{s}": [_P] * 6 + [ctypes.c_int, _P] for s in ("f32", "f64")},
 }
 
 
@@ -40,6 +46,15 @@ def packed_edge_index(n: int, device: str = "cpu") -> torch.Tensor:
     lidx[iu] = np.arange(m, dtype=np.int64)
     lidx.T[iu] = np.arange(m, dtype=np.int64)
     return torch.from_numpy(lidx).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def edge_endpoints(n: int, device: str = "cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """Endpoints (i, j), i < j, of ``all_edges(n)`` (lexicographic) as
+    int64. Callers must not write to them."""
+    iu = np.triu_indices(n, 1)
+    return (torch.from_numpy(iu[0].astype(np.int64)).to(device),
+            torch.from_numpy(iu[1].astype(np.int64)).to(device))
 
 
 def edge_laplacian_plain(g: torch.Tensor, lidx: torch.Tensor) -> torch.Tensor:
@@ -71,6 +86,31 @@ def edge_quadform_plain(P: torch.Tensor, ei: torch.Tensor,
                         ej: torch.Tensor) -> torch.Tensor:
     """⟨∂L/∂g_l, P⟩ = P_ii + P_jj − P_ij − P_ji per edge l = {i, j}."""
     return P[ei, ei] + P[ej, ej] - P[ei, ej] - P[ej, ei]
+
+
+def edge_adjoint_plain(P: torch.Tensor, Q: torch.Tensor, w: torch.Tensor,
+                       v: torch.Tensor | None = None) -> torch.Tensor:
+    """AT_op's x-part by the engine's composition: ``[quadform(P + Q) + (w_i
+    + w_j) (+ v), −tr P + tr Q]``, (m + 1,), over ``all_edges(n)``."""
+    ei, ej = edge_endpoints(P.shape[0], str(P.device))
+    xg = edge_quadform_plain(P + Q, ei, ej) + (w[ei] + w[ej])
+    if v is not None:
+        xg = xg + v
+    xl = -torch.trace(P) + torch.trace(Q)
+    return torch.cat([xg, xl[None]])
+
+
+def edge_schur_matvec_plain(P: torch.Tensor, Q: torch.Tensor, w: torch.Tensor,
+                            out: torch.Tensor, v: torch.Tensor | None = None,
+                            x_adj: torch.Tensor | None = None) -> torch.Tensor:
+    """A·Aᵀλ's dense blocks by the composition: :func:`edge_adjoint_plain`
+    fed to :func:`edge_laplacian_blocks_plain` with S = P, T = Q, y = w.
+    Writes the adjoint into ``x_adj`` when given. Returns ``out``."""
+    x = edge_adjoint_plain(P, Q, w, v)
+    edge_laplacian_blocks_plain(x[:-1], x[-1], P, Q, w, out)
+    if x_adj is not None:
+        x_adj.copy_(x)
+    return out
 
 
 def _check_cuda(t: torch.Tensor, what: str) -> None:
@@ -158,6 +198,89 @@ def edge_laplacian_blocks(g: torch.Tensor, lam: torch.Tensor, S: torch.Tensor,
 
 
 edge_laplacian_blocks.launches = 0
+
+
+def _check_adjoint_operands(what: str, P, Q, w, v, extra: tuple) -> tuple:
+    """Shape and dtype checks shared by the two adjoint forms; returns
+    (n, m, the named tensors)."""
+    n = int(P.shape[0]) if P.dim() == 2 else -1
+    m = n * (n - 1) // 2
+    if (P.dim() != 2 or tuple(P.shape) != (n, n) or tuple(Q.shape) != (n, n)
+            or tuple(w.shape) != (n,) or (v is not None and tuple(v.shape) != (m,))):
+        raise ValueError(f"{what} needs P and Q (n, n), w (n,) and v (m,) or None; got "
+                         f"P {tuple(P.shape)}, Q {tuple(Q.shape)}, w {tuple(w.shape)}, "
+                         f"v {None if v is None else tuple(v.shape)}")
+    tensors = (("P", P), ("Q", Q), ("w", w)) + ((("v", v),) if v is not None else ()) + extra
+    if any(t.dtype != P.dtype for _, t in tensors):
+        raise TypeError(f"{what}: every tensor must share one dtype, "
+                        f"got {[str(t.dtype) for _, t in tensors]}")
+    return n, m, tensors
+
+
+def _launch_adjoint_form(what: str, tensors: tuple, args: tuple, n: int) -> None:
+    for name, t in tensors:
+        _check_cuda(t, name)
+    dtype = tensors[0][1].dtype
+    if dtype not in _SUFFIX:
+        raise TypeError(f"{what} takes float32 or float64, not {dtype}")
+    lib = _lu.library("edge_laplacian", _SIGNATURES)
+    fn = getattr(lib, f"{what}_{_SUFFIX[dtype]}")
+    ptrs = [None if t is None else t.data_ptr() for t in args]
+    _raise_on(fn(*ptrs, n, _lu.raw_stream(tensors[0][1].device.index)), what)
+
+
+def edge_adjoint(P: torch.Tensor, Q: torch.Tensor, w: torch.Tensor,
+                 v: torch.Tensor | None = None) -> torch.Tensor:
+    """AT_op's x-part in one launch: ``[quadform(P + Q)_l + (w_i + w_j)
+    (+ v_l), −tr P + tr Q]``, (m + 1,), over ``all_edges(n)``.
+
+    ``P``, ``Q``: (n, n) (the λ blocks, views of the flat constraint-space
+    vector); ``w``: (n,); ``v``: (m,) or None (heterogeneous specs). One
+    dtype, float32 or float64, every tensor contiguous. The edge entries are
+    bit-equal to :func:`edge_adjoint_plain` on the same device; the last
+    entry comes from a fixed-order sum of the diagonals, within
+    2n·u·(Σ|P_ii| + Σ|Q_ii|) of ``torch.trace``'s.
+    """
+    n, m, tensors = _check_adjoint_operands("edge_adjoint", P, Q, w, v, ())
+    if all(t.device.type == "cpu" for _, t in tensors):
+        return edge_adjoint_plain(P, Q, w, v)
+    x = torch.empty(m + 1, dtype=P.dtype, device=P.device)
+    _launch_adjoint_form("edge_adjoint", tensors + (("x", x),), (P, Q, w, v, x), n)
+    edge_adjoint.launches += 1
+    return x
+
+
+edge_adjoint.launches = 0
+
+
+def edge_schur_matvec(P: torch.Tensor, Q: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
+                      v: torch.Tensor | None = None,
+                      x_adj: torch.Tensor | None = None) -> torch.Tensor:
+    """The CG matvec's dense blocks in one launch: with (xg, xl) the
+    adjoint of :func:`edge_adjoint`, ``out[:n²] = L(xg) − xl·I + P``,
+    ``out[n²:2n²] = L(xg) + xl·I + Q``, ``out[2n²:2n²+n] = diag L(xg) + w``
+    (the rest of ``out`` is left as it is). ``x_adj`` ((m + 1,) or None)
+    receives the adjoint too.
+
+    Operands as :func:`edge_adjoint`; ``out``: 1-D with at least 2n² + n
+    entries, overlapping no input. Bit-equal to :func:`edge_laplacian_blocks`
+    fed :func:`edge_adjoint`'s output. Returns ``out``.
+    """
+    extra = (("out", out),) + ((("x_adj", x_adj),) if x_adj is not None else ())
+    n, m, tensors = _check_adjoint_operands("edge_schur_matvec", P, Q, w, v, extra)
+    if out.dim() != 1 or out.shape[0] < 2 * n * n + n or (
+            x_adj is not None and tuple(x_adj.shape) != (m + 1,)):
+        raise ValueError(f"edge_schur_matvec needs out (≥ 2n²+n,) and x_adj (m+1,) or None; "
+                         f"got out {tuple(out.shape)}, "
+                         f"x_adj {None if x_adj is None else tuple(x_adj.shape)}")
+    if all(t.device.type == "cpu" for _, t in tensors):
+        return edge_schur_matvec_plain(P, Q, w, out, v, x_adj)
+    _launch_adjoint_form("edge_schur_matvec", tensors, (P, Q, w, v, out, x_adj), n)
+    edge_schur_matvec.launches += 1
+    return out
+
+
+edge_schur_matvec.launches = 0
 
 
 def edge_quadform(P: torch.Tensor, ei: torch.Tensor,

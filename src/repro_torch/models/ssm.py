@@ -100,17 +100,13 @@ def _causal_depthwise_conv(xBC, w, b):
 INTRA_CALL_BYTES = 1 << 30
 
 
-def _intra_chunk_groups(xc, dtc, la, Bc, Cc) -> tuple[int, list]:
-    """``ssd_intra_chunk`` over every chunk, in groups of G chunks whose
-    float32 outputs stay under ``INTRA_CALL_BYTES`` (at least one chunk a
-    call; one call where all fit). Returns (G, [(y_intra, chunk_states) of
-    each group])."""
+def _intra_chunk_group(xc, dtc, la, Bc, Cc) -> int:
+    """G: how many chunks one ``ssd_intra_chunk`` call takes, so that its
+    float32 outputs (y_intra and chunk states) stay under
+    ``INTRA_CALL_BYTES`` (at least one chunk; all of them where all fit)."""
     Bsz, nc, Q, H, P = xc.shape
     N = Bc.shape[-1]
-    group = max(1, INTRA_CALL_BYTES // (4 * Bsz * (Q * H * P + H * P * N)))
-    return group, [_ssd_ops.ssd_intra_chunk(xc[:, c:c + group], dtc[:, c:c + group],
-                                            la[:, c:c + group], Bc[:, c:c + group],
-                                            Cc[:, c:c + group]) for c in range(0, nc, group)]
+    return max(1, INTRA_CALL_BYTES // (4 * Bsz * (Q * H * P + H * P * N)))
 
 
 def ssd_chunk_scan(x, dt, A, B_mat, C_mat, chunk: int, h0=None, use_kernel: bool = True):
@@ -119,10 +115,13 @@ def ssd_chunk_scan(x, dt, A, B_mat, C_mat, chunk: int, h0=None, use_kernel: bool
     x: (B, S, H, P); dt: (B, S, H) float32 (post-softplus); A: (H,) negative;
     B_mat/C_mat: (B, S, N). Returns (y (B, S, H, P) in x's dtype, final
     state (B, H, P, N) float32). With ``use_kernel`` the quadratic part of
-    every chunk goes through the ``ssd_intra_chunk`` kernel in one launch
-    (in groups past ``INTRA_CALL_BYTES``) before the loop over chunks,
-    which then only adds the incoming state's part and carries the state;
-    the reference calls its kernel once per chunk inside its scan, but the
+    the chunks goes through the ``ssd_intra_chunk`` kernel in groups of G
+    chunks (all chunks in one launch where their float32 outputs fit
+    ``INTRA_CALL_BYTES``): the loop over chunks calls the kernel for a
+    group when its first chunk comes up and drops the previous group's
+    outputs, so one group's y_intra and states are live at a time; each
+    chunk then only adds the incoming state's part and carries the state.
+    The reference calls its kernel once per chunk inside its scan; the
     intra-chunk half does not depend on the carried state. False takes the
     reference's einsum route, chunk by chunk. There G = C·Bᵀ stays
     float32: the reference's einsum of two x-dtype operands would round it
@@ -151,14 +150,19 @@ def ssd_chunk_scan(x, dt, A, B_mat, C_mat, chunk: int, h0=None, use_kernel: bool
     h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device) if h0 is None
          else h0.float())
     if use_kernel:
-        group, intra = _intra_chunk_groups(xc, dtc, la, Bc, Cc)
+        group = _intra_chunk_group(xc, dtc, la, Bc, Cc)
     else:
         causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
     ys = []
     for c in range(nc):
         xq, dtq, laq, Bq, Cq = xc[:, c], dtc[:, c], la[:, c], Bc[:, c], Cc[:, c]
         if use_kernel:
-            y_g, st_g = intra[c // group]
+            if c % group == 0:
+                # one group's outputs live at a time: drop the last one's first
+                y_g = st_g = y_intra = st = None
+                y_g, st_g = _ssd_ops.ssd_intra_chunk(
+                    xc[:, c:c + group], dtc[:, c:c + group], la[:, c:c + group],
+                    Bc[:, c:c + group], Cc[:, c:c + group])
             y_intra, st = y_g[:, c % group], st_g[:, c % group]
         else:
             Ldec = torch.exp(laq[:, :, None, :] - laq[:, None, :, :])     # (B,Qt,Qs,H)

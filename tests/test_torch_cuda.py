@@ -26,7 +26,11 @@ CUDA-graph replay (the fused merge leaves its tickets at zero);
 ``ssd_intra_chunk`` within the float32 bounds of ``ssd_intra_chunk_bound``
 on both routes (bfloat16 on the tensor cores, four chunks in one launch);
 ``edge_laplacian_blocks`` and the fused ``A_op`` bitwise equal to the L-only
-kernel followed by the torch ops;
+kernel followed by the torch ops; ``edge_adjoint``'s edge entries bitwise
+equal to the torch composition and its −tr P + tr Q within
+2n·u·(Σ|P_ii| + Σ|Q_ii|) of ``torch.trace``'s; ``edge_schur_matvec`` and
+the engine's ``schur_matvec`` bitwise equal to ``edge_laplacian_blocks``
+fed ``edge_adjoint``'s output;
 reduced fp32 serving (smollm, gemma2 long context, mamba2), card vs CPU,
 within 1e-5 relative in the logits of the prefill and 8 decode steps, with
 equal greedy tokens.
@@ -91,6 +95,40 @@ def test_edge_quadform_kernel_bitwise_on_card(cuda, n, dtype):
     as_int = torch.int64 if dtype == torch.float64 else torch.int32
     assert torch.equal(got.view(as_int), want.view(as_int))
 
+
+def _adjoint_operands(n, dtype, hetero, device, seed=0):
+    rng = np.random.default_rng(seed + n)
+    P, Q = (torch.from_numpy(rng.standard_normal((n, n))).to(device=device, dtype=dtype)
+            for _ in range(2))
+    w = torch.from_numpy(rng.standard_normal(n)).to(device=device, dtype=dtype)
+    v = (torch.from_numpy(rng.standard_normal(n * (n - 1) // 2)).to(device=device, dtype=dtype)
+         if hetero else None)
+    return P, Q, w, v
+
+
+def _trace_tol(P, Q):
+    u = torch.finfo(P.dtype).eps / 2
+    return 2 * P.shape[0] * u * float(P.diagonal().abs().sum() + Q.diagonal().abs().sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 16, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("hetero", [False, True])
+def test_edge_adjoint_kernel_on_card(cuda, n, dtype, hetero):
+    """One launch; the edge entries bitwise equal to the torch composition
+    on the card, −tr P + tr Q within 2n·u·(Σ|P_ii| + Σ|Q_ii|)."""
+    P, Q, w, v = _adjoint_operands(n, dtype, hetero, cuda)
+    m = n * (n - 1) // 2
+    before = tel.edge_adjoint.launches
+    got = tel.edge_adjoint(P, Q, w, v)
+    assert tel.edge_adjoint.launches == before + 1
+    want = tel.edge_adjoint_plain(P, Q, w, v)
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (m + 1,)
+    assert torch.equal(got[:m].view(bits), want[:m].view(bits))
+    assert abs(float(got[m] - want[m])) <= _trace_tol(P, Q)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,n", [(1, 5), (4, 64), (3, 100), (4, 256)])
@@ -212,6 +250,87 @@ def test_a_op_fused_form_bitwise_on_card(cuda, hetero, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 16, 64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("hetero", [False, True])
+def test_edge_schur_matvec_bitwise_on_card(cuda, n, dtype, hetero):
+    """One launch writes the matvec's dense blocks (and the adjoint on
+    request) bit-equal to ``edge_laplacian_blocks`` fed ``edge_adjoint``'s
+    output, leaving the rest of ``out`` alone; against the plain torch
+    composition (L's degrees and the traces summed in another order) within
+    2n·u·(max row Σ|xg| + Σ|P_ii| + Σ|Q_ii|) + 2u·max|out|."""
+    P, Q, w, v = _adjoint_operands(n, dtype, hetero, cuda, seed=7)
+    m, k = n * (n - 1) // 2, 2 * n * n + n
+    out = torch.full((k + 5,), 7.0, dtype=dtype, device=cuda)
+    x_adj = torch.empty(m + 1, dtype=dtype, device=cuda)
+    before = tel.edge_schur_matvec.launches
+    tel.edge_schur_matvec(P, Q, w, out, v=v, x_adj=x_adj)
+    assert tel.edge_schur_matvec.launches == before + 1
+    x = tel.edge_adjoint(P, Q, w, v)
+    want = torch.empty(k, dtype=dtype, device=cuda)
+    tel.edge_laplacian_blocks(x[:-1], x[-1], P, Q, w, want)
+    plain = tel.edge_schur_matvec_plain(P, Q, w, torch.empty(k, dtype=dtype, device=cuda), v)
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    torch.cuda.synchronize()
+    assert torch.equal(out[:k].view(bits), want.view(bits))
+    assert torch.equal(x_adj.view(bits), x.view(bits))
+    assert bool((out[k:] == 7.0).all())
+    G = torch.cat([x[:-1].abs(), x.new_zeros(1)])[tel.packed_edge_index(n, "cuda")]
+    u = torch.finfo(dtype).eps / 2
+    tol = (2 * n * u * float(G.sum(dim=1).max()) + _trace_tol(P, Q)
+           + 2 * u * float(plain.abs().max()))
+    assert float((out[:k] - plain).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario", ["homo", "bcube_eq", "bcube_ineq"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_schur_matvec_fused_bitwise_on_card(cuda, scenario, dtype):
+    """The engine's CG matvec on the card: one edge_schur_matvec launch and
+    no other of the port's kernels, bit-equal to ``A_op(AT_op(λ))`` through
+    ``edge_adjoint`` and ``edge_laplacian_blocks`` (the heterogeneous rows
+    by the same torch ops); ``AT_op`` is one edge_adjoint launch."""
+    from repro_torch.core.constraints import bcube_constraints
+
+    cfg = te.ADMMConfig(device="cuda", dtype=dtype)
+    if scenario == "homo":
+        spec = te.make_homo_spec(64, 128, cfg)
+    else:
+        cs = bcube_constraints(p=4, k=2)
+        spec = te.make_hetero_spec(16, 48, cs.M, cs.e_cap, cfg,
+                                   equality=scenario == "bcube_eq", edge_ok=cs.edge_ok)
+    lam = torch.from_numpy(np.random.default_rng(spec.n).standard_normal(
+        sum(te.lam_sizes(spec)))).to(device=cuda, dtype=getattr(torch, dtype))
+    kernels.reset_launch_counts()
+    got = te.schur_matvec(spec, lam)
+    counts = kernels.launch_counts()
+    assert counts["edge_schur_matvec"] == 1 and sum(counts.values()) == 1, counts
+    kernels.reset_launch_counts()
+    X = te.AT_op(spec, lam)
+    counts = kernels.launch_counts()
+    assert counts["edge_adjoint"] == 1 and sum(counts.values()) == 1, counts
+    want = te.A_op(spec, X)
+    bits = torch.int32 if dtype == "float32" else torch.int64
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.cuda
+def test_adjoint_wrappers_raise_instead_of_falling_back(cuda):
+    P, Q, w = (torch.rand(4, 4, dtype=torch.float16, device=cuda),
+               torch.rand(4, 4, dtype=torch.float16, device=cuda),
+               torch.rand(4, dtype=torch.float16, device=cuda))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        tel.edge_adjoint(P, Q, w)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        tel.edge_schur_matvec(P, Q, w, torch.empty(36, dtype=torch.float16, device=cuda))
+    P = torch.rand(4, 4, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tel.edge_adjoint(P.t(), P, torch.rand(4, device=cuda))
+    with pytest.raises(ValueError, match="CPU or a CUDA device"):
+        tel.edge_schur_matvec(P, P, torch.rand(4, device=cuda), torch.empty(36))
+
+@pytest.mark.cuda
 def test_kernel_wrappers_raise_instead_of_falling_back(cuda):
     g = torch.rand(6, dtype=torch.float16, device=cuda)
     with pytest.raises(TypeError, match="float32 or float64"):
@@ -248,7 +367,10 @@ def test_admm_step_card_matches_cpu(cuda, hetero):
             st, res = te.step(spec, st)
         out[dev] = (st, float(res), kernels.launch_counts())
     (cpu, cpu_res, _), (gpu, gpu_res, counts) = out["cpu"], out["cuda"]
-    assert counts["edge_laplacian_blocks"] > 0 and counts["edge_quadform"] > 0
+    # each step: A_op of the right-hand side, the CG matvecs and the last
+    # AT_op in one launch each; the standalone quadratic form not at all
+    assert counts["edge_laplacian_blocks"] == 3 and counts["edge_adjoint"] == 3, counts
+    assert counts["edge_schur_matvec"] >= 3 and counts["edge_quadform"] == 0, counts
     for a, b in zip(gpu.X + gpu.Y + gpu.D, cpu.X + cpu.Y + cpu.D):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0, atol=1e-9)
     assert abs(gpu_res - cpu_res) <= 1e-9

@@ -117,6 +117,31 @@ def test_pcg_solve_matches(name):
     _assert_blocks(convert.lam_to_numpy(tspec, tlam), jlam, 1e-8)
 
 
+@pytest.mark.parametrize("name", ["homo", "bcube"])
+def test_pcg_solve_with_the_fused_matvec_matches(name):
+    """``pcg_solve`` with the engine's one-launch ``schur_matvec`` (the
+    ``step``'s matvec) on the cases of ``test_pcg_solve_matches``: the same
+    iterate within 1e-8 and the same count as the reference."""
+    from functools import partial
+
+    jspec, tspec, g0, z0 = _scenario(name)
+    jst = _advanced_state(jspec, tspec, g0, z0)
+    U = tuple(x + d / jspec.rho for x, d in zip(jst.X, jst.D))
+    V = je._xstep_target(jspec, je._project_blocks(jspec, U), jst.D)
+    jX, jlam, jit = jl.pcg_solve(lambda X: je.A_op(jspec, X),
+                                 lambda L: je.AT_op(jspec, L), V,
+                                 je.b_rhs(jspec), jst.lam, tol=1e-8, maxiter=500)
+    tV = tuple(torch.from_numpy(np.array(v)) for v in V)
+    lam0 = torch.cat([torch.from_numpy(np.array(b)).reshape(-1) for b in jst.lam])
+    tX, tlam, tit = tl.pcg_solve(lambda X: te.A_op(tspec, X),
+                                 lambda L: te.AT_op(tspec, L), tV,
+                                 te.b_rhs(tspec), lam0, tol=1e-8, maxiter=500,
+                                 matvec=partial(te.schur_matvec, tspec))
+    assert int(tit) == int(jit)
+    _assert_blocks([x.numpy() for x in tX], jX, 1e-8)
+    _assert_blocks(convert.lam_to_numpy(tspec, tlam), jlam, 1e-8)
+
+
 def test_pcg_solve_stops_at_maxiter_between_checks():
     """maxiter not a multiple of the check interval: the count stops exactly."""
     jspec, tspec, g0, z0 = _scenario("homo")

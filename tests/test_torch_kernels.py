@@ -5,7 +5,11 @@ its Pallas kernel in interpret mode, as the JAX package's own kernel tests
 do. Inputs are made with numpy from a seed and handed to both. Tolerances:
 L(g) within 1e-12 (fp64) or 1e-5 × the largest row sum (fp32), since the
 row sums are taken in another order; the quadratic form bitwise equal (adds
-only, same order); the BFS hop and its counts exactly equal.
+only, same order); the BFS hop and its counts exactly equal. The adjoint
+forms against the reference's ``AT_op`` and ``A_op(AT_op(·))`` (Pallas pair
+in interpret mode): the edge entries bitwise, −tr P + tr Q within
+2n·u·(Σ|P_ii| + Σ|Q_ii|) (the diagonals summed in another order), the dense
+blocks within 2n·u·(max row Σ|xg| + Σ|P_ii| + Σ|Q_ii|) (L's degrees too).
 
 ``tests/test_torch_cuda.py`` holds each CUDA kernel against its plain
 version on the card.
@@ -15,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
 from repro.core import engine as _jax_engine  # noqa: E402,F401 — turns on x64
@@ -161,8 +166,12 @@ def test_cpu_path_never_counts_a_launch():
                          -torch.rand(1, 1, 4, 2), torch.rand(1, 1, 4, 3), torch.rand(1, 1, 4, 3))
     tel.edge_laplacian_blocks(torch.rand(6), torch.tensor(0.5), torch.rand(4, 4),
                               torch.rand(4, 4), torch.rand(4), torch.empty(36))
+    tel.edge_adjoint(torch.rand(4, 4), torch.rand(4, 4), torch.rand(4), torch.rand(6))
+    tel.edge_schur_matvec(torch.rand(4, 4), torch.rand(4, 4), torch.rand(4), torch.empty(36),
+                          v=torch.rand(6), x_adj=torch.empty(7))
     assert kernels.launch_counts() == {"edge_laplacian": 0, "edge_laplacian_blocks": 0,
-                                       "edge_quadform": 0, "hop_step": 0,
+                                       "edge_quadform": 0, "edge_adjoint": 0,
+                                       "edge_schur_matvec": 0, "hop_step": 0,
                                        "gossip_mix_batched": 0, "gossip_mix": 0,
                                        "decode_attention": 0, "ssd_intra_chunk": 0}
     assert set(kernels.WRAPPERS) == set(kernels.launch_counts())
@@ -202,6 +211,116 @@ def test_edge_laplacian_blocks_plain_is_the_a_op_composition(hetero, dtype):
             assert got is out
             assert torch.equal(out[:2 * n * n + n].view(bits), want.view(bits))
             assert (out[2 * n * n + n:] == 7.0).all()
+
+
+def _reference_spec(case, dtype):
+    """(reference spec with the Pallas pair on, port spec) for n = 5 or 16
+    homogeneous, or BCube(4, 2) heterogeneous (n = 16)."""
+    from repro.core.constraints import bcube_constraints
+    from repro_torch import convert
+
+    cfg = _jax_engine.ADMMConfig(dtype=dtype, edge_kernel=True)
+    if case == "bcube":
+        cs = bcube_constraints(p=4, k=2)
+        jspec = _jax_engine.make_hetero_spec(16, 48, cs.M.astype(dtype), cs.e_cap.astype(dtype),
+                                             cfg, equality=cs.equality, edge_ok=cs.edge_ok)
+    else:
+        n = int(case[4:])
+        jspec = _jax_engine.make_homo_spec(n, 2 * n, cfg)
+    tspec = convert.spec_from_numpy(jax.tree.map(np.asarray, jspec), device="cpu")
+    return jspec, tspec
+
+
+@pytest.mark.parametrize("case", ["homo5", "homo16", "bcube"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_edge_adjoint_forms_plain_match_the_reference(case, dtype):
+    """``edge_adjoint_plain`` (and its wrapper on the CPU) against the
+    reference's ``AT_op``, ``edge_schur_matvec_plain`` against the dense
+    blocks of ``A_op(AT_op(λ))``, and the engine's ``schur_matvec`` against
+    the whole of it, both sides with the edge kernels on; tolerances in the
+    module docstring, the whole vector's scaled by 1 + its largest entry
+    (the heterogeneous rows are BLAS products summed in another order)."""
+    from repro_torch.core import engine as te
+
+    jspec, tspec = _reference_spec(case, dtype)
+    n, m = tspec.n, tspec.m
+    rng = np.random.default_rng(n + len(case))
+    blocks = [rng.standard_normal(k).astype(dtype) for k in te.lam_sizes(tspec)]
+    blocks[0], blocks[1] = blocks[0].reshape(n, n), blocks[1].reshape(n, n)
+    j_adj = _jax_engine.AT_op(jspec, tuple(jnp.asarray(b) for b in blocks))
+    want_x = np.asarray(j_adj[0])
+    want_blocks = [np.asarray(b).reshape(-1) for b in _jax_engine.A_op(jspec, j_adj)]
+    P, Q, w = (torch.from_numpy(b) for b in blocks[:3])
+    v = torch.from_numpy(blocks[4]) if tspec.hetero else None
+
+    u = np.finfo(dtype).eps / 2
+    diag_sum = np.abs(np.diag(blocks[0])).sum() + np.abs(np.diag(blocks[1])).sum()
+    for adjoint in (tel.edge_adjoint_plain, tel.edge_adjoint):
+        got = adjoint(P, Q, w, v).numpy()
+        assert got.dtype == want_x.dtype and got.shape == (m + 1,)
+        assert got[:m].tobytes() == want_x[:m].tobytes()
+        assert abs(got[m] - want_x[m]) <= 2 * n * u * diag_sum
+    xg = got[:m]
+    lidx = tel.packed_edge_index(n).numpy()
+    row_abs = np.abs(np.concatenate([xg, [0.0]])[lidx]).sum(axis=1).max()
+    tol = 2 * n * u * (row_abs + diag_sum)
+    dense = np.concatenate(want_blocks[:3])
+    for matvec in (tel.edge_schur_matvec_plain, tel.edge_schur_matvec):
+        out = torch.full((2 * n * n + n + 2,), 7.0, dtype=P.dtype)
+        x_adj = torch.empty(m + 1, dtype=P.dtype)
+        assert matvec(P, Q, w, out, v=v, x_adj=x_adj) is out
+        np.testing.assert_allclose(out[:2 * n * n + n].numpy(), dense, rtol=0, atol=tol)
+        assert (out[2 * n * n + n:] == 7.0).all()
+        assert x_adj.numpy().tobytes() == got.tobytes()
+    full = te.schur_matvec(tspec, torch.from_numpy(np.concatenate([b.reshape(-1) for b in blocks])))
+    np.testing.assert_allclose(full.numpy(), np.concatenate(want_blocks), rtol=0,
+                               atol=tol * (1 + np.abs(np.concatenate(want_blocks)).max()))
+
+
+@pytest.mark.parametrize("scenario", ["homo", "bcube_eq", "bcube_ineq"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_schur_matvec_is_a_op_of_at_op_on_the_cpu(scenario, dtype):
+    """The engine's one-launch matvec takes on the CPU exactly the values of
+    the composition ``A_op(AT_op(λ))`` it replaced (the plain versions are
+    that composition), and ``AT_op`` with the edge kernels on equals it
+    with them off."""
+    from repro_torch.core import engine as te
+    from repro_torch.core.constraints import bcube_constraints
+
+    cfg = te.ADMMConfig(device="cpu", dtype=dtype)
+    if scenario == "homo":
+        spec = te.make_homo_spec(12, 24, cfg)
+    else:
+        cs = bcube_constraints(p=4, k=2)
+        spec = te.make_hetero_spec(16, 48, cs.M, cs.e_cap, cfg,
+                                   equality=scenario == "bcube_eq", edge_ok=cs.edge_ok)
+    lam = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        sum(te.lam_sizes(spec)))).to(getattr(torch, dtype))
+    bits = torch.int32 if dtype == "float32" else torch.int64
+    want = te.A_op(spec, te.AT_op(spec, lam))
+    assert torch.equal(te.schur_matvec(spec, lam).view(bits), want.view(bits))
+    plain = spec.replace(edge_kernel=False)
+    assert torch.equal(te.schur_matvec(plain, lam).view(bits), want.view(bits))
+    for a, b in zip(te.AT_op(spec, lam), te.AT_op(plain, lam)):
+        assert torch.equal(a.view(bits), b.view(bits))
+
+
+def test_edge_adjoint_forms_reject_bad_operands():
+    P, Q, w = torch.zeros(4, 4), torch.zeros(4, 4), torch.zeros(4)
+    with pytest.raises(ValueError, match=r"P and Q \(n, n\)"):
+        tel.edge_adjoint(torch.zeros(4, 3), Q, w)
+    with pytest.raises(ValueError, match=r"v \(m,\)"):
+        tel.edge_adjoint(P, Q, w, torch.zeros(5))
+    with pytest.raises(ValueError, match=r"P and Q \(n, n\)"):
+        tel.edge_schur_matvec(P, Q, torch.zeros(3), torch.empty(36))
+    with pytest.raises(ValueError, match=r"out \(≥ 2n²\+n,\)"):
+        tel.edge_schur_matvec(P, Q, w, torch.empty(35))
+    with pytest.raises(ValueError, match=r"x_adj \(m\+1,\)"):
+        tel.edge_schur_matvec(P, Q, w, torch.empty(36), x_adj=torch.empty(6))
+    with pytest.raises(TypeError, match="one dtype"):
+        tel.edge_adjoint(P, Q.double(), w)
+    with pytest.raises(TypeError, match="one dtype"):
+        tel.edge_schur_matvec(P, Q, w, torch.empty(36, dtype=torch.float64))
 
 
 def test_packed_edge_index_is_lexicographic():

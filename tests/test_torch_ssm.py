@@ -259,15 +259,33 @@ def test_ssm_prefill_and_decode_match_jax(monkeypatch):
 
 def test_ssm_prefill_chunk_cap_groups_calls(monkeypatch):
     """With ``INTRA_CALL_BYTES`` at one chunk's float32 outputs each layer
-    takes one call per chunk, and the prefill gives the same logits and
-    caches as one call per layer (and the reference's, as above)."""
+    takes one call per chunk, made when its chunk comes up in the loop (K
+    for a kernel call, E for a chunk's incoming-state einsum: KEKEKE a
+    layer, so one chunk's outputs are live at a time), and the prefill
+    gives the same logits and caches as one call per layer (and the
+    reference's, as above)."""
     jcfg, tcfg, jparams, tparams = _model()
     toks = np.random.default_rng(2).integers(0, jcfg.vocab_size, (2, 70)).astype(np.int32)
     whole, whole_caches = ttr.prefill(tparams, tcfg, {"tokens": _to_t(toks)})
     H, P, N, Q = tcfg.ssm_heads, tcfg.ssm_head_dim, tcfg.ssm_state, tcfg.ssm_chunk
     monkeypatch.setattr(tssm, "INTRA_CALL_BYTES", 4 * 2 * (Q * H * P + H * P * N))
     calls = _counting_ssd(monkeypatch)
+    counting, einsum, order = tssm._ssd_ops.ssd_intra_chunk, torch.einsum, []
+
+    def logging_ssd(*a):
+        order.append("K")
+        return counting(*a)
+
+    def logging_einsum(eq, *operands):
+        if eq == "btn,bth,bhpn->bthp":           # a chunk's incoming-state pass
+            order.append("E")
+        return einsum(eq, *operands)
+
+    monkeypatch.setattr(tssm._ssd_ops, "ssd_intra_chunk", logging_ssd)
+    monkeypatch.setattr(torch, "einsum", logging_einsum)
     tlog, tcaches = ttr.prefill(tparams, tcfg, {"tokens": _to_t(toks)})
+    monkeypatch.setattr(torch, "einsum", einsum)
+    assert "".join(order) == "KE" * 3 * tcfg.num_layers
     assert len(calls) == tcfg.num_layers * 3 and all(c[1] == 1 for c in calls)
     assert torch.equal(tlog, whole)
     assert torch.equal(tcaches.ssm.state, whole_caches.ssm.state)

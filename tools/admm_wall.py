@@ -1,0 +1,121 @@
+"""Wall time of 60 ADMM steps of the port at n=64, for several source trees
+in turn on one card.
+
+    python3 tools/admm_wall.py --tree build/parent --tree . --order 0110
+
+Each ``--tree`` is the root of a checkout (its ``src/repro_torch`` is the
+package timed); ``--order`` lists the trees to run by index, one process
+each, so that ``0110`` runs parent, change, change, parent on the same
+card. Each process builds its tree's kernels, warms up with one solve,
+then times ``--reps`` solves of 60 steps (``main_n64``'s ADMM: n=64, r=128,
+the pipeline's default ``BATopoConfig().admm``, the warm start of
+``chip_smoke.py``'s profile phase) by the host clock, each ending in a
+synchronise, and profiles one more for its device launches, host syncs and
+device busy time. Prints the card's ``nvidia-smi`` name and power limit,
+one JSON line per process, and a summary line; ``--json-out`` writes them
+all to a file.
+
+It needs a card and imports only torch and numpy itself; each child
+imports ``repro_torch`` from its own tree.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+N, R, STEPS = 64, 128, 60
+_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def child(reps: int) -> dict:
+    """Time and profile 60 ADMM steps with the ``repro_torch`` on sys.path."""
+    import dataclasses
+    import time
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import BATopoConfig, HomogeneousADMM
+    from repro_torch.core.anneal import greedy_degree_graph
+    from repro_torch.core.api import _pack_warm
+
+    edges = greedy_degree_graph(N, np.full(N, 4), np.random.default_rng(0))
+    g0, _, lam0 = _pack_warm(N, edges)
+    cfg = dataclasses.replace(BATopoConfig().admm, max_iters=STEPS, device="cuda")
+    solver = HomogeneousADMM(N, R, cfg)
+    solver.solve(g0=g0, lam0=lam0)                      # builds the kernels, warms up
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver.solve(g0=g0, lam0=lam0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solver.solve(g0=g0, lam0=lam0)
+        torch.cuda.synchronize()
+    launches, syncs, busy_us = 0, 0, 0.0
+    for ev in prof.events():
+        if str(ev.device_type).endswith("CUDA"):
+            launches += 1
+            busy_us += ev.time_range.elapsed_us()
+        elif ev.name in _SYNCS:
+            syncs += 1
+    return dict(walls_s=walls, median_wall_s=sorted(walls)[len(walls) // 2],
+                device_launches=launches, host_syncs=syncs, device_busy_s=busy_us / 1e6,
+                lam_tilde=res.lam_tilde, cg_iters=res.cg_iters, iters=res.iters,
+                residual=res.residual, support=int((res.g > 1e-6).sum()))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", action="append", default=[],
+                    help="root of a checkout to time (repeatable)")
+    ap.add_argument("--order", default="",
+                    help="tree indices to run in turn (default: each tree once)")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--json-out", default=None)
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        print(json.dumps(child(args.reps)), flush=True)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("admm_wall: needs an NVIDIA card", file=sys.stderr)
+        return 2
+    trees = [Path(t).resolve() for t in (args.tree or ["."])]
+    order = [int(c) for c in args.order] if args.order else list(range(len(trees)))
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip()
+    print(card, flush=True)
+    runs = []
+    for i in order:
+        env = dict(os.environ, PYTHONPATH=str(trees[i] / "src"))
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--child",
+                               "--reps", str(args.reps)],
+                              cwd=trees[i], env=env, capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"admm_wall: the run of {trees[i]} failed")
+        run = dict(tree=str(trees[i]), index=i, **json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(run), flush=True)
+        runs.append(run)
+    summary = {str(i): sorted(r["median_wall_s"] for r in runs if r["index"] == i)
+               for i in sorted(set(order))}
+    print(json.dumps({"card": card, "median_wall_s_by_tree": summary}), flush=True)
+    if args.json_out:
+        Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json_out).write_text(json.dumps({"card": card, "runs": runs}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
