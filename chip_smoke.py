@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel against its plain PyTorch version at its path's shapes and times it,
-and drives the port's three paths on ``cuda``:
+and drives the port's four paths on ``cuda``:
 
 - the topology solve (``solve_topology`` at n=64, r=128 and the n=16 BCube
   scenario; every CG matvec A·Aᵀλ in one ``edge_schur_matvec`` launch, the
@@ -26,7 +26,17 @@ and drives the port's three paths on ``cuda``:
   launch (the bf16 tensor-core route); then both kernels at their serving
   shapes and at gemma2-9b's, reduced smollm, gemma2 (long context) and
   mamba2 card vs CPU, one profiled full-width decode step and one profiled
-  mamba2-780m prefill.
+  mamba2-780m prefill;
+- the §VI-B evaluation (``repro_torch.dsgd.sim``): bench_training_time's
+  homo setup at n=16 (the paper's baselines and BA-Topo at r = 16, 24, 32,
+  solved on the card) trained by one ``accuracy_curves`` call, 30 epochs,
+  every step's gossip one ``gossip_mix_batched`` launch per leaf for all
+  nine topologies, checked against the CPU and the host oracle; the kernel
+  at that fp32 shape beside ``torch.bmm``, one profiled epoch; the
+  cross-product engine ({static, round-robin} × {dense, top-k, random-k})
+  and bench_compression's consensus curves; the chaos engine at
+  bench_chaos's defaults, with a fault-free spec held bitwise to the cross
+  engine.
 
 Every phase prints one JSON line; any failure raises and the script exits
 non-zero. Each path's kernel launches are counted from 0 over that path
@@ -64,6 +74,7 @@ PATH_KERNELS = {
     "rowloop": ("gossip_mix",),
     "serve_dense": ("decode_attention",),
     "serve_ssm": ("ssd_intra_chunk",),
+    "sim": ("gossip_mix_batched",),
 }
 
 ROOT = Path(__file__).resolve().parent
@@ -1505,6 +1516,334 @@ def phase_profile_prefill() -> None:
     del params
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the §VI-B evaluation (dsgd/sim.py) on the card
+# ---------------------------------------------------------------------------
+
+SIM_N = 16
+SIM_BUDGETS = (16, 24, 32)        # bench_training_time's homo edge budgets
+SIM_TARGET = 0.8                  # bench_training_time's accuracy target
+SIM_LEAVES = 4                    # w1, b1, w2, b2 of the 2-layer MLP
+NODE_BW_16 = np.array([9.76] * 8 + [3.25] * 8)     # §VI-A2 node bandwidths, GB/s
+
+
+def _sim_data(n: int, seed: int = 0):
+    """bench_training_time's task: 10 classes × 400 samples at dim 64, a test
+    split of 64 a class (noise seed 10,001), class-balanced over n workers."""
+    from repro_torch.data import class_balanced_partition, make_classification_data
+
+    X, y = make_classification_data(num_classes=10, dim=64, samples_per_class=400, seed=seed)
+    Xte, yte = make_classification_data(num_classes=10, dim=64, samples_per_class=64,
+                                        seed=seed, noise_seed=seed + 10_001)
+    return X, y, class_balanced_partition(y, n, seed=seed), Xte, yte
+
+
+def _paper_baselines(n: int) -> list:
+    """The comparison set of benchmarks/common.py ``paper_baselines``: ring,
+    grid and torus (square n), exponential, U-EquiStatic for M = 2, 3."""
+    from repro_torch.core.topologies import make_baseline
+
+    out = [make_baseline("ring", n), make_baseline("exponential", n)]
+    if int(np.sqrt(n)) ** 2 == n:
+        out.insert(1, make_baseline("grid", n))
+        out.insert(2, make_baseline("torus", n))
+    for M in (2, 3):
+        try:
+            t = make_baseline("equistatic", n, M=M)
+        except ValueError:
+            continue
+        t.meta["label"] = f"u-equistatic(r={len(t.edges)})"
+        out.append(t)
+    return out
+
+
+def _ba_topo(n: int, r: int, sa_iters: int, **request):
+    """One BA-Topo solve on the card with benchmarks/common.py's config."""
+    from repro_torch.core import BATopoConfig, TopologyRequest, solve_topology
+
+    cfg = BATopoConfig(seed=0, sa_iters=sa_iters, restarts=1)
+    t = solve_topology(TopologyRequest(n=n, r=r, **request), cfg=cfg).topology
+    t.meta["label"] = f"ba-topo(r={len(t.edges)})"
+    return t
+
+
+def _label(t) -> str:
+    return t.meta.get("label", t.name)
+
+
+def phase_main_sim():
+    """bench_training_time's homo setup at n=16 on the card: the paper's
+    baselines and BA-Topo at r ∈ {16, 24, 32} (solved on the card), all
+    trained by one ``accuracy_curves`` call (30 epochs, batch 32, lr 0.05,
+    momentum 0.9, hidden 128), every step's gossip one
+    ``gossip_mix_batched`` launch per leaf for all topologies; the call is
+    timed cold (its first run in the process) and warm. Checks: the warm
+    call repeats the curves bitwise; the same call on the CPU within 0.005
+    accuracy at every epoch; the host oracle on the card within 1e-6 for
+    two topologies."""
+    from repro_torch import kernels
+    from repro_torch.core.bandwidth import homo_edge_bandwidth, min_edge_bandwidth, t_epoch
+    from repro_torch.dsgd.sim import DSGDSimConfig, accuracy_curve_host, accuracy_curves
+
+    n = SIM_N
+    data = _sim_data(n)
+    t0 = time.perf_counter()
+    topos = _paper_baselines(n) + [_ba_topo(n, r, 600) for r in SIM_BUDGETS]
+    topo_s = time.perf_counter() - t0
+    Ws = np.stack([t.W for t in topos]).astype(np.float32)
+    cfg = DSGDSimConfig(epochs=30, batch=32, lr=0.05, momentum=0.9, hidden=128, seed=0)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    accs, iters = accuracy_curves(Ws, *data, cfg)          # ends in the host read
+    wall_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    again, _ = accuracy_curves(Ws, *data, cfg)             # warm: torch's kernels loaded
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu, _ = accuracy_curves(Ws, *data, cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    drift = float(np.abs(accs - cpu).max())
+    host_err = {}
+    for k in (0, len(topos) - 1):                          # ring and BA-Topo r=32
+        host, _ = accuracy_curve_host(Ws[k], *data, cfg)
+        host_err[_label(topos[k])] = float(np.abs(host - accs[k]).max())
+    rows = []
+    for t, a in zip(topos, accs):
+        epoch_ms = t_epoch(min_edge_bandwidth(homo_edge_bandwidth(t)), iters)
+        hit = np.nonzero(a >= SIM_TARGET)[0]
+        rows.append(dict(topology=_label(t), edges=len(t.edges), r_asym=float(t.r_asym()),
+                         final_acc=float(a[-1]),
+                         first_epoch_at_target=int(hit[0]) + 1 if hit.size else None,
+                         epoch_ms=epoch_ms,
+                         t_target_s=float((hit[0] + 1) * epoch_ms / 1e3) if hit.size else None))
+    inf = float("inf")
+    best_ba = min((r["t_target_s"] or inf for r in rows if "ba-topo" in r["topology"]),
+                  default=inf)
+    best_other = min((r["t_target_s"] or inf for r in rows
+                      if "ba-topo" not in r["topology"]), default=inf)
+    expected = cfg.epochs * iters * SIM_LEAVES
+    emit("main_sim", n=n, topologies=len(topos), epochs=cfg.epochs, iters=iters,
+         batch=cfg.batch, rows=rows, best_ba_t_target_s=best_ba,
+         best_baseline_t_target_s=best_other,
+         speedup=best_other / best_ba if np.isfinite(best_ba) else None,
+         topology_build_s=topo_s, curves_wall_s=wall_s, curves_wall_s_warm=warm_s,
+         cpu_curves_wall_s=cpu_s,
+         card_vs_cpu_max_acc_drift=drift, host_vs_curves_max_err=host_err,
+         launches=launches, expected_gossip_launches=expected)
+    assert accs.shape == (len(topos), cfg.epochs) and np.all(np.isfinite(accs))
+    assert np.array_equal(again, accs), "main_sim: a second call gave other curves"
+    assert launches["gossip_mix_batched"] == expected, launches
+    missing = [k for k in PATH_KERNELS["sim"] if launches[k] == 0]
+    assert not missing, f"main_sim: kernels never launched on the path: {missing}"
+    assert drift <= 0.005, f"main_sim: card vs CPU accuracy drift {drift} > 0.005"
+    assert max(host_err.values()) <= 1e-6, f"main_sim: host oracle differs: {host_err}"
+    return topos, data, Ws, accs, launches
+
+
+def phase_sim_kernel(Ws, data) -> dict:
+    """``gossip_mix_batched`` at the sim's fp32 shape: the four MLP leaves
+    stacked to (T·n, M) rows (9 × 16 = 144) over main_sim's block-diagonal
+    table, each against its plain version, timed in a CUDA graph beside
+    ``torch.bmm`` of the stacked (T, n, n) W over the (T, n, M) view — the
+    one PyTorch call for the same function. Bound: x read once, the output
+    written once, and the table, at the card's memory rate. Then one
+    profiled epoch of main_sim's call. Returns the w1 row."""
+    from repro_torch.dsgd import sim
+    from repro_torch.dsgd.dynamic import stack_cycles
+    from repro_torch.kernels.gossip_mix import ops as gm
+
+    T, n, _ = Ws.shape
+    Wc, lens = stack_cycles([W[None] for W in Ws])
+    idx, w = sim._Tables(Wc.astype(np.float32), lens, 1, "cuda").at(0)
+    Wd = torch.from_numpy(Ws).cuda()
+    p0 = sim.init_mlp(0, 64, 128, 10)
+    gen = torch.Generator().manual_seed(1)
+    leaves = {}
+    for k in sim.LEAVES:
+        shape = (T * n,) + tuple(p0[k].shape)
+        leaves[k] = (torch.rand(shape, generator=gen, dtype=torch.float32) - 0.5).cuda()
+    cases = []
+    for k, x in leaves.items():
+        got = gm.gossip_mix_batched(x, idx, w)
+        err, ok = _batched_check(got, x, idx, w)
+        xv = x.view(T, n, -1)
+        t = timings(lambda: gm.gossip_mix_batched(x, idx, w),
+                    lambda: gm.gossip_mix_batched_plain(x, idx, w),
+                    lambda: torch.bmm(Wd, xv))
+        nbytes = 2 * x.numel() * x.element_size() + _table_bytes(idx, w)
+        cases.append(dict(leaf=k, shape=list(x.shape), dtype="float32", deg=int(idx.shape[1]),
+                          max_abs_err=err, within=ok, **t,
+                          bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes"))
+        assert ok, f"gossip_mix_batched at the sim shape, {k}: outside the tolerance"
+    xs = list(leaves.values())
+    step_t = timings(lambda: [gm.gossip_mix_batched(x, idx, w) for x in xs],
+                     lambda: [gm.gossip_mix_batched_plain(x, idx, w) for x in xs],
+                     lambda: [torch.bmm(Wd, x.view(T, n, -1)) for x in xs])
+    step_bytes = sum(2 * x.numel() * 4 + _table_bytes(idx, w) for x in xs)
+    # one epoch of main_sim's call (its set-up included), under the profiler
+    one = sim.DSGDSimConfig(epochs=1, batch=32, lr=0.05, momentum=0.9, hidden=128, seed=0)
+    sim.accuracy_curves(Ws, *data, one)
+    prof = _profiled(lambda: sim.accuracy_curves(Ws, *data, one), match=("gossip_mix",))
+    iters = min(len(p) for p in data[2]) // one.batch
+    emit("sim_kernel_checks", rows=T * n, topologies=T, cases=cases,
+         whole_step=dict(**step_t, bound_ms=1e3 * step_bytes / HBM_BYTES_PER_S,
+                         bound_by="bytes", bytes=step_bytes),
+         profiled_epoch=dict(**prof, steps=iters,
+                             launches_per_step=(prof["device_launches"] / iters
+                                                if prof["device_launches"] else None)),
+         library_note="torch.bmm(W (T, n, n), x.view(T, n, M)): the stacked dense Eq. 1")
+    return next(c for c in cases if c["leaf"] == "w1")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the cross-product and chaos engines on the card
+# ---------------------------------------------------------------------------
+
+def phase_main_sim_cross(topos, data, accs) -> dict:
+    """bench_dynamic's and bench_compression's defaults on main_sim's
+    topologies: static and round-robin cycles (the directed exponential
+    graph has none) × {dense, top-k 10 %, random-k 10 %}, 6 epochs, one
+    ``train_curves_cross`` call per compressor; then
+    ``consensus_curves_cross`` at dim 256 (float32) for 300 iterations over
+    bench_compression's compressor families and γ grid. Checks: the static
+    dense runs equal main_sim's first 6 epochs within 1e-7 (the batch order
+    of epoch e does not depend on the run's length); random-k 10 % CHOCO
+    diverges, as the reference's does (its 1/frac scaling sets e ← (1 −
+    1/frac)·e on every kept entry): every training run ends below twice
+    chance accuracy and every consensus run ends non-finite or above its
+    starting error."""
+    from repro_torch import kernels
+    from repro_torch.dsgd.compression import choco_gamma
+    from repro_torch.dsgd.dynamic import cycle_tensor, static_cycle
+    from repro_torch.dsgd.sim import CommSpec, DSGDSimConfig, consensus_curves_cross
+    from repro_torch.dsgd.sim import train_curves_cross
+
+    cfg = DSGDSimConfig(epochs=6, batch=32, lr=0.05, momentum=0.9, hidden=128, seed=0)
+    runs = [(_label(t), "static", static_cycle(t.W)) for t in topos]
+    runs += [(_label(t), "round_robin", cycle_tensor(t)) for t in topos
+             if not t.meta.get("directed")]
+    cycles = [c for _, _, c in runs]
+    specs = ((CommSpec(), 1.0), (CommSpec("top_k", 0.10), 0.4), (CommSpec("random_k", 0.10), 0.1))
+    train, walls, launches = {}, {}, {}
+    for spec, gamma in specs:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        a, iters = train_curves_cross(cycles, np.full(len(cycles), gamma), spec, *data, cfg)
+        walls[spec.name] = time.perf_counter() - t0
+        launches[spec.name] = kernels.launch_counts()["gossip_mix_batched"]
+        train[spec.name] = a
+        assert launches[spec.name] == cfg.epochs * iters * SIM_LEAVES, launches
+    static_err = float(np.abs(train["dense"][:len(topos)] - accs[:, :cfg.epochs]).max())
+    # consensus: bench_compression's families and γ grid, one call a family
+    x0 = np.random.default_rng(0).normal(size=(SIM_N, 256)).astype(np.float32)
+    families = ((CommSpec(), ("static",)), (CommSpec("top_k", 0.25), ("static",)),
+                (CommSpec("top_k", 0.10), ("static", "round_robin")),
+                (CommSpec("random_k", 0.10), ("static",)))
+    consensus = []
+    for spec, modes in families:
+        crun = []
+        for (label, mode, cyc), t in zip(runs, topos + [t for t in topos
+                                                         if not t.meta.get("directed")]):
+            if mode not in modes:
+                continue
+            lam2 = 1.0 - float(np.sort(np.abs(np.linalg.eigvals(t.W)))[-2])
+            grid = [1.0] if not spec.choco else [choco_gamma(t, lam2), 0.2, 0.4, 0.6, 0.8]
+            crun += [(label, mode, g, cyc) for g in grid]
+        t0 = time.perf_counter()
+        errs = consensus_curves_cross([c for *_, c in crun], [g for _, _, g, _ in crun], spec,
+                                      x0, 300, seed=0)
+        wall = time.perf_counter() - t0
+        assert errs.shape == (len(crun), 301) and errs.dtype == np.float32
+        best, diverged = {}, 0
+        for (label, mode, g, _), e in zip(crun, errs):
+            diverged += int(not np.isfinite(e[-1]) or e[-1] > e[0])
+            rel = float(e[-1] / e[0]) if np.isfinite(e[-1]) else None
+            key = f"{label}/{mode}"
+            if rel is not None and (key not in best or rel < best[key][1]):
+                best[key] = (g, rel)
+        consensus.append(dict(compressor=spec.name, runs=len(crun), wall_s=wall,
+                              diverged=diverged, best_gamma_and_final_rel_error=best))
+    emit("main_sim_cross", runs=[dict(topology=lb, mode=m) for lb, m, _ in runs],
+         epochs=cfg.epochs, gammas={s.name: g for s, g in specs},
+         final_acc={k: [float(v) for v in a[:, -1]] for k, a in train.items()},
+         curves_wall_s=walls, gossip_launches=launches,
+         static_dense_vs_main_sim_max_err=static_err, consensus_dim=256, consensus_iters=300,
+         consensus=consensus)
+    assert all(np.all(np.isfinite(a)) for a in train.values())
+    assert static_err <= 1e-7, f"static dense cross vs accuracy_curves: {static_err}"
+    chance = 1.0 / (int(np.asarray(data[1]).max()) + 1)
+    rand = next(c for c in consensus if c["compressor"] == "rand10%")
+    assert np.all(train["rand10%"][:, -1] < 2 * chance), train["rand10%"][:, -1]
+    assert rand["diverged"] == rand["runs"], rand
+    return launches
+
+
+def phase_main_sim_chaos() -> dict:
+    """bench_chaos's defaults on the card: the node-hetero BA-Topo at n=16,
+    r=32 (solved on the card, sa_iters 400), 6 epochs under a fault spec
+    with one churn window of node 5 from the drift step (a quarter of the
+    run) for a sixth of the run, p_drop 0.03, straggler probability 0.05
+    (×3), and the four fast NICs collapsing to 1 GB/s at the drift step;
+    static and round-robin, dense, in one ``train_curves_chaos`` call; then
+    120 iterations of ``consensus_curves_chaos``. Check: a ``no_chaos`` spec
+    reproduces ``train_curves_cross`` bitwise. (bench_chaos's re-optimized
+    run needs ``core/reopt.py``, not ported.)"""
+    from repro_torch import kernels
+    from repro_torch.dsgd.chaos import drift_profile, make_chaos, no_chaos
+    from repro_torch.dsgd.dynamic import cycle_tensor, static_cycle
+    from repro_torch.dsgd.sim import CommSpec, DSGDSimConfig, consensus_curves_chaos
+    from repro_torch.dsgd.sim import train_curves_chaos, train_curves_cross
+
+    n = SIM_N
+    topo = _ba_topo(n, 32, 400, scenario="node", node_bandwidths=NODE_BW_16)
+    data = _sim_data(n)
+    cfg = DSGDSimConfig(epochs=6, batch=32, lr=0.05, momentum=0.9, hidden=128, seed=0)
+    iters = min(len(p) for p in data[2]) // cfg.batch
+
+    def spec_for(steps):
+        drift = max(int(steps * 0.25), 1)
+        churn = [(5, drift, min(drift + max(steps // 6, 2), steps))]
+        return make_chaos(steps, n, seed=0, churn=churn, p_drop=0.03, straggler_prob=0.05,
+                          straggler_mult=3.0,
+                          bandwidth=drift_profile(steps, n, drift, NODE_BW_16, 4, 1.0))
+
+    chaos = spec_for(cfg.epochs * iters)
+    cycles = [static_cycle(topo.W), cycle_tensor(topo)]
+    ones = np.ones(len(cycles))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    accs, _ = train_curves_chaos(cycles, ones, CommSpec(), chaos, *data, cfg)
+    wall_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()["gossip_mix_batched"]
+    x0 = np.random.default_rng(0).normal(size=(n, 16))
+    c_chaos = spec_for(120)
+    t0 = time.perf_counter()
+    errs = consensus_curves_chaos(cycles, ones, CommSpec(), c_chaos, x0, 120)
+    cons_s = time.perf_counter() - t0
+    bitwise = {}
+    for spec, gamma in ((CommSpec(), 1.0), (CommSpec("top_k", 0.10), 0.4)):
+        g = np.full(len(cycles), gamma)
+        ref, _ = train_curves_cross(cycles, g, spec, *data, cfg)
+        got, _ = train_curves_chaos(cycles, g, spec, no_chaos(cfg.epochs * iters, n), *data, cfg)
+        bitwise[spec.name] = bool(np.array_equal(got, ref))
+    emit("main_sim_chaos", topology=_label(topo), r_asym=float(topo.r_asym()), epochs=cfg.epochs,
+         steps=cfg.epochs * iters, churn=chaos.meta["churn"], p_drop=0.03,
+         dead_worker_steps=int((chaos.alive == 0).sum()),
+         dropped_links=int((chaos.link_up == 0).sum() // 2),
+         final_acc={"static": float(accs[0, -1]), "round_robin": float(accs[1, -1])},
+         accs=accs.tolist(), curves_wall_s=wall_s, gossip_launches=launches,
+         consensus_iters=120, consensus_final_rel_error=[float(e[-1] / e[0]) for e in errs],
+         consensus_wall_s=cons_s, no_chaos_bitwise_equal_to_cross=bitwise)
+    assert np.all(np.isfinite(accs)) and np.all(np.isfinite(errs))
+    assert launches == cfg.epochs * iters * SIM_LEAVES, launches
+    assert all(bitwise.values()), f"no_chaos differs from the cross engine: {bitwise}"
+    return launches
+
+
 KERNEL_INFO = {
     "edge_laplacian": dict(route="cuda", source="src/repro_torch/csrc/edge_laplacian.cu",
                            replaces="src/repro/kernels/edge_laplacian/kernel.py:62"),
@@ -1562,6 +1901,12 @@ def main() -> int:
     phase_profile_serve()
     phase_profile_prefill()
 
+    topos, sim_data, Ws, sim_accs, sim_launches = phase_main_sim()
+    timing["gossip_mix_batched"]["sim"] = dict(
+        phase_sim_kernel(Ws, sim_data), launches=sim_launches["gossip_mix_batched"])
+    phase_main_sim_cross(topos, sim_data, sim_accs)
+    phase_main_sim_chaos()
+
     path_launches = {"gossip_mix_batched": dsgd_launches["gossip_mix_batched"],
                      "gossip_mix": row_launches["gossip_mix"],
                      "decode_attention": dense["launches"]["decode_attention"],
@@ -1574,7 +1919,7 @@ def main() -> int:
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], call_ms=t["call_ms"],
-            **{k: t[k] for k in ("ms_warm", "library_ms_warm") if k in t}))
+            **{k: t[k] for k in ("ms_warm", "library_ms_warm", "sim") if k in t}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

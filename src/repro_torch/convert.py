@@ -26,7 +26,7 @@ from .optim import AdamWState, SGDState
 __all__ = ["spec_from_numpy", "state_from_numpy", "state_to_numpy",
            "lam_to_numpy", "constraints_from_numpy", "model_params_from_numpy",
            "model_params_to_numpy", "dsgd_state_from_numpy", "caches_from_numpy",
-           "caches_to_numpy"]
+           "caches_to_numpy", "mlp_params_from_numpy"]
 
 
 def _t(a, dtype, dev):
@@ -171,3 +171,12 @@ def dsgd_state_from_numpy(ref, device: str = "cuda") -> DSGDState:
         opt = AdamWState(model_params_from_numpy(opt.mu, dev),
                          model_params_from_numpy(opt.nu, dev), _leaf(opt.step, dev))
     return DSGDState(model_params_from_numpy(ref.params, dev), opt, _leaf(ref.step, dev))
+
+
+def mlp_params_from_numpy(tree) -> dict:
+    """The §VI-B MLP's p0 dict (``w1``, ``b1``, ``w2``, ``b2``) from the
+    reference's ``repro.dsgd.sim.init_mlp`` with numpy leaves, as float32
+    CPU tensors: the ``init=`` of the port's curve functions, which move it
+    to their device."""
+    return {k: torch.from_numpy(np.array(tree[k], dtype=np.float32))
+            for k in ("w1", "b1", "w2", "b2")}

@@ -9,8 +9,13 @@
   gossip_sim_tree_rowloop  one ``gossip_mix`` launch per worker row, the
                            parity oracle of the batched path
 
-The sharded (``gossip_shard``) and elastic variants of ``repro/dsgd/gossip.py``
-are not ported yet.
+The table helpers of the elastic kernel path (``elastic_neighbor_tables``,
+``gather_neighbor_weights``) are here: the chaos engine of
+:mod:`repro_torch.dsgd.sim` gathers each step's kernel weights from a
+degraded W on the device. The collective-permute variants (``gossip_shard``,
+``gossip_shard_elastic``) and ``schedule_weight_arrays``, which only
+``gossip_shard_elastic`` reads, are multi-device work and are not ported
+yet (ROADMAP.md, Queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ from torch.utils._pytree import tree_map
 from ..kernels.gossip_mix.ops import gossip_mix, gossip_mix_batched
 
 __all__ = ["gossip_sim", "gossip_sim_tree", "gossip_sim_tree_rowloop", "padded_neighbors",
-           "select_cycle_matrix"]
+           "elastic_neighbor_tables", "gather_neighbor_weights", "select_cycle_matrix"]
 
 
 def select_cycle_matrix(Wc: torch.Tensor, R, t) -> torch.Tensor:
@@ -67,6 +72,50 @@ def padded_neighbors(W) -> tuple[torch.Tensor, torch.Tensor]:
         weights[i, 0] = Wnp[i, i]
         weights[i, 1:1 + len(r)] = off[i, r]
     return torch.from_numpy(nbr_idx).to(device), torch.from_numpy(weights).to(device)
+
+
+def elastic_neighbor_tables(W, deg_cap: int | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Neighbour indexing whose weights are data: ``(nbr_idx (n, deg_cap)
+    int32, nbr_mask (n, deg_cap) bool)`` for a concrete W, on W's device
+    (the CPU for a numpy W). Real slots list the neighbours in increasing
+    index, as :func:`padded_neighbors` does; padded slots point at the row
+    itself with mask False. ``deg_cap`` defaults to n−1, every possible
+    degree, so re-optimized topologies keep the table's shape."""
+    device = W.device if isinstance(W, torch.Tensor) else torch.device("cpu")
+    Wnp = W.detach().cpu().numpy() if isinstance(W, torch.Tensor) else np.asarray(W)
+    n = Wnp.shape[0]
+    off = Wnp.copy()
+    np.fill_diagonal(off, 0.0)
+    rows = [np.nonzero(off[i])[0] for i in range(n)]
+    deg = deg_cap if deg_cap is not None else max(n - 1, 1)
+    widest = max((len(r) for r in rows), default=0)
+    if widest > deg:
+        raise ValueError(f"deg_cap={deg} < max degree {widest} of W")
+    nbr_idx = np.empty((n, deg), np.int32)
+    nbr_mask = np.zeros((n, deg), bool)
+    for i, r in enumerate(rows):
+        nbr_idx[i, :len(r)] = r
+        nbr_idx[i, len(r):] = i
+        nbr_mask[i, :len(r)] = True
+    return torch.from_numpy(nbr_idx).to(device), torch.from_numpy(nbr_mask).to(device)
+
+
+def gather_neighbor_weights(W_eff: torch.Tensor, nbr_idx: torch.Tensor,
+                            nbr_mask: torch.Tensor) -> torch.Tensor:
+    """``(..., n, deg+1)`` float32 kernel weights gathered on the device from
+    a (possibly degraded) ``(..., n, n)`` mixing matrix: column 0 the self
+    weight, masked slots 0 — the layout ``gossip_mix_batched`` takes. Leading
+    batch axes of W_eff, nbr_idx and nbr_mask broadcast; indices are local
+    to each matrix."""
+    lead = torch.broadcast_shapes(W_eff.shape[:-2], nbr_idx.shape[:-2])
+    n = W_eff.shape[-1]
+    Wb = W_eff.expand(lead + (n, n))
+    idx = nbr_idx.long().expand(lead + tuple(nbr_idx.shape[-2:]))
+    w = torch.where(nbr_mask, torch.gather(Wb, -1, idx), torch.zeros((), dtype=W_eff.dtype,
+                                                                       device=W_eff.device))
+    diag = torch.diagonal(Wb, dim1=-2, dim2=-1).unsqueeze(-1)
+    return torch.cat([diag, w], dim=-1).to(torch.float32)
 
 
 def gossip_sim_tree(tree, W: torch.Tensor, *, use_kernel: bool = True,

@@ -764,3 +764,123 @@ def test_reduced_serving_card_matches_cpu(cuda, arch, long_context):
     assert torch.equal(runs["cuda"][1], runs["cpu"][1])
     for g, c in zip(runs["cuda"][0], runs["cpu"][0]):
         assert float((g - c).abs().max()) <= 1e-5 * float(c.abs().max())
+
+
+# --- the §VI-B evaluation engines (repro_torch.dsgd.sim) on the card ------------
+
+def _sim_dataset(n):
+    from repro_torch.data import class_balanced_partition, make_classification_data
+
+    X, y = make_classification_data(num_classes=6, dim=24, samples_per_class=80, seed=0)
+    Xte, yte = make_classification_data(num_classes=6, dim=24, samples_per_class=24, seed=0,
+                                        noise_seed=10_001)
+    return X, y, class_balanced_partition(y, n, seed=0), Xte, yte
+
+
+def _sim_topologies(n):
+    from repro_torch.core.topologies import make_baseline
+
+    topos = [make_baseline(k, n) for k in ("ring", "grid", "torus", "exponential")]
+    topos += [make_baseline("equistatic", n, M=M) for M in (2, 3)]
+    topos += [make_baseline("random", n, r=r, seed=0) for r in (16, 24, 32)
+              if r <= n * (n - 1) // 2]
+    return topos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8192, 128, 1280, 10])
+def test_gossip_mix_batched_at_the_sim_shape_on_card(cuda, M):
+    """fp32 (144, M): 9 topologies × 16 workers over the engines'
+    block-diagonal table, within the float32 summation bound."""
+    from repro_torch.dsgd import sim as tsim
+    from repro_torch.dsgd.dynamic import stack_cycles
+
+    Wc, R = stack_cycles([t.W[None] for t in _sim_topologies(16)])
+    idx, w = tsim._Tables(Wc.astype(np.float32), R, 1, cuda).at(0)
+    assert idx.shape[0] == 144 and idx.dtype == torch.int32
+    x = torch.from_numpy(np.random.default_rng(M).standard_normal((144, M))
+                         .astype(np.float32)).to(cuda)
+    before = tgm.gossip_mix_batched.launches
+    got = tgm.gossip_mix_batched(x, idx, w)
+    want = tgm.gossip_mix_batched_plain(x, idx, w)
+    torch.cuda.synchronize()
+    assert tgm.gossip_mix_batched.launches == before + 1
+    terms = tgm.gossip_mix_batched_plain(x.double().abs(), idx, w.abs()).float()
+    deg = int(idx.shape[1])
+    assert bool(((got - want).abs() <= _gossip_tol(got, want, terms, deg, torch.float32)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_top_k_threshold_and_degrade_bitwise_on_card(cuda, dtype):
+    from repro_torch.dsgd import chaos as tchaos
+    from repro_torch.dsgd import compression as tcomp
+
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((144, 8192))).to(dtype)
+    x[1, 1] = x[1, 2]
+    k = 820
+    absx = x.abs()
+    cpu = tcomp._kth_largest_bitselect(absx, k)
+    card = tcomp._kth_largest_bitselect(absx.to(cuda), k)
+    top = torch.topk(absx.to(cuda), k, dim=1).values[:, k - 1:k]
+    assert torch.equal(card, top) and torch.equal(card.cpu(), cpu)
+    assert torch.equal(tcomp.compress_top_k(x.to(cuda), 0.1).cpu(),
+                       tcomp.compress_top_k(x, 0.1))
+    W = torch.from_numpy(_sim_topologies(16)[3].W).to(dtype)
+    ch = tchaos.make_chaos(20, 16, seed=3, churn=[(1, 2, 9)], p_drop=0.3)
+    a, l_up = torch.from_numpy(ch.alive), torch.from_numpy(ch.link_up)
+    assert torch.equal(tchaos.degrade_matrix(W.to(cuda), a.to(cuda), l_up.to(cuda)).cpu(),
+                       tchaos.degrade_matrix(W, a, l_up))
+
+
+@pytest.mark.cuda
+def test_sim_engines_on_card(cuda):
+    """accuracy_curves on the card: one gossip_mix_batched launch per leaf
+    per step for all runs, within one test sample of the CPU, 1e-6 of the
+    host oracle, and bitwise equal to the static dense cross run; the
+    fault-free chaos engine bitwise equal to the cross engine."""
+    from repro_torch.dsgd import sim as tsim
+    from repro_torch.dsgd.chaos import no_chaos
+    from repro_torch.dsgd.dynamic import cycle_tensor, static_cycle
+
+    n = 8
+    data = _sim_dataset(n)
+    topos = _sim_topologies(n)[:3]
+    Ws = np.stack([t.W for t in topos]).astype(np.float32)
+    cfg = tsim.DSGDSimConfig(epochs=2, batch=16, hidden=32)
+    kernels.reset_launch_counts()
+    card, iters = tsim.accuracy_curves(Ws, *data, cfg)
+    assert kernels.launch_counts()["gossip_mix_batched"] == cfg.epochs * iters * 4
+    cpu, _ = tsim.accuracy_curves(Ws, *data, cfg, device="cpu")
+    assert np.abs(card - cpu).max() <= 1.0 / 144 + 1e-12
+    host, _ = tsim.accuracy_curve_host(Ws[1], *data, cfg)
+    np.testing.assert_allclose(card[1], host, rtol=0, atol=1e-6)
+    cross, _ = tsim.train_curves_cross([static_cycle(Ws[2])], [1.0], tsim.CommSpec(), *data, cfg)
+    np.testing.assert_array_equal(cross[0], card[2])
+    cycles = [static_cycle(topos[0].W), cycle_tensor(topos[0])]
+    for spec in (tsim.CommSpec(), tsim.CommSpec("top_k", 0.1), tsim.CommSpec("random_k", 0.1)):
+        ref, _ = tsim.train_curves_cross(cycles, [0.5, 0.5], spec, *data, cfg)
+        got, _ = tsim.train_curves_chaos(cycles, [0.5, 0.5], spec,
+                                         no_chaos(cfg.epochs * iters, n), *data, cfg)
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compressor,frac", [("dense", 1.0), ("top_k", 0.1)])
+def test_consensus_curves_card_match_cpu(cuda, compressor, frac):
+    from repro_torch.dsgd import sim as tsim
+    from repro_torch.dsgd.chaos import make_chaos
+    from repro_torch.dsgd.dynamic import cycle_tensor, static_cycle
+
+    t = _sim_topologies(16)[2]
+    cycles = [static_cycle(t.W), cycle_tensor(t)]
+    x0 = np.random.default_rng(0).normal(size=(16, 256))
+    spec = tsim.CommSpec(compressor, frac)
+    ch = make_chaos(60, 16, seed=1, churn=[(5, 10, 30)], p_drop=0.03)
+    for run in (lambda d: tsim.consensus_curves_cross(cycles, [0.4, 0.4], spec, x0, 60,
+                                                      device=d),
+                lambda d: tsim.consensus_curves_chaos(cycles, [0.4, 0.4], spec, ch, x0, 60,
+                                                      device=d)):
+        card, cpu = run("cuda"), run("cpu")
+        for b in range(2):
+            np.testing.assert_allclose(card[b], cpu[b], rtol=0, atol=1e-6 * cpu[b, 0])
