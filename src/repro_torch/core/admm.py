@@ -2,8 +2,9 @@
 
 Thin wrappers over ``engine``: each class builds a
 :class:`~repro_torch.core.engine.ProblemSpec` once and runs single solves
-through ``engine.solve_spec``. Batched restarts (``solve_batched``) are not
-ported yet (ROADMAP.md Queue 1 item 1).
+through ``engine.solve_spec`` and batched restarts (``solve_batched``)
+through ``engine.solve_batched_spec``: every step of the batch serves all
+restarts at once.
 """
 from __future__ import annotations
 
@@ -11,7 +12,6 @@ import numpy as np
 import torch
 
 from .engine import (
-    _NOT_PORTED,
     ADMMConfig,
     ADMMResult,
     ADMMState,
@@ -21,6 +21,7 @@ from .engine import (
     make_hetero_spec,
     make_homo_spec,
     resolve_partition,
+    solve_batched_spec,
     solve_spec,
 )
 
@@ -44,12 +45,21 @@ class _ADMMBase:
         resolve_partition(self.cfg.partition, self.spec.n)
         return solve_spec(self.spec, state, self.cfg)
 
-    def solve_batched(self, *args, **kwargs):
-        raise NotImplementedError("solve_batched: " + _NOT_PORTED.format(1))
+    def _solve_states_batched(self, states: ADMMState) -> list[ADMMResult]:
+        check_solver(self.cfg)
+        resolve_partition(self.cfg.partition, self.spec.n)
+        return solve_batched_spec(self.spec, states, self.cfg)
 
 
 def _as_f64(a):
     return None if a is None else torch.as_tensor(np.asarray(a, dtype=np.float64))
+
+
+def _batch_of(name: str, a, shape: tuple) -> torch.Tensor:
+    t = _as_f64(a)
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    return t
 
 
 class HomogeneousADMM(_ADMMBase):
@@ -66,6 +76,14 @@ class HomogeneousADMM(_ADMMBase):
 
     def solve(self, g0=None, lam0: float = 0.5) -> ADMMResult:
         return self._solve_state(self.init_state(g0, lam0))
+
+    def solve_batched(self, g0s, lam0s) -> list[ADMMResult]:
+        """Solve a batch of warm starts together: ``g0s`` (B, m) edge
+        weights, ``lam0s`` (B,) λ̃ starts. One result per warm start."""
+        B = len(lam0s)
+        states = init_state(self.spec, _batch_of("g0s", g0s, (B, self.spec.m)),
+                            _batch_of("lam0s", lam0s, (B,)))
+        return self._solve_states_batched(states)
 
 
 class HeterogeneousADMM(_ADMMBase):
@@ -86,3 +104,10 @@ class HeterogeneousADMM(_ADMMBase):
 
     def solve(self, g0=None, z0=None, lam0: float = 0.5) -> ADMMResult:
         return self._solve_state(self.init_state(g0, z0, lam0))
+
+    def solve_batched(self, g0s, z0s, lam0s) -> list[ADMMResult]:
+        """Batched restarts: (B, m) ``g0s``, (B, m) ``z0s``, (B,) ``lam0s``."""
+        B, m = len(lam0s), self.spec.m
+        states = init_state(self.spec, _batch_of("g0s", g0s, (B, m)),
+                            _batch_of("lam0s", lam0s, (B,)), z=_batch_of("z0s", z0s, (B, m)))
+        return self._solve_states_batched(states)

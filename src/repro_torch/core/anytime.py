@@ -13,8 +13,12 @@ Every device stage (SA, ADMM, polish) ends in a host read of its result,
 which waits for the card, so the ``PhaseProfile`` times are the card's
 wall time and not the time to enqueue.
 
-``engine="barrier"`` (the phase-barriered pipeline) and
-``solve_topologies`` are not ported yet (ROADMAP.md Queue 1 items 4 and 1).
+:func:`solve_topologies` sends each node count's homogeneous, unbudgeted
+requests through one batched sweep (``api._sweep_one_n``) and the rest
+through :func:`solve_topology`.
+
+``engine="barrier"`` (the phase-barriered pipeline) is not ported yet
+(ROADMAP.md Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -674,8 +678,41 @@ def solve_topology(request: TopologyRequest, *, cfg=None,
 
 
 def solve_topologies(requests, *, cfg=None) -> list[TopologyResult]:
-    """Many requests amortized through the batched sweep: not ported to
-    repro_torch yet (ROADMAP.md Queue 1 item 1)."""
-    raise NotImplementedError(
-        "solve_topologies is not ported to repro_torch yet "
-        "(ROADMAP.md Queue 1 item 1); call solve_topology per request")
+    """Solve many requests, amortizing where the problem shape allows: the
+    homogeneous, unbudgeted requests without ``restarts`` or ``seed`` of one
+    n run as ONE batched sweep (``api._sweep_one_n``: one ADMM solve for all
+    their budgets); every other request goes through
+    :func:`solve_topology`. Results come back in the input order. The
+    stages run on ``cfg.device`` (default ``"cuda"``)."""
+    from . import api as _api
+    from .engine import check_solver
+
+    requests = list(requests)
+    cfg = cfg or _api.BATopoConfig()
+    _api._validate_pipeline_cfg(cfg)
+    check_solver(cfg.admm)
+    results: list[TopologyResult | None] = [None] * len(requests)
+    groups: dict[int, list[int]] = {}
+    for i, q in enumerate(requests):
+        if (q.scenario == "homo" and q.deadline_ms is None
+                and q.restarts is None and q.seed is None):
+            groups.setdefault(int(q.n), []).append(i)
+    for n, idxs in groups.items():
+        t0 = time.perf_counter()
+        out = _api._sweep_one_n(n, [int(requests[i].r) for i in idxs], cfg)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        for i in idxs:
+            topo = out[(n, int(requests[i].r))]
+            results[i] = TopologyResult(
+                topology=topo,
+                r_asym=(float(topo.meta["r_asym"]) if topo is not None
+                        else float("inf")),
+                quality_tier="full", elapsed_ms=dt_ms,
+                profile=PhaseProfile(), complete=True,
+                reason=None if topo is not None
+                else "no connected candidate under the constraints",
+                request=requests[i])
+    for i, q in enumerate(requests):
+        if results[i] is None:
+            results[i] = solve_topology(q, cfg=cfg)
+    return results

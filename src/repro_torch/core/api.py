@@ -11,10 +11,14 @@ Deviation from the reference: ``BATopoConfig.sa_kernel`` defaults to True,
 so every BFS hop of the SA runs the ``hop_bfs`` CUDA kernel on the card;
 False selects the plain PyTorch hop explicitly.
 
-The barrier pipeline (``optimize_topology``, ``_optimize_request``,
-``_finalize_batch``, ``_pick_best``), ``sweep_topologies`` and
-``large_n_admm_config`` are not ported yet (ROADMAP.md Queue 1 items 1
-and 4).
+``_sweep_one_n`` solves every budget of one node count as one batched ADMM
+solve (``engine.solve_sweep_spec``), then rounds, polishes
+(``_finalize_batch``) and picks (``_pick_best``) per budget; it is what
+``anytime.solve_topologies`` stands on.
+
+The barrier pipeline (``optimize_topology``, ``_optimize_request``),
+``sweep_topologies`` and ``large_n_admm_config`` are not ported yet
+(ROADMAP.md Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -26,8 +30,9 @@ from ..device import resolve_device
 from .admm import ADMMConfig, HeterogeneousADMM, HomogeneousADMM
 from .anneal import anneal_topology, greedy_degree_graph
 from .constraints import ConstraintSet
-from .graph import all_edges, edge_index, is_connected, r_asym, weight_matrix_from_weights
-from .weights import metropolis_weights
+from .graph import (Topology, all_edges, edge_index, is_connected, r_asym,
+                    weight_matrix_from_weights)
+from .weights import metropolis_weights, polish_weights, polish_weights_batched
 
 __all__ = ["BATopoConfig", "extract_support", "repair_selection"]
 
@@ -169,6 +174,129 @@ def _homo_degree_targets(n: int, r: int) -> np.ndarray:
     d = np.full(n, base, dtype=np.int64)
     d[:extra] += 1
     return np.minimum(d, n - 1)
+
+
+def _finalize_batch(n: int, items: list[tuple[np.ndarray, str, dict]],
+                    cfg: BATopoConfig, cs: ConstraintSet | None) -> list[Topology]:
+    """Connectivity-check + weight-polish a batch of candidate selections.
+    Each distinct connected support is polished once, all of them in one
+    ``polish_weights_batched`` call on ``cfg.device`` (``cfg.polish="host"``
+    keeps the serial numpy loop); a disconnected candidate keeps its
+    Metropolis weights and ``meta["connected"] = False``."""
+    edges_full = all_edges(n)
+    topos: list[Topology | None] = [None] * len(items)
+    # identical supports (an ADMM result that rounds back to its warm start,
+    # coinciding restarts) polish to identical weights: solve each once
+    support_of: dict[bytes, list[int]] = {}
+    for k, (sel, name, meta) in enumerate(items):
+        edges = [edges_full[l] for l in np.nonzero(sel)[0]]
+        if not edges or not is_connected(n, edges):
+            g = metropolis_weights(n, edges) if edges else np.zeros(0)
+            topos[k] = Topology(n, edges, g, name=name,
+                                meta={**meta, "connected": False})
+            continue
+        support_of.setdefault(np.asarray(sel, dtype=bool).tobytes(), []).append(k)
+    if support_of:
+        pending = []
+        for ks in support_of.values():
+            edges = [edges_full[l] for l in np.nonzero(items[ks[0]][0])[0]]
+            pending.append((ks, edges, metropolis_weights(n, edges)))
+        if cfg.polish == "device":
+            gs = polish_weights_batched(
+                n, [e for _, e, _ in pending], [g0 for _, _, g0 in pending],
+                iters=cfg.polish_iters, dtype=cfg.polish_dtype, device=cfg.device)
+        else:
+            gs = [polish_weights(n, e, g0, iters=cfg.polish_iters)
+                  for _, e, g0 in pending]
+        for (ks, edges, _), g in zip(pending, gs):
+            for k in ks:
+                _, name, meta = items[k]
+                topos[k] = Topology(n, edges, g, name=name,
+                                    meta={**meta, "connected": True})
+    return topos
+
+
+def _pick_best(n: int, items, topos, sources,
+               ) -> tuple[Topology | None, float, list[str]]:
+    """Release-validate each connected candidate against the ``guard``
+    invariant checklist (finite W, symmetry, row-stochasticity,
+    connectivity) and pick the lowest r_asym among the survivors, one
+    invariant check and one r_asym per distinct support; the winner's
+    ``meta["selected_from"]`` names its source. Returns ``(best, best_val,
+    failures)``, ``failures`` naming the invariant each flunked candidate
+    violated."""
+    from .guard import check_invariants
+
+    best: Topology | None = None
+    best_val = np.inf
+    val_cache: dict[bytes, float] = {}
+    inv_cache: dict[bytes, str | None] = {}
+    failures: list[str] = []
+    for (sel, _, _), cand, src in zip(items, topos, sources):
+        if not cand.meta.get("connected", False):
+            continue
+        key = np.asarray(sel, dtype=bool).tobytes()
+        if key not in inv_cache:
+            inv_cache[key] = check_invariants(cand)
+        bad = inv_cache[key]
+        if bad is not None:
+            failures.append(f"{cand.name}: {bad}")
+            continue
+        if key not in val_cache:
+            val_cache[key] = cand.r_asym()
+        val = val_cache[key]
+        if best is None or val < best_val:
+            cand.meta["selected_from"] = src
+            best, best_val = cand, val
+    return best, best_val, failures
+
+
+def _sweep_one_n(n: int, rs_req: list[int], cfg: BATopoConfig) -> dict:
+    """Every budget in ``rs_req`` for one node count, homogeneous: one warm
+    start per (n, r) (``_init_graph``, the SA of ``_anneal_edges``,
+    ``_pack_warm``; instance k plays restart k), ONE batched ADMM solve of
+    all budgets (``solve_sweep_spec`` on the spec of the largest), then per
+    budget the candidates (ADMM, warm start, feasible classics), one polish
+    call and the pick. Returns ``{(n, r): Topology}`` keyed by the
+    requested r (budgets above the candidate-edge count are clamped for the
+    solve). Raises ``TopologyInvariantError`` when no candidate of a budget
+    passes release validation."""
+    from .engine import check_solver, init_state, make_homo_spec, resolve_partition
+    from .engine import solve_sweep_spec
+
+    admm = replace(cfg.admm, device=cfg.device)
+    check_solver(admm)
+    resolve_partition(admm.partition, n)
+    m = len(all_edges(n))
+    rs_n = [min(r, m) for r in rs_req]
+    spec = make_homo_spec(n, max(rs_n), admm)
+    inits, seeds = [], []
+    for k, r in enumerate(rs_n):
+        edges0, seed = _init_graph(n, r, "homo", None, _homo_degree_targets(n, r), cfg, k)
+        inits.append(edges0)
+        seeds.append(seed)
+    warms = [_pack_warm(n, e) for e in _anneal_edges(n, inits, seeds, None, cfg)]
+    states = init_state(spec, np.stack([g0 for g0, _, _ in warms]),
+                        np.array([lam0 for _, _, lam0 in warms]))
+    results = solve_sweep_spec(spec, rs_n, states, admm)
+    out: dict = {}
+    for r_req, r, warm, res in zip(rs_req, rs_n, warms, results):
+        meta = {"scenario": "homo", "r": r}
+        items, sources = _candidate_items(n, r, [warm], [res], None, cfg, meta, use_z=False)
+        topos = _finalize_batch(n, items, cfg, None)
+        best, best_val, failures = _pick_best(n, items, topos, sources)
+        if best is None and failures:
+            from .guard import TopologyInvariantError
+
+            bad = failures[0].rsplit(": ", 1)[-1]
+            raise TopologyInvariantError(
+                f"no candidate topology for n={n}, r={r} passed release "
+                f"validation — first failure: {failures[0]!r} "
+                f"(all: {failures})", invariant=bad, failures=failures)
+        if best is not None:
+            best.meta["r_asym"] = best_val
+        out[(n, r_req)] = best
+    return out
 
 
 def _candidate_items(n: int, r: int, warms, results, cs: ConstraintSet | None,

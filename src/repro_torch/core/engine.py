@@ -25,12 +25,25 @@ A·Aᵀλ (``schur_matvec``) run through the CUDA kernels of
 its plain version, the reference's composition. ``False`` is kept as the
 caller's explicit choice of the plain form.
 
+Batches: where the reference writes ``step`` for one instance and vmaps
+it, the port's ``step`` and the functions under it take tensors with a
+leading instance axis B on every block of the state (the flat
+constraint-space vectors (B, K)), or one iterate without it; ``spec.r``
+and ``spec.rho`` are 0-dim or (B,) (a sweep's budgets and penalties), and
+the rest of the spec is shared.
+The drivers run every solve as a batch: ``solve_batched_spec`` (restarts),
+``solve_sweep_spec`` (budgets) and ``solve_spec`` (B = 1). Each chunk makes
+one host read for the whole batch; an instance that is done (converged, or
+non-finite with ``abort_nonfinite``) is frozen on every leaf by
+``torch.where``, the select the reference's ``lax.cond`` lowers to under
+``vmap``.
+
 Precision: the loop runs in the spec dtype; the squared primal residual
 and the CG inner products are float64 whatever it is (the reference's
-convention). ``r`` is an int64 0-dim tensor.
+convention). ``r`` is an int64 tensor.
 
-Not ported yet: the batched/sweep drivers (ROADMAP.md Queue 1 item 1), the
-``python`` driver and the scipy-ILU step (item 2).
+Not ported yet: the ``python`` driver and the scipy-ILU step (ROADMAP.md
+Queue 1 item 2).
 """
 from __future__ import annotations
 
@@ -49,8 +62,8 @@ from .linalg import pcg_solve
 __all__ = [
     "ADMMConfig", "ADMMResult", "ADMMState", "ProblemSpec",
     "make_homo_spec", "make_hetero_spec", "init_state", "step",
-    "solve_spec", "proj_psd", "proj_psd_ns", "proj_card_nonneg",
-    "proj_binary_topr", "jacobi_diag", "resolve_psd_backend",
+    "solve_spec", "solve_batched_spec", "solve_sweep_spec", "proj_psd", "proj_psd_ns",
+    "proj_card_nonneg", "proj_binary_topr", "jacobi_diag", "resolve_psd_backend",
     "A_op", "AT_op", "schur_matvec", "b_rhs", "lam_sizes", "split_lam",
 ]
 
@@ -127,8 +140,8 @@ class ProblemSpec:
     equality: bool
     cg_tol: float
     cg_maxiter: int
-    r: torch.Tensor            # int64 0-dim — cardinality budget
-    rho: torch.Tensor          # 0-dim, spec dtype
+    r: torch.Tensor            # int64, 0-dim or (B,) — cardinality budget
+    rho: torch.Tensor          # spec dtype, 0-dim or (B,)
     edge_ok: torch.Tensor      # (m,) bool
     c: torch.Tensor            # (m+1,) objective: minimize −λ̃
     ei: torch.Tensor           # (m,) int64 endpoints, i < j
@@ -152,16 +165,23 @@ class ProblemSpec:
 
 @dataclass
 class ADMMState:
-    """One ADMM iterate. Block tuples hold 4 tensors (homo: x, S, y, T) or
-    7 (hetero: + z, ν, s); ``lam`` holds the constraint-space blocks
+    """ADMM iterates, one per instance of the leading batch axis (or one
+    without it). Block tuples hold 4 tensors (homo: x, S, y, T) or 7
+    (hetero: + z, ν, s); ``lam`` holds the constraint-space blocks
     (P, Q, w (, u, v)) of the X-step warm start."""
 
     X: tuple
     Y: tuple
     D: tuple
     lam: tuple
-    res: torch.Tensor   # previous squared primal residual, float64 0-dim
-    cg: torch.Tensor    # cumulative X-step CG iterations, int32 0-dim
+    res: torch.Tensor   # previous squared primal residual, float64 (B,)
+    cg: torch.Tensor    # cumulative X-step CG iterations, int32 (B,)
+
+    def map(self, fn) -> "ADMMState":
+        """The state with ``fn`` applied to every leaf."""
+        return ADMMState(*(tuple(fn(t) for t in blk) for blk in (self.X, self.Y, self.D,
+                                                                 self.lam)),
+                         res=fn(self.res), cg=fn(self.cg))
 
 
 def jacobi_diag(n: int, ei, ej, dtype, M=None, equality: bool = True) -> tuple:
@@ -264,13 +284,14 @@ def make_hetero_spec(n: int, r: int, M: np.ndarray, e_cap: np.ndarray,
 
 
 # =========================================================================
-# Projections (Eq. 24/25/30) — r is an int64 0-dim tensor
+# Projections (Eq. 24/25/30) — r is an int64 tensor, 0-dim or one per row
 # =========================================================================
 
 def _eigh_clip(Msym: torch.Tensor, nonneg) -> torch.Tensor:
     """(U·clip(ev))·Uᵀ of symmetric matrices with leading batch axes. The
     eigenvalues are clipped to ≥ 0 when ``nonneg`` is True, to ≤ 0 when it
-    is False; a tuple of flags gives one per matrix of the leading axis.
+    is False; a tuple of flags gives one per matrix of the last leading
+    axis (axis −3 of ``Msym``).
 
     ``torch.linalg.eigh`` raises on a non-finite input where the reference's
     ``jnp.linalg.eigh`` returns NaN, and a NaN has to reach the residual so
@@ -284,7 +305,7 @@ def _eigh_clip(Msym: torch.Tensor, nonneg) -> torch.Tensor:
         return torch.clamp_min(e, 0.0) if up else torch.clamp_max(e, 0.0)
 
     if isinstance(nonneg, tuple):
-        ev = torch.stack([clip(e, up) for e, up in zip(ev.unbind(0), nonneg)])
+        ev = torch.stack([clip(e, up) for e, up in zip(ev.unbind(-2), nonneg)], dim=-2)
     else:
         ev = clip(ev, nonneg)
     out = (U * ev.unsqueeze(-2)) @ U.transpose(-1, -2)
@@ -312,27 +333,30 @@ def proj_psd_ns(M: torch.Tensor, sign: float, iters: int = 30) -> torch.Tensor:
 
 
 def proj_card_nonneg(v: torch.Tensor, r: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
-    """Project onto {g ≥ 0, Card(g) ≤ r} ∩ {g_l = 0 for inadmissible l}:
-    keep the largest r nonnegative entries. The threshold is read at the
-    dynamic index min(r, m−1), so ``r`` stays a tensor (no host sync)."""
+    """Project each row of ``v`` (..., m) onto {g ≥ 0, Card(g) ≤ r} ∩
+    {g_l = 0 for inadmissible l}: keep the largest r nonnegative entries.
+    ``r`` is 0-dim or one budget per row; each row's threshold is read at
+    its own index min(r, m−1) by a gather, so ``r`` stays a tensor (no
+    host sync)."""
     v = torch.where(ok, torch.clamp_min(v, 0.0), 0.0)
-    m = v.shape[0]
-    desc = -torch.sort(-v).values
-    thresh = torch.where(r >= m, -1.0, desc[torch.clamp_max(r, m - 1)])
+    m = v.shape[-1]
+    r = r.expand(v.shape[:-1]).unsqueeze(-1)
+    desc = -torch.sort(-v, dim=-1).values
+    thresh = torch.where(r >= m, -1.0, torch.gather(desc, -1, torch.clamp_max(r, m - 1)))
     keep = v > torch.clamp_min(thresh, 0.0)
     return torch.where(keep, v, 0.0)
 
 
 def proj_binary_topr(v: torch.Tensor, r: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
-    """Heterogeneous z₁ projection: largest r entries → 1, others → 0.
-    Ties break to the lowest index (stable sort); ``+ 0.0`` folds −0.0 into
-    +0.0 so signed-zero ties are index-ordered too."""
+    """Heterogeneous z₁ projection of each row of ``v`` (..., m): largest r
+    entries → 1, others → 0, ``r`` 0-dim or one per row. Ties break to the
+    lowest index (stable sort); ``+ 0.0`` folds −0.0 into +0.0 so
+    signed-zero ties are index-ordered too."""
     v = torch.where(ok, v + 0.0, -math.inf)
-    m = v.shape[0]
-    order = torch.argsort(-v, stable=True)
-    rank = torch.empty(m, dtype=torch.int64, device=v.device).scatter_(
-        0, order, torch.arange(m, dtype=torch.int64, device=v.device))
-    return (rank < r).to(v.dtype)
+    order = torch.argsort(-v, dim=-1, stable=True)
+    rank = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(v.shape[-1], device=v.device).expand_as(order))
+    return (rank < r[..., None]).to(v.dtype)
 
 
 # =========================================================================
@@ -356,50 +380,60 @@ def lam_sizes(spec: ProblemSpec) -> tuple[int, ...]:
 
 
 def split_lam(spec: ProblemSpec, flat: torch.Tensor) -> tuple:
-    """Views of a flat constraint-space vector as its blocks."""
-    n = spec.n
-    parts = torch.split(flat, lam_sizes(spec))
-    return (parts[0].view(n, n), parts[1].view(n, n)) + tuple(parts[2:])
+    """Views of a flat constraint-space vector (..., K) as its blocks."""
+    nn = flat.shape[:-1] + (spec.n, spec.n)
+    parts = torch.split(flat, lam_sizes(spec), dim=-1)
+    return (parts[0].view(nn), parts[1].view(nn)) + tuple(parts[2:])
 
 
 def A_op(spec: ProblemSpec, X) -> torch.Tensor:
     """Constraint operator (Eq. 23, plus Eq. 29 rows when heterogeneous),
-    as one flat constraint-space tensor. With ``spec.edge_kernel`` on a
-    CUDA tensor the three dense blocks come from one
-    ``edge_laplacian_blocks`` launch and the heterogeneous rows are written
-    into slices of the same output (bit-equal to the composition below)."""
+    as one flat constraint-space tensor (..., K), the leading axes X's.
+    With ``spec.edge_kernel`` on a CUDA tensor the three dense blocks of the
+    whole batch come from one ``edge_laplacian_blocks`` launch and the
+    heterogeneous rows are written into slices of the same output
+    (bit-equal to the composition below)."""
     x, S, y, T = X[:4]
-    g, lam = x[:-1], x[-1]
+    g, lam = x[..., :-1], x[..., -1]
     if spec.edge_kernel and g.device.type == "cuda":
         n = spec.n
-        out = torch.empty(sum(lam_sizes(spec)), dtype=g.dtype, device=g.device)
+        out = torch.empty(x.shape[:-1] + (sum(lam_sizes(spec)),), dtype=g.dtype,
+                          device=g.device)
         _el_ops.edge_laplacian_blocks(g, lam, S, T, y, out)
         if spec.hetero:
-            z, nu, s = X[4], X[5], X[6]
-            o = 2 * n * n + n
-            r4 = torch.matmul(spec.M, z, out=out[o:o + spec.q])
-            if not spec.equality:
-                r4.add_(s)
-            torch.sub(g, z, out=out[o + spec.q:]).add_(nu)
+            _hetero_rows(spec, out, g, X[4], X[5], X[6])
         return out
     L = _L_of_g(spec, g)
-    I = spec.I
-    blocks = [(L - lam * I + S).reshape(-1), (L + lam * I + T).reshape(-1),
-              torch.diagonal(L) + y]
+    lam_I = lam[..., None, None] * spec.I
+    blocks = [(L - lam_I + S).flatten(-2), (L + lam_I + T).flatten(-2),
+              torch.diagonal(L, dim1=-2, dim2=-1) + y]
     if spec.hetero:
         z, nu, s = X[4], X[5], X[6]
-        r4 = spec.M @ z
+        r4 = z @ spec.M.T
         if not spec.equality:
             r4 = r4 + s
         blocks += [r4, g - z + nu]
-    return torch.cat(blocks)
+    return torch.cat(blocks, dim=-1)
+
+
+def _hetero_rows(spec: ProblemSpec, out: torch.Tensor, g, z, nu, s) -> None:
+    """Write A_op's heterogeneous rows ``M·z (+ s)`` and ``g − z + ν`` into
+    their slices of ``out`` (..., K), each by one product or op for the
+    batch (the same torch ops as the composition in :func:`A_op`)."""
+    o, q, m = 2 * spec.n * spec.n + spec.n, spec.q, spec.m
+    rows = out.view(-1, out.shape[-1])
+    r4 = torch.matmul(z.reshape(-1, m), spec.M.T, out=rows[:, o:o + q])
+    if not spec.equality:
+        r4.add_(s.reshape(-1, q))
+    torch.sub(g.reshape(-1, m), z.reshape(-1, m), out=rows[:, o + q:]).add_(nu.reshape(-1, m))
 
 
 def AT_op(spec: ProblemSpec, lamv: torch.Tensor) -> tuple:
-    """Adjoint of :func:`A_op`: flat constraint-space tensor → X-space. The
-    x-part ``[quadform(P + Q) + (w_i + w_j) (+ v), −tr P + tr Q]`` is one
-    ``edge_adjoint`` launch with ``spec.edge_kernel`` on a CUDA tensor; the
-    P, w and Q blocks are views of ``lamv``."""
+    """Adjoint of :func:`A_op`: flat constraint-space tensor (..., K) →
+    X-space. The x-part ``[quadform(P + Q) + (w_i + w_j) (+ v), −tr P +
+    tr Q]`` is one ``edge_adjoint`` launch for the batch with
+    ``spec.edge_kernel`` on a CUDA tensor; the P, w and Q blocks are views
+    of ``lamv``."""
     blocks = split_lam(spec, lamv)
     P, Q, w = blocks[:3]
     v = blocks[4] if spec.hetero else None
@@ -408,19 +442,19 @@ def AT_op(spec: ProblemSpec, lamv: torch.Tensor) -> tuple:
     if not spec.hetero:
         return (x_adj, P, w, Q)
     u = blocks[3]
-    z_adj = spec.M.T @ u - v
+    z_adj = u @ spec.M - v
     s_adj = torch.zeros_like(u) if spec.equality else u
     return (x_adj, P, w, Q, z_adj, v, s_adj)
 
 
 def schur_matvec(spec: ProblemSpec, lamv: torch.Tensor) -> torch.Tensor:
-    """The CG matvec A·Aᵀλ = ``A_op(AT_op(λ))``. With ``spec.edge_kernel``
-    the three dense blocks come from one ``edge_schur_matvec`` launch (on a
-    CUDA tensor; its plain version, the composition, on the CPU); the
-    heterogeneous rows ``M·z + s`` and ``g − z + ν`` of the adjoint
-    (z = Mᵀu − v, s = u or 0, ν = v, g the adjoint's edge part, which the
-    kernel writes beside) go to slices of the same output by the torch ops
-    of :func:`A_op`."""
+    """The CG matvec A·Aᵀλ = ``A_op(AT_op(λ))`` of each row of ``lamv``
+    (..., K). With ``spec.edge_kernel`` the three dense blocks of the whole
+    batch come from one ``edge_schur_matvec`` launch (on a CUDA tensor; its
+    plain version, the composition, on the CPU); the heterogeneous rows
+    ``M·z + s`` and ``g − z + ν`` of the adjoint (z = Mᵀu − v, s = u or 0,
+    ν = v, g the adjoint's edge part, which the kernel writes beside) go to
+    slices of the same output by the torch ops of :func:`A_op`."""
     if not spec.edge_kernel:
         return A_op(spec, AT_op(spec, lamv))
     blocks = split_lam(spec, lamv)
@@ -429,19 +463,14 @@ def schur_matvec(spec: ProblemSpec, lamv: torch.Tensor) -> torch.Tensor:
     if not spec.hetero:
         return _el_ops.edge_schur_matvec(P, Q, w, out)
     u, v = blocks[3], blocks[4]
-    x_adj = lamv.new_empty(spec.m + 1)
+    x_adj = lamv.new_empty(lamv.shape[:-1] + (spec.m + 1,))
     _el_ops.edge_schur_matvec(P, Q, w, out, v=v, x_adj=x_adj)
-    z_adj = spec.M.T @ u - v
-    o = 2 * spec.n * spec.n + spec.n
-    r4 = torch.matmul(spec.M, z_adj, out=out[o:o + spec.q])
-    if not spec.equality:
-        r4.add_(u)
-    torch.sub(x_adj[:-1], z_adj, out=out[o + spec.q:]).add_(v)
+    _hetero_rows(spec, out, x_adj[..., :-1], u @ spec.M - v, v, u)
     return out
 
 
 def b_rhs(spec: ProblemSpec) -> torch.Tensor:
-    """Right-hand side b of A X = b, flat."""
+    """Right-hand side b of A X = b, flat (K,), shared by every instance."""
     blocks = [(-spec.B0).reshape(-1), (2.0 * spec.I).reshape(-1),
               torch.ones(spec.n, dtype=spec.B0.dtype, device=spec.B0.device)]
     if spec.hetero:
@@ -454,19 +483,28 @@ def b_rhs(spec: ProblemSpec) -> torch.Tensor:
 # The unified ADMM step (Alg. 2 lines 5–8 / 12–15)
 # =========================================================================
 
+def _per_row(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A 0-dim or per-instance tensor (``spec.rho``, a flag) shaped to
+    broadcast against the block ``like``."""
+    if t.dim() == 0:
+        return t
+    return t.reshape(t.shape + (1,) * (like.dim() - t.dim()))
+
+
 def _project_blocks(spec: ProblemSpec, U: tuple) -> tuple:
-    """Y-update (Eq. 24 / Eq. 30): per-block Euclidean projections. The two
-    PSD projections (S₁ ≼ 0, T₁ ≽ 0) share one batched eigh."""
+    """Y-update (Eq. 24 / Eq. 30): per-block Euclidean projections, each
+    instance at its own budget. The two PSD projections (S₁ ≼ 0, T₁ ≽ 0)
+    of every instance share one batched eigh."""
     m = spec.m
-    x1 = torch.cat([proj_card_nonneg(U[0][:m], spec.r, spec.edge_ok),
-                    torch.clamp_min(U[0][m], 0.0)[None]])
+    x1 = torch.cat([proj_card_nonneg(U[0][..., :m], spec.r, spec.edge_ok),
+                    torch.clamp_min(U[0][..., m:], 0.0)], dim=-1)
     if spec.psd_backend == "newton_schulz":
         S1 = proj_psd_ns(U[1], -1.0, spec.psd_iters)
         T1 = proj_psd_ns(U[3], +1.0, spec.psd_iters)
     else:
-        Msym = torch.stack([U[1], U[3]])
+        Msym = torch.stack([U[1], U[3]], dim=-3)
         Msym = (Msym + Msym.transpose(-1, -2)) / 2.0
-        S1, T1 = _eigh_clip(Msym, (False, True)).unbind(0)    # S₁ ≼ 0, T₁ ≽ 0
+        S1, T1 = _eigh_clip(Msym, (False, True)).unbind(-3)    # S₁ ≼ 0, T₁ ≽ 0
     y1 = torch.clamp_min(U[2], 0.0)
     if not spec.hetero:
         return (x1, S1, y1, T1)
@@ -478,8 +516,8 @@ def _project_blocks(spec: ProblemSpec, U: tuple) -> tuple:
 
 def _xstep_target(spec: ProblemSpec, Y: tuple, D: tuple) -> tuple:
     """V = Y − (D + c·e₀)/ρ for the X-update (Eq. 27 / 31)."""
-    V = [y1 - d / spec.rho for y1, d in zip(Y, D)]
-    V[0] = V[0] - spec.c / spec.rho
+    V = [y1 - d / _per_row(spec.rho, d) for y1, d in zip(Y, D)]
+    V[0] = V[0] - spec.c / _per_row(spec.rho, V[0])
     if spec.hetero and spec.equality:
         V[6] = torch.zeros_like(V[6])
     return tuple(V)
@@ -488,7 +526,8 @@ def _xstep_target(spec: ProblemSpec, Y: tuple, D: tuple) -> tuple:
 def _cg_tolerance(spec: ProblemSpec, prev_res: torch.Tensor):
     """Per-iteration relative CG tolerance: ``cg_tol`` floored at what the
     spec dtype resolves, or in inexact mode η·√(previous residual) clipped
-    to [floored cg_tol, cap] (the first iteration, res = ∞, starts at cap)."""
+    to [floored cg_tol, cap] per instance (the first iteration, res = ∞,
+    starts at cap)."""
     floor = FP32_TOL_FLOOR if spec.dtype == "float32" else 0.0
     tol0 = max(spec.cg_tol, floor)
     if not spec.cg_inexact:
@@ -498,14 +537,14 @@ def _cg_tolerance(spec: ProblemSpec, prev_res: torch.Tensor):
 
 
 def step(spec: ProblemSpec, state: ADMMState):
-    """One ADMM iteration: Y-projection, X-step Schur-complement CG solve,
-    dual update. Returns ``(new_state, squared primal residual)``, the
-    residual a float64 0-dim tensor."""
-    rho = spec.rho
-    U = tuple(x + d / rho for x, d in zip(state.X, state.D))
+    """One ADMM iteration of every instance: Y-projection, X-step
+    Schur-complement CG solve, dual update. Returns ``(new_state, squared
+    primal residual)``, the residual float64, one per instance."""
+    lead = state.X[0].dim() - 1
+    U = tuple(x + d / _per_row(spec.rho, d) for x, d in zip(state.X, state.D))
     Y = _project_blocks(spec, U)
     V = _xstep_target(spec, Y, state.D)
-    lam0 = torch.cat([blk.reshape(-1) for blk in state.lam])
+    lam0 = torch.cat([blk.flatten(lead) for blk in state.lam], dim=-1)
     Xn, lam, cg_it = pcg_solve(partial(A_op, spec), partial(AT_op, spec), V,
                                b_rhs(spec), lam0, jd=spec.jd,
                                tol=_cg_tolerance(spec, state.res),
@@ -513,31 +552,35 @@ def step(spec: ProblemSpec, state: ADMMState):
                                matvec=partial(schur_matvec, spec))
     if spec.hetero and spec.equality:
         Xn = Xn[:6] + (torch.zeros_like(Xn[6]),)
-    D = tuple(d + rho * (xn - y1) for d, xn, y1 in zip(state.D, Xn, Y))
+    D = tuple(d + _per_row(spec.rho, d) * (xn - y1) for d, xn, y1 in zip(state.D, Xn, Y))
     res = None
     for xn, y1 in zip(Xn, Y):
-        part = torch.sum((xn - y1).to(torch.float64) ** 2)
+        part = torch.sum((xn - y1).to(torch.float64) ** 2, dim=tuple(range(lead, xn.dim())))
         res = part if res is None else res + part
     return ADMMState(X=Xn, Y=Y, D=D, lam=split_lam(spec, lam), res=res,
                      cg=state.cg + cg_it), res
 
 
 def init_state(spec: ProblemSpec, g, lam0, z=None) -> ADMMState:
-    """Initial iterate from a warm start (g, λ̃₀ (, z))."""
+    """Initial iterates from warm starts: ``g`` (B, m), ``lam0`` (B,) and
+    ``z`` (B, m) give a batch of B; ``g`` (m,) with a scalar ``lam0`` one
+    iterate without the batch axis."""
     n, m = spec.n, spec.m
     dt, dev = getattr(torch, spec.dtype), spec.I.device
     g = torch.as_tensor(g, dtype=dt, device=dev)
     lam0 = torch.as_tensor(lam0, dtype=dt, device=dev)
-    x = torch.cat([g, lam0[None]])
+    lead = tuple(g.shape[:-1])
+    x = torch.cat([g, lam0[..., None]], dim=-1)
     L = _L_of_g(spec, g)
-    S = -(L - lam0 * spec.I + spec.B0)
-    T = 2 * spec.I - (L + lam0 * spec.I)
-    y = 1.0 - torch.diagonal(L)
-    res0 = torch.tensor(math.inf, dtype=torch.float64, device=dev)
-    cg0 = torch.zeros((), dtype=torch.int32, device=dev)
+    lam_I = lam0[..., None, None] * spec.I
+    S = -(L - lam_I + spec.B0)
+    T = 2 * spec.I - (L + lam_I)
+    y = 1.0 - torch.diagonal(L, dim1=-2, dim2=-1)
+    res0 = torch.full(lead, math.inf, dtype=torch.float64, device=dev)
+    cg0 = torch.zeros(lead, dtype=torch.int32, device=dev)
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=dev)
+        return torch.zeros(lead + shape, dtype=dt, device=dev)
 
     if not spec.hetero:
         X = (x, S, y, T)
@@ -547,7 +590,7 @@ def init_state(spec: ProblemSpec, g, lam0, z=None) -> ADMMState:
     q = spec.q
     z = (g > 0).to(dt) if z is None else torch.as_tensor(z, dtype=dt, device=dev)
     nu = z - g
-    s = zeros(q) if spec.equality else torch.clamp_min(spec.e_cap - spec.M @ z, 0.0)
+    s = zeros(q) if spec.equality else torch.clamp_min(spec.e_cap - z @ spec.M.T, 0.0)
     X = (x, S, y, T, z, nu, s)
     D = (zeros(m + 1), zeros(n, n), zeros(n), zeros(n, n), zeros(m), zeros(m), zeros(q))
     lam = (zeros(n, n), zeros(n, n), zeros(n), zeros(q), zeros(m))
@@ -555,19 +598,8 @@ def init_state(spec: ProblemSpec, g, lam0, z=None) -> ADMMState:
 
 
 # =========================================================================
-# Driver
+# Drivers
 # =========================================================================
-
-def _result_from(spec: ProblemSpec, st: ADMMState, iters: int, res: float,
-                 history: list) -> ADMMResult:
-    m = spec.m
-    x, x1 = st.X[0].cpu().numpy(), st.Y[0].cpu().numpy()
-    return ADMMResult(
-        g=x1[:m], g_raw=x[:m], lam_tilde=float(x1[m]),
-        z=st.Y[4].cpu().numpy() if spec.hetero else None,
-        iters=int(iters), residual=float(res), history=history,
-        cg_iters=int(st.cg))
-
 
 def check_solver(cfg: ADMMConfig) -> None:
     """Raise for the driver/backend selections the port does not have."""
@@ -579,27 +611,93 @@ def check_solver(cfg: ADMMConfig) -> None:
         raise NotImplementedError(f"solver={cfg.solver!r}: " + _NOT_PORTED.format(2))
 
 
-def solve_spec(spec: ProblemSpec, state0: ADMMState, cfg: ADMMConfig) -> ADMMResult:
-    """Chunked driver: chunks of ``check_every`` steps (the last one
-    shortened so that at most ``max_iters`` steps run), one host read of
-    (residual, λ̃) per chunk. Stops after the chunk whose residual is below
-    ``eps`` or, with ``abort_nonfinite``, not finite — the reference's
-    on-device check, at the same chunk granularity; the history holds one
-    (it, res, λ̃) entry per chunk run."""
+def _select(done: torch.Tensor, old: ADMMState, new: ADMMState) -> ADMMState:
+    """``old`` where ``done`` (one flag per instance), ``new`` elsewhere,
+    on every leaf."""
+    def sel(a, b):
+        return torch.where(_per_row(done, a), a, b)
+
+    return ADMMState(*(tuple(sel(a, b) for a, b in zip(fa, fb))
+                       for fa, fb in zip((old.X, old.Y, old.D, old.lam),
+                                         (new.X, new.Y, new.D, new.lam))),
+                     res=sel(old.res, new.res), cg=sel(old.cg, new.cg))
+
+
+def _run_batch(spec: ProblemSpec, state: ADMMState, cfg: ADMMConfig) -> list[ADMMResult]:
+    """The chunked driver over a batch (every leaf of ``state`` carries the
+    instance axis B): chunks of ``check_every`` steps (the last shortened so
+    that at most ``max_iters`` steps run), all instances in each step, and
+    one host read of (residual, λ̃, done) for the whole batch per chunk. An
+    instance is done after the chunk whose residual is below ``eps`` or,
+    with ``abort_nonfinite``, not finite; from then on every leaf of it,
+    its residual and its count are frozen, and its history (one (it, res,
+    λ̃) entry per chunk it ran) stops. The loop ends when every instance is
+    done or ``max_iters`` steps have run."""
     check_solver(cfg)
+    B = int(state.X[0].shape[0])
+    dev = state.X[0].device
     chunk = min(cfg.check_every, cfg.max_iters)
     n_chunks = -(-cfg.max_iters // chunk)
-    state, it, res, history = state0, 0, math.inf, []
+    its, ress = [0] * B, [math.inf] * B
+    histories: list[list] = [[] for _ in range(B)]
+    done_host = [False] * B
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
     for c in range(n_chunks):
         clen = chunk if c < n_chunks - 1 else cfg.max_iters - chunk * (n_chunks - 1)
+        new = state
         for _ in range(clen):
-            state, res_t = step(spec, state)
-        it += clen
-        res, lam = torch.stack([res_t, state.X[0][-1].to(torch.float64)]).tolist()
-        history.append((it, res, lam))
-        if cfg.verbose:
-            tag = "admm-het" if spec.hetero else "admm-homo"
-            print(f"[{tag}] it={it} res={res:.3e} lam~={lam:.4f}")
-        if res < cfg.eps or (cfg.abort_nonfinite and not math.isfinite(res)):
+            new, _ = step(spec, new)
+        state = _select(done, state, new) if any(done_host) else new
+        now = state.res < cfg.eps
+        if cfg.abort_nonfinite:
+            now |= ~torch.isfinite(state.res)
+        done = done | now
+        res_l, lam_l, done_l = torch.stack(
+            [state.res, state.X[0][:, -1].to(torch.float64), done.to(torch.float64)]).tolist()
+        for b in range(B):
+            if done_host[b]:
+                continue
+            its[b] += clen
+            ress[b] = res_l[b]
+            histories[b].append((its[b], res_l[b], lam_l[b]))
+            if cfg.verbose:
+                tag = "admm-het" if spec.hetero else "admm-homo"
+                pre = f"[{tag}{'' if B == 1 else f' {b}'}]"
+                print(f"{pre} it={its[b]} res={res_l[b]:.3e} lam~={lam_l[b]:.4f}")
+        done_host = [bool(d) for d in done_l]
+        if all(done_host):
             break
-    return _result_from(spec, state, it, res, history)
+    m = spec.m
+    x, x1 = state.X[0].cpu().numpy(), state.Y[0].cpu().numpy()
+    z = state.Y[4].cpu().numpy() if spec.hetero else None
+    cg = state.cg.tolist()
+    return [ADMMResult(g=x1[b, :m], g_raw=x[b, :m], lam_tilde=float(x1[b, m]),
+                       z=None if z is None else z[b], iters=its[b], residual=float(ress[b]),
+                       history=histories[b], cg_iters=int(cg[b])) for b in range(B)]
+
+
+def solve_spec(spec: ProblemSpec, state0: ADMMState, cfg: ADMMConfig) -> ADMMResult:
+    """One solve from ``state0`` (an iterate without the batch axis): the
+    batch driver of :func:`solve_batched_spec` at B = 1."""
+    return _run_batch(spec, state0.map(lambda t: t[None]), cfg)[0]
+
+
+def solve_batched_spec(spec: ProblemSpec, states: ADMMState,
+                       cfg: ADMMConfig) -> list[ADMMResult]:
+    """Batched restarts: ``states`` has the instance axis on every leaf;
+    every step and every host read serves the whole batch. One result per
+    instance."""
+    return _run_batch(spec, states, cfg)
+
+
+def solve_sweep_spec(spec: ProblemSpec, rs, states: ADMMState, cfg: ADMMConfig,
+                     rhos=None) -> list[ADMMResult]:
+    """Sweep over problem axes: instance k solves the problem with budget
+    ``rs[k]`` (and penalty ``rhos[k]``, default ``spec.rho``) from warm
+    start k of ``states``, all in one batch on ``spec``'s shape (one n)."""
+    dev = spec.I.device
+    rs_t = torch.as_tensor(np.asarray(rs), dtype=torch.int64, device=dev)
+    rhos_t = (spec.rho.expand(rs_t.shape) if rhos is None
+              else torch.as_tensor(np.asarray(rhos), dtype=getattr(torch, spec.dtype),
+                                   device=dev))
+    return _run_batch(spec.replace(r=rs_t, rho=rhos_t), states, cfg)

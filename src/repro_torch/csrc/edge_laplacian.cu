@@ -65,6 +65,14 @@
 //     edge_adjoint's output.
 //   * edge_quadform: one thread per edge does the four gathers in the order
 //     of kernel.py:83, bit-equal to the plain version.
+//   * Batches: every form but edge_quadform serves B instances of one n
+//     (the batched ADMM's restarts or budgets) in one launch. blockIdx.y is
+//     the instance, and each operand's pointer advances by its own instance
+//     stride, so the lambda blocks can be views of one (B, K) constraint-
+//     space matrix (stride K, not n^2). Inside an instance the order of
+//     operations is the one above, so instance b of a batched launch is
+//     bitwise the unbatched launch on instance b. The bounds above scale
+//     by B; at B = 4, n = 64 fp32 they stay below 0.1 us, under a launch.
 //
 // Plain C interface for ctypes: every entry launches on the given stream,
 // never synchronises, and returns cudaGetLastError().
@@ -102,9 +110,12 @@ __device__ T block_sum(T v) {
 }
 
 template <typename T>
-__global__ void edge_laplacian_kernel(const T* __restrict__ g, T* __restrict__ L, int n) {
+__global__ void edge_laplacian_kernel(const T* __restrict__ g, long long gs, T* __restrict__ L,
+                                      long long Ls, int n) {
   const int a = blockIdx.x;
-  T* row = L + static_cast<size_t>(a) * n;
+  const long long inst = blockIdx.y;
+  g += inst * gs;
+  T* row = L + inst * Ls + static_cast<size_t>(a) * n;
   T deg = T(0);
   for (int b = threadIdx.x; b < n; b += blockDim.x) {
     if (b == a) continue;
@@ -128,11 +139,20 @@ __global__ void edge_laplacian_kernel(const T* __restrict__ g, T* __restrict__ L
 // with the same block size, so the output is bit-equal to edge_laplacian
 // followed by the torch ops.
 template <typename T>
-__global__ void edge_laplacian_blocks_kernel(const T* __restrict__ g, const T* __restrict__ lam,
-                                             const T* __restrict__ S, const T* __restrict__ Tm,
-                                             const T* __restrict__ y, T* __restrict__ out,
-                                             int n) {
+__global__ void edge_laplacian_blocks_kernel(const T* __restrict__ g, long long gs,
+                                             const T* __restrict__ lam, long long lams,
+                                             const T* __restrict__ S, long long Ss,
+                                             const T* __restrict__ Tm, long long Ts,
+                                             const T* __restrict__ y, long long ys,
+                                             T* __restrict__ out, long long outs, int n) {
   const int a = blockIdx.x;
+  const long long inst = blockIdx.y;
+  g += inst * gs;
+  lam += inst * lams;
+  S += inst * Ss;
+  Tm += inst * Ts;
+  y += inst * ys;
+  out += inst * outs;
   const size_t nn = static_cast<size_t>(n) * n;
   const size_t row = static_cast<size_t>(a) * n;
   const T lv = *lam;
@@ -217,10 +237,18 @@ __device__ __forceinline__ long long packed_index(long long lo, long long hi, lo
 // x[l] for the edges {a, b}, b > a, of row a (block a), and x[m] = xl
 // (block 0).
 template <typename T>
-__global__ void edge_adjoint_kernel(const T* __restrict__ P, const T* __restrict__ Q,
-                                    const T* __restrict__ w, const T* __restrict__ v,
-                                    T* __restrict__ x, int n) {
+__global__ void edge_adjoint_kernel(const T* __restrict__ P, long long Ps,
+                                    const T* __restrict__ Q, long long Qs,
+                                    const T* __restrict__ w, long long ws,
+                                    const T* __restrict__ v, long long vs,
+                                    T* __restrict__ x, long long xs, int n) {
   const int a = blockIdx.x;
+  const long long inst = blockIdx.y;
+  P += inst * Ps;
+  Q += inst * Qs;
+  w += inst * ws;
+  if (v != nullptr) v += inst * vs;
+  x += inst * xs;
   if (a == 0) {
     const T xl = trace_diff(P, Q, n);
     if (threadIdx.x == 0) x[static_cast<long long>(n) * (n - 1) / 2] = xl;
@@ -236,10 +264,20 @@ __global__ void edge_adjoint_kernel(const T* __restrict__ P, const T* __restrict
 // x non-null the adjoint is written too: each edge by its lower endpoint's
 // row, xl by block 0.
 template <typename T>
-__global__ void edge_schur_matvec_kernel(const T* __restrict__ P, const T* __restrict__ Q,
-                                         const T* __restrict__ w, const T* __restrict__ v,
-                                         T* __restrict__ out, T* __restrict__ x, int n) {
+__global__ void edge_schur_matvec_kernel(const T* __restrict__ P, long long Ps,
+                                         const T* __restrict__ Q, long long Qs,
+                                         const T* __restrict__ w, long long ws,
+                                         const T* __restrict__ v, long long vs,
+                                         T* __restrict__ out, long long outs,
+                                         T* __restrict__ x, long long xs, int n) {
   const int a = blockIdx.x;
+  const long long inst = blockIdx.y;
+  P += inst * Ps;
+  Q += inst * Qs;
+  w += inst * ws;
+  if (v != nullptr) v += inst * vs;
+  out += inst * outs;
+  if (x != nullptr) x += inst * xs;
   const size_t nn = static_cast<size_t>(n) * n;
   const size_t row = static_cast<size_t>(a) * n;
   const T xl = trace_diff(P, Q, n);
@@ -274,23 +312,31 @@ int laplacian_threads(int n) {
   return t;
 }
 
+// The grid of the batched forms: blockIdx.x a row, blockIdx.y an instance.
+dim3 row_grid(int n, int batch) { return dim3(static_cast<unsigned>(n), static_cast<unsigned>(batch)); }
+
 template <typename T>
-int launch_edge_laplacian(const void* g, void* L, int n, void* stream) {
-  if (n > 0) {
-    edge_laplacian_kernel<T><<<n, laplacian_threads(n), 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(g), static_cast<T*>(L), n);
+int launch_edge_laplacian(const void* g, long long gs, void* L, long long Ls, int n, int batch,
+                          void* stream) {
+  if (n > 0 && batch > 0) {
+    edge_laplacian_kernel<T><<<row_grid(n, batch), laplacian_threads(n), 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(g), gs, static_cast<T*>(L), Ls, n);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_edge_laplacian_blocks(const void* g, const void* lam, const void* S, const void* Tm,
-                                 const void* y, void* out, int n, void* stream) {
-  if (n > 0) {
+int launch_edge_laplacian_blocks(const void* g, long long gs, const void* lam, long long lams,
+                                 const void* S, long long Ss, const void* Tm, long long Ts,
+                                 const void* y, long long ys, void* out, long long outs, int n,
+                                 int batch, void* stream) {
+  if (n > 0 && batch > 0) {
     edge_laplacian_blocks_kernel<T>
-        <<<n, laplacian_threads(n), 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const T*>(g), static_cast<const T*>(lam), static_cast<const T*>(S),
-            static_cast<const T*>(Tm), static_cast<const T*>(y), static_cast<T*>(out), n);
+        <<<row_grid(n, batch), laplacian_threads(n), 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(g), gs, static_cast<const T*>(lam), lams,
+            static_cast<const T*>(S), Ss, static_cast<const T*>(Tm), Ts,
+            static_cast<const T*>(y), ys, static_cast<T*>(out), outs, n);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -310,78 +356,73 @@ int launch_edge_quadform(const void* P, const void* ei, const void* ej, void* ou
 }
 
 template <typename T>
-int launch_edge_adjoint(const void* P, const void* Q, const void* w, const void* v, void* x,
-                        int n, void* stream) {
-  if (n > 0) {
-    edge_adjoint_kernel<T><<<n, laplacian_threads(n), 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(P), static_cast<const T*>(Q), static_cast<const T*>(w),
-        static_cast<const T*>(v), static_cast<T*>(x), n);
+int launch_edge_adjoint(const void* P, long long Ps, const void* Q, long long Qs, const void* w,
+                        long long ws, const void* v, long long vs, void* x, long long xs, int n,
+                        int batch, void* stream) {
+  if (n > 0 && batch > 0) {
+    edge_adjoint_kernel<T><<<row_grid(n, batch), laplacian_threads(n), 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(P), Ps, static_cast<const T*>(Q), Qs, static_cast<const T*>(w), ws,
+        static_cast<const T*>(v), vs, static_cast<T*>(x), xs, n);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_edge_schur_matvec(const void* P, const void* Q, const void* w, const void* v,
-                             void* out, void* x, int n, void* stream) {
-  if (n > 0) {
+int launch_edge_schur_matvec(const void* P, long long Ps, const void* Q, long long Qs,
+                             const void* w, long long ws, const void* v, long long vs, void* out,
+                             long long outs, void* x, long long xs, int n, int batch,
+                             void* stream) {
+  if (n > 0 && batch > 0) {
     edge_schur_matvec_kernel<T>
-        <<<n, laplacian_threads(n), 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const T*>(P), static_cast<const T*>(Q), static_cast<const T*>(w),
-            static_cast<const T*>(v), static_cast<T*>(out), static_cast<T*>(x), n);
+        <<<row_grid(n, batch), laplacian_threads(n), 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(P), Ps, static_cast<const T*>(Q), Qs,
+            static_cast<const T*>(w), ws, static_cast<const T*>(v), vs, static_cast<T*>(out),
+            outs, static_cast<T*>(x), xs, n);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Each batched entry takes every operand's pointer followed by its instance
+// stride in elements (instance b of an operand starts at ptr + b * stride),
+// then n, the batch count and the stream.
 extern "C" {
 
-int edge_laplacian_f32(const void* g, void* L, int n, void* stream) {
-  return launch_edge_laplacian<float>(g, L, n, stream);
-}
+#define EDGE_ENTRIES(SUFFIX, T)                                                                  \
+  int edge_laplacian_##SUFFIX(const void* g, long long gs, void* L, long long Ls, int n,        \
+                              int batch, void* stream) {                                        \
+    return launch_edge_laplacian<T>(g, gs, L, Ls, n, batch, stream);                            \
+  }                                                                                             \
+  int edge_laplacian_blocks_##SUFFIX(const void* g, long long gs, const void* lam,              \
+                                     long long lams, const void* S, long long Ss,               \
+                                     const void* Tm, long long Ts, const void* y, long long ys, \
+                                     void* out, long long outs, int n, int batch,               \
+                                     void* stream) {                                            \
+    return launch_edge_laplacian_blocks<T>(g, gs, lam, lams, S, Ss, Tm, Ts, y, ys, out, outs,  \
+                                           n, batch, stream);                                   \
+  }                                                                                             \
+  int edge_quadform_##SUFFIX(const void* P, const void* ei, const void* ej, void* out,          \
+                             long long m, int n, void* stream) {                                \
+    return launch_edge_quadform<T>(P, ei, ej, out, m, n, stream);                               \
+  }                                                                                             \
+  int edge_adjoint_##SUFFIX(const void* P, long long Ps, const void* Q, long long Qs,           \
+                            const void* w, long long ws, const void* v, long long vs, void* x,  \
+                            long long xs, int n, int batch, void* stream) {                     \
+    return launch_edge_adjoint<T>(P, Ps, Q, Qs, w, ws, v, vs, x, xs, n, batch, stream);         \
+  }                                                                                             \
+  int edge_schur_matvec_##SUFFIX(const void* P, long long Ps, const void* Q, long long Qs,      \
+                                 const void* w, long long ws, const void* v, long long vs,      \
+                                 void* out, long long outs, void* x, long long xs, int n,       \
+                                 int batch, void* stream) {                                     \
+    return launch_edge_schur_matvec<T>(P, Ps, Q, Qs, w, ws, v, vs, out, outs, x, xs, n, batch, \
+                                       stream);                                                 \
+  }
 
-int edge_laplacian_f64(const void* g, void* L, int n, void* stream) {
-  return launch_edge_laplacian<double>(g, L, n, stream);
-}
+EDGE_ENTRIES(f32, float)
+EDGE_ENTRIES(f64, double)
 
-int edge_laplacian_blocks_f32(const void* g, const void* lam, const void* S, const void* Tm,
-                              const void* y, void* out, int n, void* stream) {
-  return launch_edge_laplacian_blocks<float>(g, lam, S, Tm, y, out, n, stream);
-}
-
-int edge_laplacian_blocks_f64(const void* g, const void* lam, const void* S, const void* Tm,
-                              const void* y, void* out, int n, void* stream) {
-  return launch_edge_laplacian_blocks<double>(g, lam, S, Tm, y, out, n, stream);
-}
-
-int edge_quadform_f32(const void* P, const void* ei, const void* ej, void* out, long long m,
-                      int n, void* stream) {
-  return launch_edge_quadform<float>(P, ei, ej, out, m, n, stream);
-}
-
-int edge_quadform_f64(const void* P, const void* ei, const void* ej, void* out, long long m,
-                      int n, void* stream) {
-  return launch_edge_quadform<double>(P, ei, ej, out, m, n, stream);
-}
-
-int edge_adjoint_f32(const void* P, const void* Q, const void* w, const void* v, void* x, int n,
-                     void* stream) {
-  return launch_edge_adjoint<float>(P, Q, w, v, x, n, stream);
-}
-
-int edge_adjoint_f64(const void* P, const void* Q, const void* w, const void* v, void* x, int n,
-                     void* stream) {
-  return launch_edge_adjoint<double>(P, Q, w, v, x, n, stream);
-}
-
-int edge_schur_matvec_f32(const void* P, const void* Q, const void* w, const void* v, void* out,
-                          void* x, int n, void* stream) {
-  return launch_edge_schur_matvec<float>(P, Q, w, v, out, x, n, stream);
-}
-
-int edge_schur_matvec_f64(const void* P, const void* Q, const void* w, const void* v, void* out,
-                          void* x, int n, void* stream) {
-  return launch_edge_schur_matvec<double>(P, Q, w, v, out, x, n, stream);
-}
+#undef EDGE_ENTRIES
 
 }  // extern "C"

@@ -30,7 +30,10 @@ kernel followed by the torch ops; ``edge_adjoint``'s edge entries bitwise
 equal to the torch composition and its −tr P + tr Q within
 2n·u·(Σ|P_ii| + Σ|Q_ii|) of ``torch.trace``'s; ``edge_schur_matvec`` and
 the engine's ``schur_matvec`` bitwise equal to ``edge_laplacian_blocks``
-fed ``edge_adjoint``'s output;
+fed ``edge_adjoint``'s output; the four ADMM-path forms with a batch axis
+one launch for the batch and bitwise per instance against their unbatched
+launches, and the batched ADMM against its sequential solves (float64:
+λ̃ within 1e-9) and the CPU;
 reduced fp32 serving (smollm, gemma2 long context, mamba2), card vs CPU,
 within 1e-5 relative in the logits of the prefill and 8 decode steps, with
 equal greedy tokens.
@@ -884,3 +887,101 @@ def test_consensus_curves_card_match_cpu(cuda, compressor, frac):
         card, cpu = run("cuda"), run("cpu")
         for b in range(2):
             np.testing.assert_allclose(card[b], cpu[b], rtol=0, atol=1e-6 * cpu[b, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 16, 64, 256])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("hetero", [False, True])
+def test_batched_edge_forms_on_card(cuda, n, B, dtype, hetero):
+    """The four ADMM-path forms with the batch axis, λ's blocks views of one
+    (B, K) matrix as the engine lays them out: one launch each for the
+    batch; every instance bitwise its unbatched launch; against the plain
+    versions L(g) within 1e-12 (fp64) or 1e-5 × the largest row sum, A_op's
+    blocks within L's error plus 4u·(max L_aa + |λ| + max|P, Q, w|) (only
+    the degree's summing order differs, then two roundings), the adjoint's
+    edge entries bitwise and its trace within 2n·u·(Σ|P_ii| + Σ|Q_ii|), the
+    CG matvec within the bound of ``test_edge_schur_matvec_bitwise_on_card``."""
+    rng = np.random.default_rng(n + B)
+    m, k = n * (n - 1) // 2, 2 * n * n + n
+    flat = torch.from_numpy(rng.standard_normal((B, k + m))).to(device=cuda, dtype=dtype)
+    P, Q = flat[:, :n * n].view(B, n, n), flat[:, n * n:2 * n * n].view(B, n, n)
+    w, v = flat[:, 2 * n * n:k], (flat[:, k:] if hetero else None)
+    x = torch.from_numpy(rng.random((B, m + 1))).to(device=cuda, dtype=dtype)
+    g, lam = x[:, :-1], x[:, -1]
+    kernels.reset_launch_counts()
+    L = tel.edge_laplacian(g, n)
+    blocks = tel.edge_laplacian_blocks(g, lam, P, Q, w, torch.empty(B, k, dtype=dtype, device=cuda))
+    adj = tel.edge_adjoint(P, Q, w, v)
+    out = torch.full((B, k + 2), 7.0, dtype=dtype, device=cuda)
+    x_adj = torch.empty(B, m + 1, dtype=dtype, device=cuda)
+    tel.edge_schur_matvec(P, Q, w, out, v=v, x_adj=x_adj)
+    counts = kernels.launch_counts()
+    assert all(counts[f] == 1 for f in ("edge_laplacian", "edge_laplacian_blocks",
+                                        "edge_adjoint", "edge_schur_matvec")), counts
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    u = torch.finfo(dtype).eps / 2
+    torch.cuda.synchronize()
+    for b in range(B):
+        Pb, Qb, wb = P[b].contiguous(), Q[b].contiguous(), w[b].contiguous()
+        vb = None if v is None else v[b].contiguous()
+        assert torch.equal(L[b].view(bits), tel.edge_laplacian(g[b].contiguous(), n).view(bits))
+        one = tel.edge_laplacian_blocks(g[b].contiguous(), lam[b].contiguous(), Pb, Qb, wb,
+                                        torch.empty(k, dtype=dtype, device=cuda))
+        assert torch.equal(blocks[b].view(bits), one.view(bits))
+        assert torch.equal(adj[b].view(bits), tel.edge_adjoint(Pb, Qb, wb, vb).view(bits))
+        ob = torch.empty(k, dtype=dtype, device=cuda)
+        xb = torch.empty(m + 1, dtype=dtype, device=cuda)
+        tel.edge_schur_matvec(Pb, Qb, wb, ob, v=vb, x_adj=xb)
+        assert torch.equal(out[b, :k].view(bits), ob.view(bits))
+        assert torch.equal(x_adj[b].view(bits), xb.view(bits))
+        assert bool((out[b, k:] == 7.0).all())
+        Lp = tel.edge_laplacian_plain(g[b], tel.packed_edge_index(n, "cuda"))
+        tol = 1e-12 if dtype == torch.float64 else 1e-5 * float(Lp.diagonal().abs().max())
+        err_L = float((L[b] - Lp).abs().max())
+        assert err_L <= tol
+        bp = tel.edge_laplacian_blocks_plain(g[b], lam[b], Pb, Qb, wb,
+                                             torch.empty(k, dtype=dtype, device=cuda))
+        tol = err_L + 4 * u * (float(Lp.diagonal().abs().max()) + abs(float(lam[b]))
+                               + max(float(Pb.abs().max()), float(Qb.abs().max()),
+                                     float(wb.abs().max())))
+        assert float((blocks[b] - bp).abs().max()) <= tol
+        plain = tel.edge_adjoint_plain(Pb, Qb, wb, vb)
+        assert torch.equal(adj[b, :m].view(bits), plain[:m].view(bits))
+        assert abs(float(adj[b, m] - plain[m])) <= _trace_tol(Pb, Qb)
+        G = torch.cat([adj[b, :m].abs(), adj.new_zeros(1)])[tel.packed_edge_index(n, "cuda")]
+        pm = tel.edge_schur_matvec_plain(Pb, Qb, wb, torch.empty(k, dtype=dtype, device=cuda), vb)
+        tol = (2 * n * u * float(G.sum(dim=1).max()) + _trace_tol(Pb, Qb)
+               + 2 * u * float(pm.abs().max()))
+        assert float((out[b, :k] - pm).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_batched_admm_on_card_matches_sequential_and_cpu(cuda, dtype):
+    """Three restarts at n=16, r=32 in one batched solve on the card: every
+    step launches each edge form once for the batch; each restart against
+    its sequential solve on the card (float64: the same support and λ̃
+    within 1e-9; float32: the same support) and the float64 batch against
+    the CPU's batch within 1e-9 in λ̃."""
+    from repro_torch.core.admm import HomogeneousADMM
+
+    rng = np.random.default_rng(3)
+    g0s, lam0s = rng.random((3, 120)) * 0.3, np.array([0.5, 0.4, 0.6])
+    solver = HomogeneousADMM(16, 32, te.ADMMConfig(device="cuda", dtype=dtype, max_iters=100))
+    kernels.reset_launch_counts()
+    batched = solver.solve_batched(g0s, lam0s)
+    counts = kernels.launch_counts()
+    assert counts["edge_laplacian"] == 1 and counts["edge_laplacian_blocks"] == 100, counts
+    assert counts["edge_adjoint"] == 100, counts
+    seq = [solver.solve(g0=g0, lam0=lam0) for g0, lam0 in zip(g0s, lam0s)]
+    for a, b in zip(batched, seq):
+        assert (np.nonzero(a.g > 1e-6)[0] == np.nonzero(b.g > 1e-6)[0]).all()
+        if dtype == "float64":
+            assert abs(a.lam_tilde - b.lam_tilde) <= 1e-9 and a.iters == b.iters
+    if dtype == "float64":
+        cpu = HomogeneousADMM(16, 32, te.ADMMConfig(device="cpu", max_iters=100)).solve_batched(
+            g0s, lam0s)
+        for a, b in zip(batched, cpu):
+            assert abs(a.lam_tilde - b.lam_tilde) <= 1e-9

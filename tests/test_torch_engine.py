@@ -295,8 +295,6 @@ def test_selectors_not_ported_raise_naming_the_roadmap_item():
         te.check_solver(te.ADMMConfig(solver="kkt_bicgstab"))
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         te.check_solver(te.ADMMConfig(driver="python"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        HomogeneousADMM(4, 3, te.ADMMConfig(device="cpu")).solve_batched(None, None)
     with pytest.raises(ValueError, match="unknown precond"):
         te.make_homo_spec(4, 3, te.ADMMConfig(precond="Jacobi", device="cpu"))
 

@@ -105,8 +105,6 @@ def test_consensus_matches_reference_on_shared_initial_values():
 def test_entry_points_not_ported_raise_naming_the_roadmap_item():
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         solve_topology(TopologyRequest(n=8, r=12), engine="barrier")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        t_anytime.solve_topologies([TopologyRequest(n=8, r=12)])
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

@@ -11,7 +11,9 @@ then times ``--reps`` solves of 60 steps (``main_n64``'s ADMM: n=64, r=128,
 the pipeline's default ``BATopoConfig().admm``, the warm start of
 ``chip_smoke.py``'s profile phase) by the host clock, each ending in a
 synchronise, and profiles one more for its device launches, host syncs and
-device busy time. Prints the card's ``nvidia-smi`` name and power limit,
+device busy time; with ``--cprofile`` it also runs one solve under
+``cProfile`` for its Python function calls and the functions that took the
+most host time under it. Prints the card's ``nvidia-smi`` name and power limit,
 one JSON line per process, and a summary line; ``--json-out`` writes them
 all to a file.
 
@@ -31,7 +33,23 @@ N, R, STEPS = 64, 128, 60
 _SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
-def child(reps: int) -> dict:
+def _python_calls(fn, top: int = 12) -> dict:
+    """Python function calls of one ``fn()`` under cProfile, and the ``top``
+    functions by their own time under it (the profiler's own cost
+    included)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.runcall(fn)
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((tt, nc, f"{Path(f).name}:{line}({name})")
+                   for (f, line, name), (_, nc, tt, _, _) in stats.items()), reverse=True)
+    return dict(calls=sum(nc for (_, nc, _, _, _) in stats.values()),
+                top=[dict(fn=name, calls=nc, own_s=tt) for tt, nc, name in rows[:top]])
+
+
+def child(reps: int, cprofile: bool = False) -> dict:
     """Time and profile 60 ADMM steps with the ``repro_torch`` on sys.path."""
     import dataclasses
     import time
@@ -66,10 +84,14 @@ def child(reps: int) -> dict:
             busy_us += ev.time_range.elapsed_us()
         elif ev.name in _SYNCS:
             syncs += 1
-    return dict(walls_s=walls, median_wall_s=sorted(walls)[len(walls) // 2],
-                device_launches=launches, host_syncs=syncs, device_busy_s=busy_us / 1e6,
-                lam_tilde=res.lam_tilde, cg_iters=res.cg_iters, iters=res.iters,
-                residual=res.residual, support=int((res.g > 1e-6).sum()))
+    out = dict(walls_s=walls, median_wall_s=sorted(walls)[len(walls) // 2],
+               device_launches=launches, host_syncs=syncs, device_busy_s=busy_us / 1e6,
+               lam_tilde=res.lam_tilde, cg_iters=res.cg_iters, iters=res.iters,
+               residual=res.residual, support=int((res.g > 1e-6).sum()))
+    if cprofile:
+        out["python"] = _python_calls(lambda: (solver.solve(g0=g0, lam0=lam0),
+                                               torch.cuda.synchronize()))
+    return out
 
 
 def main(argv=None) -> int:
@@ -80,10 +102,12 @@ def main(argv=None) -> int:
                     help="tree indices to run in turn (default: each tree once)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--json-out", default=None)
+    ap.add_argument("--cprofile", action="store_true",
+                    help="also count each process's Python calls of one solve")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        print(json.dumps(child(args.reps)), flush=True)
+        print(json.dumps(child(args.reps, args.cprofile)), flush=True)
         return 0
     import torch
 
@@ -100,7 +124,7 @@ def main(argv=None) -> int:
     for i in order:
         env = dict(os.environ, PYTHONPATH=str(trees[i] / "src"))
         proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--child",
-                               "--reps", str(args.reps)],
+                               "--reps", str(args.reps)] + ["--cprofile"] * args.cprofile,
                               cwd=trees[i], env=env, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
