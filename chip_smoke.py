@@ -4,20 +4,27 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel against its plain PyTorch version at its path's shapes and times it,
-and drives the port's four paths on ``cuda``:
+and drives the port's paths on ``cuda``:
 
 - the topology solve (``solve_topology`` at n=64, r=128 and the n=16 BCube
   scenario; every CG matvec A·Aᵀλ in one ``edge_schur_matvec`` launch, the
   right-hand side's ``A_op`` in one ``edge_laplacian_blocks`` launch and
   the last ``AT_op`` in one ``edge_adjoint`` launch), checked against the
   CPU at n=16, evaluated by consensus simulation, with short profiled
-  windows of its device stages;
+  windows of its device stages; main_n64's request again through the
+  barrier engine (``engine="barrier"``: restarts as one batched ADMM
+  solve), held to main_n64's support;
 - the batched ADMM: the four ADMM-path edge forms with their batch axis,
   bitwise per instance against their unbatched launches;
   ``HomogeneousADMM.solve_batched`` over main_n64's four annealed restarts
   against the four sequential solves (fp32, and at n=16 in float64, held
   equal); ``solve_topologies`` at n=64 over four budgets as ONE batched
   solve, and at n=16 card vs CPU;
+- the topology service (``repro_torch.serve.TopologyService``): a bucket
+  of four n=64 budgets as one batched solve, a cache hit, the full tier
+  through the barrier engine, drift invalidation, a deadlined request on
+  the anytime route, a NaN full-tier stub degrading to the guarded warm
+  ADMM on the card, and an overload rejection;
 - DSGD training of smollm-135m at full width through the launcher
   (``repro_torch.launch.train``): n=8 workers on one card, BA topology
   (r=16) solved on the card, 10 steps, every gossip through the
@@ -41,8 +48,11 @@ and drives the port's four paths on ``cuda``:
   at that fp32 shape beside ``torch.bmm``, one profiled epoch; the
   cross-product engine ({static, round-robin} × {dense, top-k, random-k})
   and bench_compression's consensus curves; the chaos engine at
-  bench_chaos's defaults, with a fault-free spec held bitwise to the cross
-  engine.
+  bench_chaos's defaults with its re-optimized run (the drift detector and
+  ``reoptimize_topology`` on the card), with a fault-free spec held bitwise
+  to the cross engine;
+- the topology CLI (``repro_torch.launch.topo``) at n=16 on the node
+  scenario.
 
 Every phase prints one JSON line; any failure raises and the script exits
 non-zero. Each path's kernel launches are counted from 0 over that path
@@ -83,6 +93,13 @@ PATH_KERNELS = {
     "serve_dense": ("decode_attention",),
     "serve_ssm": ("ssd_intra_chunk",),
     "sim": ("gossip_mix_batched",),
+    "barrier": ("edge_laplacian", "edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec",
+                "hop_step"),
+    "service": ("edge_laplacian", "edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec",
+                "hop_step"),
+    "reopt": ("edge_laplacian", "edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec"),
+    "topo_cli": ("edge_laplacian", "edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec",
+                 "hop_step"),
 }
 
 ROOT = Path(__file__).resolve().parent
@@ -598,6 +615,50 @@ def phase_main_n64():
     with _recorded_restarts() as restarts:
         res, launches = phase_solve("main_n64", TopologyRequest(n=64, r=128, restarts=4))
     return res, launches, restarts
+
+
+def _support(topo) -> list:
+    return sorted(tuple(sorted(e)) for e in topo.edges)
+
+
+def _missing(path: str, launches: dict) -> list:
+    return [k for k in PATH_KERNELS[path] if launches[k] == 0]
+
+
+def phase_main_barrier(res64) -> dict:
+    """main_n64's request through the barrier engine
+    (``solve_topology(..., engine="barrier")``, default config, not cut):
+    the four restarts' SA in one batched call, their ADMM as ONE
+    ``solve_batched``, one polish call, the pick. Check: release-valid, every
+    solve kernel launched, and the reference's anytime-vs-barrier band
+    against main_n64's answer (ref ``tests/test_anytime.py:40``): the same
+    support, |Δr_asym| ≤ 1e-3."""
+    from repro_torch import kernels
+    from repro_torch.core import TopologyRequest, check_invariants, solve_topology
+
+    req = TopologyRequest(n=64, r=128, restarts=4)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solve_topology(req, engine="barrier")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    same = _support(res.topology) == _support(res64.topology)
+    out = dict(n=req.n, r=req.r, restarts=req.restarts, cut=None, wall_s=wall_s,
+               profile_s=res.profile.phases, r_asym=res.r_asym,
+               selected_from=res.topology.meta.get("selected_from"),
+               edges=len(res.topology.edges), launches=launches,
+               main_n64=dict(r_asym=res64.r_asym,
+                             selected_from=res64.topology.meta.get("selected_from")),
+               abs_d_r_asym=abs(res.r_asym - res64.r_asym), same_support=same)
+    emit("main_barrier", **out)
+    bad = check_invariants(res.topology)
+    assert bad is None, f"main_barrier: release invariant {bad!r} fails"
+    assert not _missing("barrier", launches), \
+        f"main_barrier: kernels never launched: {_missing('barrier', launches)}"
+    assert same and out["abs_d_r_asym"] <= 1e-3, \
+        f"main_barrier: support equal {same}, |Δr_asym| {out['abs_d_r_asym']}"
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1163,6 +1224,107 @@ def phase_main_sweep() -> tuple[dict, dict]:
     emit("main_sweep", **out)
     assert ratio <= 1.1, f"main_sweep: {ratio:.3f}× the slowest instance's matvec launches"
     return launches, out
+
+
+def _answer(label: str, resp, launches: dict | None = None) -> dict:
+    """One service response as a row of main_service's line; it must be a
+    release-valid topology."""
+    from repro_torch.core import check_invariants
+
+    assert resp.ok, f"main_service {label}: rejected ({resp.reason})"
+    bad = check_invariants(resp.topology)
+    assert bad is None, f"main_service {label}: release invariant {bad!r} fails"
+    row = dict(request=label, tier=resp.quality_tier, latency_ms=resp.latency_ms,
+               r_asym=float(resp.topology.r_asym()), edges=len(resp.topology.edges),
+               reason=resp.reason)
+    if launches is not None:
+        row["launches"] = launches
+    return row
+
+
+def phase_main_service() -> dict:
+    """One ``TopologyService`` on the card (default config, SA cut to
+    ``SWEEP_SA_ITERS`` moves), fed one ``submit`` per request, then
+    ``drain``: four homogeneous n=64 budgets as one bucket (ONE batched
+    ``solve_sweep_spec``); r=128 again (a cache hit, the same object); a
+    node-scenario n=16, r=32 request (the full tier, the barrier engine),
+    then ``observe`` of the drifted profile (the four fast NICs at 1 GB/s)
+    invalidates it; n=64, r=112 under a 3 s deadline (the anytime route).
+    A second service whose full-tier hook answers n=16, r=24 with the real
+    barrier answer and r=32 with a NaN topology: the warm tier runs the
+    guarded ADMM on the card from the cached r=24 support. A third with
+    ``max_queue=2`` rejects its third submit as overloaded. Every answer
+    passes ``check_invariants``."""
+    from repro_torch import kernels
+    from repro_torch.core import BATopoConfig, solve_topology
+    from repro_torch.core import engine as te
+    from repro_torch.core.graph import Topology
+    from repro_torch.serve import ServiceHooks, ServicePolicy, TopologyService, TopoRequest
+
+    cfg = BATopoConfig(sa_iters=SWEEP_SA_ITERS)
+    cut = f"sa_iters {SWEEP_SA_ITERS} of {BATopoConfig().sa_iters}"
+    rows = []
+    svc = TopologyService(cfg)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _spied(te, "solve_sweep_spec") as sweeps:
+        rs = (96, 128, 160, 192)
+        for r in rs:
+            svc.submit(TopoRequest(n=64, r=r))
+        bucket = svc.drain()
+    rows += [_answer(f"n=64,r={r}", resp) for r, resp in zip(rs, bucket)]
+    assert len(sweeps) == 1 and svc.stats["bucketed_solves"] == 1, \
+        f"main_service: {len(sweeps)} sweep solves for the bucket, stats {svc.stats}"
+    assert all(resp.quality_tier == "full" for resp in bucket)
+    svc.submit(TopoRequest(n=64, r=128))
+    hit = svc.drain()[0]
+    rows.append(_answer("n=64,r=128 again", hit))
+    assert hit.quality_tier == "cache" and hit.topology is bucket[1].topology, \
+        f"main_service: the repeat is {hit.quality_tier}, not the cached object"
+    svc.submit(TopoRequest(n=16, r=32, scenario="node", node_bandwidths=NODE_BW_16))
+    node = svc.drain()[0]
+    rows.append(_answer("node n=16,r=32", node))
+    assert node.quality_tier == "full", node.quality_tier
+    drifted = NODE_BW_16.copy()
+    drifted[:4] = 1.0
+    evicted = svc.observe(drifted)
+    assert evicted == 1 and svc.stats["invalidations"] == 1, (evicted, svc.stats)
+    svc.submit(TopoRequest(n=64, r=112, deadline_ms=3000.0))
+    timed = svc.drain()[0]
+    rows.append(_answer("n=64,r=112 deadline 3000 ms", timed))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    assert not _missing("service", launches), \
+        f"main_service: kernels never launched: {_missing('service', launches)}"
+
+    def full_hook(req, prof):
+        if int(req.r) == 32:
+            edges = [(i, (i + 1) % 16) for i in range(16)]
+            return Topology(16, edges, np.full(16, np.nan), name="nan-stub",
+                            meta={"connected": True})
+        return solve_topology(req, cfg=cfg, profile=prof, engine="barrier").topology
+
+    stub = TopologyService(cfg, hooks=ServiceHooks(full=full_hook))
+    stub.submit(TopoRequest(n=16, r=24))
+    rows.append(_answer("stub n=16,r=24", stub.drain()[0]))
+    kernels.reset_launch_counts()
+    stub.submit(TopoRequest(n=16, r=32))
+    warm = stub.drain()[0]
+    warm_launches = kernels.launch_counts()
+    rows.append(_answer("stub n=16,r=32 (NaN full tier)", warm, warm_launches))
+    assert warm.quality_tier == "warm" and warm_launches["edge_schur_matvec"] > 0, \
+        f"main_service: the NaN stub degraded to {warm.quality_tier}, {warm_launches}"
+
+    small = TopologyService(cfg, policy=ServicePolicy(max_queue=2))
+    outs = [small.submit(TopoRequest(n=16, r=r)) for r in (24, 32, 40)]
+    assert [isinstance(o, int) for o in outs] == [True, True, False], outs
+    assert outs[2].reason.startswith("overloaded"), outs[2].reason
+    rows += [_answer(f"max_queue=2 n=16,r={r}", resp) for r, resp in zip((24, 32), small.drain())]
+    out = dict(cut=cut, wall_s=wall_s, launches=launches, rows=rows, stats=svc.stats,
+               stub_stats=stub.stats, overload=dict(reason=outs[2].reason, stats=small.stats))
+    emit("main_service", **out)
+    return out
 
 
 def _same_graph(n: int, a: list, b: list) -> bool:
@@ -2233,17 +2395,37 @@ def phase_main_sim_cross(topos, data, accs) -> dict:
     return launches
 
 
+#: Steps from drift detection to the re-optimized topology taking over in
+#: main_sim_chaos: a fixed lag, so the curves do not depend on the host's
+#: clock (bench_chaos derives its lag from a modeled 500 ms).
+REOPT_LAG_STEPS = 4
+
+
+def _piecewise_cycle(W_before, W_after, steps: int, t_switch: int) -> np.ndarray:
+    """(T, n, n) cycle switching topologies at ``t_switch`` (bench_chaos's
+    ``piecewise_cycle``): with one slot a step, the cycle is a script."""
+    cyc = np.empty((steps,) + np.shape(W_before))
+    cyc[:t_switch] = W_before
+    cyc[t_switch:] = W_after
+    return cyc
+
+
 def phase_main_sim_chaos() -> dict:
     """bench_chaos's defaults on the card: the node-hetero BA-Topo at n=16,
     r=32 (solved on the card, sa_iters 400), 6 epochs under a fault spec
     with one churn window of node 5 from the drift step (a quarter of the
     run) for a sixth of the run, p_drop 0.03, straggler probability 0.05
-    (×3), and the four fast NICs collapsing to 1 GB/s at the drift step;
-    static and round-robin, dense, in one ``train_curves_chaos`` call; then
-    120 iterations of ``consensus_curves_chaos``. Check: a ``no_chaos`` spec
-    reproduces ``train_curves_cross`` bitwise. (bench_chaos's re-optimized
-    run needs ``core/reopt.py``, not ported.)"""
+    (×3), and the four fast NICs collapsing to 1 GB/s at the drift step.
+    bench_chaos's re-optimized run: the ``DriftDetector`` walks the spec, and
+    ``reoptimize_topology`` re-solves on the card from the incumbent under
+    B(t_detect) and alive(t_detect); its topology takes over
+    ``REOPT_LAG_STEPS`` after detection. Static, round-robin and
+    re-optimized, dense, in one ``train_curves_chaos`` call; then 120
+    iterations of ``consensus_curves_chaos``. Check: a ``no_chaos`` spec
+    reproduces ``train_curves_cross`` bitwise."""
     from repro_torch import kernels
+    from repro_torch.core import BATopoConfig, check_invariants
+    from repro_torch.core.reopt import DriftDetector, DriftPolicy, reoptimize_topology
     from repro_torch.dsgd.chaos import drift_profile, make_chaos, no_chaos
     from repro_torch.dsgd.dynamic import cycle_tensor, static_cycle
     from repro_torch.dsgd.sim import CommSpec, DSGDSimConfig, consensus_curves_chaos
@@ -2262,13 +2444,27 @@ def phase_main_sim_chaos() -> dict:
                           straggler_mult=3.0,
                           bandwidth=drift_profile(steps, n, drift, NODE_BW_16, 4, 1.0))
 
-    chaos = spec_for(cfg.epochs * iters)
+    steps = cfg.epochs * iters
+    chaos = spec_for(steps)
+    det = DriftDetector.from_profile(chaos.bandwidth[0], chaos.alive[0],
+                                     DriftPolicy(cooldown_steps=steps))
+    t_detect, why = next((t, w) for t in range(1, steps)
+                         if (w := det.check(t, chaos.bandwidth[t], chaos.alive[t])) is not None)
+    kernels.reset_launch_counts()
+    reopt = reoptimize_topology(topo, scenario="node", node_bandwidths=chaos.bandwidth[t_detect],
+                                alive=chaos.alive[t_detect], cfg=BATopoConfig(seed=0, sa_iters=400))
+    reopt_launches = kernels.launch_counts()
+    assert check_invariants(reopt.topology) is None
+    assert not _missing("reopt", reopt_launches), \
+        f"main_sim_chaos reopt: kernels never launched: {_missing('reopt', reopt_launches)}"
+    t_act = min(t_detect + REOPT_LAG_STEPS, steps)
     cycles = [static_cycle(topo.W), cycle_tensor(topo)]
+    runs = cycles + [_piecewise_cycle(topo.W, reopt.topology.W, steps, t_act)]
     ones = np.ones(len(cycles))
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    accs, _ = train_curves_chaos(cycles, ones, CommSpec(), chaos, *data, cfg)
+    accs, _ = train_curves_chaos(runs, np.ones(len(runs)), CommSpec(), chaos, *data, cfg)
     wall_s = time.perf_counter() - t0
     launches = kernels.launch_counts()["gossip_mix_batched"]
     x0 = np.random.default_rng(0).normal(size=(n, 16))
@@ -2286,14 +2482,42 @@ def phase_main_sim_chaos() -> dict:
          steps=cfg.epochs * iters, churn=chaos.meta["churn"], p_drop=0.03,
          dead_worker_steps=int((chaos.alive == 0).sum()),
          dropped_links=int((chaos.link_up == 0).sum() // 2),
-         final_acc={"static": float(accs[0, -1]), "round_robin": float(accs[1, -1])},
+         final_acc={"static": float(accs[0, -1]), "round_robin": float(accs[1, -1]),
+                    "reopt": float(accs[2, -1])},
+         reopt=dict(t_detect=t_detect, reason=why, t_activate=t_act,
+                    reoptimized=reopt.reoptimized, attempts=reopt.attempts,
+                    fallback_reason=reopt.fallback_reason, r_asym_before=reopt.r_asym_before,
+                    r_asym_after=reopt.r_asym_after, time_to_reopt_s=reopt.time_to_reopt_s,
+                    launches=reopt_launches),
          accs=accs.tolist(), curves_wall_s=wall_s, gossip_launches=launches,
          consensus_iters=120, consensus_final_rel_error=[float(e[-1] / e[0]) for e in errs],
          consensus_wall_s=cons_s, no_chaos_bitwise_equal_to_cross=bitwise)
     assert np.all(np.isfinite(accs)) and np.all(np.isfinite(errs))
-    assert launches == cfg.epochs * iters * SIM_LEAVES, launches
+    assert launches == steps * SIM_LEAVES, launches
     assert all(bitwise.values()), f"no_chaos differs from the cross engine: {bitwise}"
     return launches
+
+
+def phase_topo_cli() -> dict:
+    """``python -m repro_torch.launch.topo`` on the card, through its
+    ``main``: the node scenario at n=16, r=32 (the default config). Check:
+    a finite r_asym below 1, every solve kernel launched."""
+    from repro_torch import kernels
+    from repro_torch.launch import topo as topo_cli
+
+    argv = ["--n", "16", "--r", "32", "--scenario", "node", "--bandwidths", "9.76x8,3.25x8"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = topo_cli.main(argv)
+    wall_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    emit("topo_cli", argv=argv, wall_s=wall_s, launches=launches,
+         **{k: report[k] for k in ("name", "edges", "r_asym", "quality_tier", "complete",
+                                   "max_degree", "b_min_GBs", "t_iter_ms")})
+    assert np.isfinite(report["r_asym"]) and report["r_asym"] < 1.0, report["r_asym"]
+    assert not _missing("topo_cli", launches), \
+        f"topo_cli: kernels never launched: {_missing('topo_cli', launches)}"
+    return report
 
 
 KERNEL_INFO = {
@@ -2332,6 +2556,7 @@ def main() -> int:
     from repro_torch.core import TopologyRequest, bcube_constraints
 
     res64, launches, restarts = phase_main_n64()
+    phase_main_barrier(res64)
     phase_solve("main_bcube", TopologyRequest(
         n=16, r=48, scenario="constraint", cs=bcube_constraints(p=4, k=2)))
     phase_card_vs_cpu()
@@ -2341,6 +2566,7 @@ def main() -> int:
     phase_main_restarts_f64()
     sweep_launches, _ = phase_main_sweep()
     phase_sweep_card_vs_cpu()
+    phase_main_service()
     for name in BATCHED_FORMS:
         timing[name]["batched"] = dict(batched_timing[name], launches=sweep_launches[name])
 
@@ -2365,6 +2591,7 @@ def main() -> int:
         phase_sim_kernel(Ws, sim_data), launches=sim_launches["gossip_mix_batched"])
     phase_main_sim_cross(topos, sim_data, sim_accs)
     phase_main_sim_chaos()
+    phase_topo_cli()
 
     path_launches = {"gossip_mix_batched": dsgd_launches["gossip_mix_batched"],
                      "gossip_mix": row_launches["gossip_mix"],

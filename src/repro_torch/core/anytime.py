@@ -17,8 +17,12 @@ wall time and not the time to enqueue.
 requests through one batched sweep (``api._sweep_one_n``) and the rest
 through :func:`solve_topology`.
 
-``engine="barrier"`` (the phase-barriered pipeline) is not ported yet
-(ROADMAP.md Queue 1 item 4).
+``solve_topology(engine="barrier")`` runs the phase-barriered pipeline
+(``api._optimize_request``: all SA restarts, then all ADMM restarts as one
+batched solve, then the polish and the pick), the comparison arm of the
+anytime engine and the full tier of the topology service. Deviation from
+the reference, whose barrier engine reads only ``cfg``: both engines apply
+the request's ``restarts`` and ``seed`` overrides.
 """
 from __future__ import annotations
 
@@ -286,11 +290,7 @@ class AnytimeSolver:
         bad = validate_request(request)
         if bad is not None:
             raise ValueError(bad)
-        cfg = cfg or _api.BATopoConfig()
-        if request.restarts is not None:
-            cfg = replace(cfg, restarts=int(request.restarts))
-        if request.seed is not None:
-            cfg = replace(cfg, seed=int(request.seed))
+        cfg = _request_cfg(request, cfg)
         _api._validate_pipeline_cfg(cfg)
         self.request = request
         self.cfg = cfg
@@ -653,20 +653,49 @@ class AnytimeSolver:
 # ---------------------------------------------------------------------------
 
 
+def _request_cfg(request: TopologyRequest, cfg):
+    """``cfg`` (default ``BATopoConfig()``) with the request's ``restarts``
+    and ``seed`` overrides applied."""
+    from . import api as _api
+
+    cfg = cfg or _api.BATopoConfig()
+    if request.restarts is not None:
+        cfg = replace(cfg, restarts=int(request.restarts))
+    if request.seed is not None:
+        cfg = replace(cfg, seed=int(request.seed))
+    return cfg
+
+
 def solve_topology(request: TopologyRequest, *, cfg=None,
                    budget_ms: float | None = None,
                    profile: dict | None = None,
                    seed_profile: PhaseProfile | None = None,
                    engine: str = "anytime") -> TopologyResult:
-    """Solve one :class:`TopologyRequest` with the :class:`AnytimeSolver`:
-    with ``budget_ms`` (or ``request.deadline_ms``) set it returns the best
-    incumbent at the deadline, otherwise the full solve. ``profile``, when a
-    dict, receives the legacy ``<phase>_s`` keys. The stages run on
-    ``cfg.device`` (default ``"cuda"``)."""
+    """Solve one :class:`TopologyRequest`.
+
+    ``engine="anytime"`` (default) runs the :class:`AnytimeSolver` — with
+    ``budget_ms`` (or ``request.deadline_ms``) set it returns the best
+    incumbent at the deadline, otherwise the full solve. ``engine="barrier"``
+    runs the phase-barriered pipeline (``api._optimize_request``, restarts
+    batched into one ADMM solve) — the comparison arm. ``profile``, when a
+    dict, receives the legacy ``<phase>_s`` keys in both engines. The stages
+    run on ``cfg.device`` (default ``"cuda"``).
+    """
     if engine == "barrier":
-        raise NotImplementedError(
-            "engine='barrier' is not ported to repro_torch yet "
-            "(ROADMAP.md Queue 1 item 4)")
+        from . import api as _api
+
+        prof: dict = {} if profile is None else profile
+        t0 = time.perf_counter()
+        topo = _api._optimize_request(
+            int(request.n), int(request.r), scenario=request.scenario,
+            cs=request.cs, node_bandwidths=request.node_bandwidths,
+            cfg=_request_cfg(request, cfg), profile=prof)
+        return TopologyResult(
+            topology=topo, r_asym=float(topo.meta["r_asym"]),
+            quality_tier="full",
+            elapsed_ms=(time.perf_counter() - t0) * 1e3,
+            profile=PhaseProfile.from_dict(prof), complete=True,
+            request=request)
     if engine != "anytime":
         raise ValueError(f"unknown engine {engine!r}; "
                          "expected 'anytime' or 'barrier'")

@@ -11,17 +11,24 @@ Deviation from the reference: ``BATopoConfig.sa_kernel`` defaults to True,
 so every BFS hop of the SA runs the ``hop_bfs`` CUDA kernel on the card;
 False selects the plain PyTorch hop explicitly.
 
+The phase-barriered pipeline ``_optimize_request`` (behind
+``solve_topology(engine="barrier")`` and the deprecated
+``optimize_topology``) runs all SA restarts, then all ADMM restarts as ONE
+``solve_batched`` call, then rounding, one polish call for every candidate
+and the pick; pass ``profile={}`` for its ``warm_s/admm_s/round_s/
+polish_s/eval_s`` wall times. Every phase ends in a host read of its
+result, so the times are the card's and not the time to enqueue.
+
 ``_sweep_one_n`` solves every budget of one node count as one batched ADMM
 solve (``engine.solve_sweep_spec``), then rounds, polishes
 (``_finalize_batch``) and picks (``_pick_best``) per budget; it is what
-``anytime.solve_topologies`` stands on.
-
-The barrier pipeline (``optimize_topology``, ``_optimize_request``),
-``sweep_topologies`` and ``large_n_admm_config`` are not ported yet
-(ROADMAP.md Queue 1 item 4).
+``anytime.solve_topologies`` and the deprecated ``sweep_topologies`` stand
+on.
 """
 from __future__ import annotations
 
+import time
+import warnings
 from dataclasses import dataclass, field, replace
 
 import numpy as np
@@ -34,7 +41,8 @@ from .graph import (Topology, all_edges, edge_index, is_connected, r_asym,
                     weight_matrix_from_weights)
 from .weights import metropolis_weights, polish_weights, polish_weights_batched
 
-__all__ = ["BATopoConfig", "extract_support", "repair_selection"]
+__all__ = ["BATopoConfig", "optimize_topology", "sweep_topologies",
+           "extract_support", "repair_selection", "large_n_admm_config"]
 
 
 def _pipeline_admm_default() -> ADMMConfig:
@@ -45,6 +53,15 @@ def _pipeline_admm_default() -> ADMMConfig:
     same stack as the reference on one device."""
     return ADMMConfig(max_iters=600, cg_inexact=True, dtype="float32",
                       psd_backend="auto", partition="auto")
+
+
+def large_n_admm_config(max_iters: int = 600) -> ADMMConfig:
+    """The measured large-n solver stack as an explicit factory for direct
+    solver use and benchmarks: the pipeline default (fp32 loop with fp64
+    residuals, inexact CG tied to the primal residual, the "auto" PSD
+    backend and partition) at ``max_iters``, named so callers need not rely
+    on the pipeline default staying the same."""
+    return replace(_pipeline_admm_default(), max_iters=max_iters)
 
 
 @dataclass
@@ -383,6 +400,21 @@ def _anneal_edges(n: int, inits: list[list[tuple[int, int]]], seeds: list[int],
             for e0, sd in zip(inits, seeds)]
 
 
+def _warm_starts(n: int, r: int, scenario: str, cs: ConstraintSet | None,
+                 deg_targets, cfg: BATopoConfig, n_restarts: int):
+    """Warm starts for every restart: greedy init (host) + simulated
+    annealing (batched on ``cfg.device`` by default). Returns
+    (g0, z0, lam0)s."""
+    inits, seeds = [], []
+    for k in range(n_restarts):
+        edges0, seed = _init_graph(n, r, scenario, cs, deg_targets, cfg, k)
+        inits.append(edges0)
+        seeds.append(seed)
+    sa_cs = cs if scenario != "homo" else None
+    annealed = _anneal_edges(n, inits, seeds, sa_cs, cfg)
+    return [_pack_warm(n, e) for e in annealed]
+
+
 def _make_solver(n: int, r: int, scenario: str, cs: ConstraintSet | None,
                  cfg: BATopoConfig):
     admm = replace(cfg.admm, device=cfg.device)
@@ -392,6 +424,157 @@ def _make_solver(n: int, r: int, scenario: str, cs: ConstraintSet | None,
         n, r, np.asarray(cs.M, dtype=np.float64), np.asarray(cs.e_cap, dtype=np.float64),
         admm, equality=cs.equality, edge_ok=np.asarray(cs.edge_ok),
     )
+
+
+def optimize_topology(
+    n: int,
+    r: int,
+    scenario: str = "homo",
+    cs: ConstraintSet | None = None,
+    node_bandwidths: np.ndarray | None = None,
+    cfg: BATopoConfig | None = None,
+    profile: dict | None = None,
+) -> Topology:
+    """Deprecated signature-compatible wrapper around the unified request
+    API: build a :class:`~repro_torch.core.anytime.TopologyRequest` and call
+    :func:`~repro_torch.core.anytime.solve_topology` instead. Behavior
+    (including the barrier execution order, profile keys and error
+    messages) is unchanged.
+    """
+    warnings.warn(
+        "optimize_topology(n, r, ...) is deprecated; build a "
+        "TopologyRequest and call repro_torch.core.anytime.solve_topology(...)",
+        DeprecationWarning, stacklevel=2)
+    return _optimize_request(n, r, scenario=scenario, cs=cs,
+                             node_bandwidths=node_bandwidths, cfg=cfg,
+                             profile=profile)
+
+
+def _optimize_request(
+    n: int,
+    r: int,
+    scenario: str = "homo",
+    cs: ConstraintSet | None = None,
+    node_bandwidths: np.ndarray | None = None,
+    cfg: BATopoConfig | None = None,
+    profile: dict | None = None,
+) -> Topology:
+    """Produce a BA-Topo for the given scenario — the phase-barriered
+    pipeline (``solve_topology(engine="barrier")``).
+
+    scenario ∈ {"homo", "node", "constraint"}:
+      - "homo": Eq. (9) with Card(g) ≤ r.
+      - "node": §IV-B1 — requires ``node_bandwidths``; Algorithm 1 allocates
+        per-node capacities, then the heterogeneous ADMM runs with equality
+        degree rows.
+      - "constraint": any ConstraintSet (intra-server, BCube, pod-boundary)
+        with inequality capacities.
+
+    With ``cfg.restarts > 1`` all restarts are solved by one batched call
+    (``solve_batched``) on ``cfg.device``; the best candidate (lowest
+    ``r_asym`` after repair + polish) wins. Pass ``profile={}`` to collect
+    the per-phase wall-time breakdown (keys
+    ``warm_s/admm_s/round_s/polish_s/eval_s``).
+    """
+    from .anytime import resolve_scenario
+
+    cfg = cfg or BATopoConfig()
+    _validate_pipeline_cfg(cfg)
+    prof = {} if profile is None else profile
+    cs, deg_targets, meta = resolve_scenario(n, r, scenario, cs,
+                                             node_bandwidths, context="api")
+
+    # ---- phase 1: warm starts (device SA by default) ----------------------
+    t0 = time.perf_counter()
+    n_restarts = max(1, cfg.restarts)
+    warms = _warm_starts(n, r, scenario, cs, deg_targets, cfg, n_restarts)
+    prof["warm_s"] = prof.get("warm_s", 0.0) + time.perf_counter() - t0
+
+    solver = _make_solver(n, r, scenario, cs, cfg)
+
+    # ---- phase 2: ADMM — batched restarts in one call (scan driver only;
+    # any other driver or backend goes through the solver's check_solver)
+    t0 = time.perf_counter()
+    if (n_restarts > 1 and cfg.admm.solver != "kkt_bicgstab_ilu"
+            and cfg.admm.driver == "scan"):
+        g0s = np.stack([w[0] for w in warms])
+        lam0s = np.asarray([w[2] for w in warms])
+        if scenario == "homo":
+            results = solver.solve_batched(g0s, lam0s)
+        else:
+            results = solver.solve_batched(g0s, np.stack([w[1] for w in warms]), lam0s)
+    elif scenario == "homo":
+        results = [solver.solve(g0=g0, lam0=lam0) for g0, _, lam0 in warms]
+    else:
+        results = [solver.solve(g0=g0, z0=z0, lam0=lam0) for g0, z0, lam0 in warms]
+    prof["admm_s"] = prof.get("admm_s", 0.0) + time.perf_counter() - t0
+
+    # ---- phase 3: rounding + greedy feasibility repair --------------------
+    t0 = time.perf_counter()
+    items, sources = _candidate_items(n, r, warms, results, cs, cfg, meta,
+                                      use_z=(scenario != "homo"))
+    prof["round_s"] = prof.get("round_s", 0.0) + time.perf_counter() - t0
+
+    # ---- phase 4: weight polish, all candidates in one batched call -------
+    t0 = time.perf_counter()
+    topos = _finalize_batch(n, items, cfg, cs)
+    prof["polish_s"] = prof.get("polish_s", 0.0) + time.perf_counter() - t0
+
+    # ---- phase 5: release validation + spectral evaluation (one invariant
+    # check and one r_asym per distinct support) ----------------------------
+    t0 = time.perf_counter()
+    best_topo, best_val, failures = _pick_best(n, items, topos, sources)
+    if best_topo is None:
+        if failures:
+            from .guard import TopologyInvariantError
+
+            bad = failures[0].rsplit(": ", 1)[-1]
+            raise TopologyInvariantError(
+                f"no candidate topology for n={n}, r={r}, "
+                f"scenario={scenario!r} passed release validation — first "
+                f"failure: {failures[0]!r} (all: {failures})",
+                invariant=bad, failures=failures)
+        raise ValueError(
+            f"failed to construct any connected topology for n={n}, r={r}, "
+            f"scenario={scenario!r} — every candidate (ADMM, warm starts, "
+            "classics) was disconnected under the constraints; raise r or "
+            "relax the ConstraintSet")
+    best_topo.meta["r_asym"] = best_val
+    prof["eval_s"] = prof.get("eval_s", 0.0) + time.perf_counter() - t0
+    return best_topo
+
+
+def sweep_topologies(ns, rs, cfg: BATopoConfig | None = None) -> dict:
+    """Deprecated signature-compatible wrapper: build
+    :class:`~repro_torch.core.anytime.TopologyRequest` objects and call
+    :func:`~repro_torch.core.anytime.solve_topologies` instead (the same
+    batched per-n sweep underneath). Returns ``{(n, r): Topology}``."""
+    warnings.warn(
+        "sweep_topologies(ns, rs, ...) is deprecated; build TopologyRequest "
+        "objects and call repro_torch.core.anytime.solve_topologies(...)",
+        DeprecationWarning, stacklevel=2)
+    return _sweep_requests(ns, rs, cfg)
+
+
+def _sweep_requests(ns, rs, cfg: BATopoConfig | None = None) -> dict:
+    """Homogeneous multi-scenario sweep: a BA-Topo for every (n, r) pair,
+    each node count's budgets as ONE batched ADMM solve
+    (``_sweep_one_n``). Returns ``{(n, r): Topology}``, keyed by the
+    *requested* r; a value is ``None`` if no connected candidate was found.
+    One warm start per (n, r): ``cfg.restarts`` is not consulted."""
+    cfg = cfg or BATopoConfig()
+    if cfg.admm.driver not in ("scan", "python"):
+        raise ValueError(
+            f"unknown driver {cfg.admm.driver!r}; expected 'scan' or 'python'")
+    if cfg.admm.solver == "kkt_bicgstab_ilu":
+        raise ValueError(
+            "sweep_topologies needs a device backend (schur_cg or "
+            "kkt_bicgstab); the scipy-ILU backend is host-side")
+    _validate_pipeline_cfg(cfg)
+    out: dict = {}
+    for n in ns:
+        out.update(_sweep_one_n(int(n), [int(r) for r in rs], cfg))
+    return out
 
 
 def _classic_candidates(n: int, r: int,

@@ -22,6 +22,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..device import DeviceFault
+
 __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "parse_ptxas"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -42,7 +44,7 @@ def _nvcc() -> str:
         return str(home / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+        raise DeviceFault("nvcc not found (looked in $CUDA_HOME/bin, "
                            "/usr/local/cuda/bin and PATH)")
     return found
 
@@ -79,7 +81,7 @@ def build(names=SOURCES) -> dict[str, Path]:
         os.replace(tmp, out)
         ptxas_logs[name] = log
     if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        raise DeviceFault("kernel build failed:\n" + "\n".join(failed))
     return paths
 
 
@@ -89,7 +91,11 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build([name])[name]))
+            path = build([name])[name]
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as exc:
+                raise DeviceFault(f"kernel library {path} does not load: {exc}") from exc
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int

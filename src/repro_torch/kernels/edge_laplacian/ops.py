@@ -20,6 +20,7 @@ import functools
 import numpy as np
 import torch
 
+from ...device import DeviceFault
 from .. import launch_util as _lu
 
 __all__ = ["edge_laplacian", "edge_quadform", "edge_laplacian_blocks", "edge_adjoint",
@@ -151,7 +152,7 @@ def _check_cuda(t: torch.Tensor, what: str, current: int | None = None,
 
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed with CUDA error {err}")
+        raise DeviceFault(f"{what} kernel launch failed with CUDA error {err}")
 
 
 def _batch_of(what: str, lead: tuple) -> int:

@@ -15,6 +15,7 @@ import ctypes
 
 import torch
 
+from ...device import DeviceFault
 from .. import build as _build
 
 __all__ = ["gossip_mix_batched", "gossip_mix_batched_plain", "gossip_mix",
@@ -108,7 +109,7 @@ def gossip_mix_batched(x: torch.Tensor, nbr_idx: torch.Tensor,
         _DTYPES[x.dtype], _vector(M, x.element_size(), x, out),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"gossip_mix_batched kernel launch failed with CUDA error {err}")
+        raise DeviceFault(f"gossip_mix_batched kernel launch failed with CUDA error {err}")
     gossip_mix_batched.launches += 1
     return out
 
@@ -144,7 +145,7 @@ def gossip_mix(x: torch.Tensor, nbrs: torch.Tensor, weights: torch.Tensor) -> to
         _DTYPES[x.dtype], _vector(M, x.element_size(), x, nbrs, out),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"gossip_mix kernel launch failed with CUDA error {err}")
+        raise DeviceFault(f"gossip_mix kernel launch failed with CUDA error {err}")
     gossip_mix.launches += 1
     return out
 

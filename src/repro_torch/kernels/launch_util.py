@@ -9,6 +9,7 @@ import ctypes
 
 import torch
 
+from ..device import DeviceFault
 from . import build as _build
 
 __all__ = ["library", "sm_count", "raw_stream", "raise_launch_error", "workspace"]
@@ -46,7 +47,7 @@ def raise_launch_error(kernel: str, err: int, index: int) -> None:
     if err == _INVALID_DEVICE:
         raise ValueError(f"{kernel}: the tensors lie on cuda:{index}, but the current "
                          f"CUDA device is cuda:{torch.cuda.current_device()}")
-    raise RuntimeError(f"{kernel} kernel launch failed with CUDA error {err}")
+    raise DeviceFault(f"{kernel} kernel launch failed with CUDA error {err}")
 
 
 def workspace(name: str, dev: torch.device, *specs: tuple[int, torch.dtype]) -> tuple:

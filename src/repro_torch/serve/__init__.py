@@ -1,7 +1,5 @@
-"""Serving runtime of the port: the batched KV/SSM-cache decode engine.
-
-The reference's topology-optimization service (``serve/topo_service.py``)
-is not ported yet (ROADMAP.md, Queue 1, item 6)."""
+"""Serving runtimes of the port: the batched KV/SSM-cache decode engine and
+the fault-tolerant topology-optimization service (DESIGN.md §15)."""
 from .engine import (
     DecodeState,
     ServeConfig,
@@ -10,6 +8,16 @@ from .engine import (
     make_functional_serve_step,
     make_serve_step,
 )
+from .topo_service import (
+    QUALITY_TIERS,
+    ServiceHooks,
+    ServicePolicy,
+    TopologyService,
+    TopoRequest,
+    TopoResponse,
+)
 
 __all__ = ["DecodeState", "ServeConfig", "ServingEngine", "greedy_sample",
-           "make_functional_serve_step", "make_serve_step"]
+           "make_functional_serve_step", "make_serve_step",
+           "QUALITY_TIERS", "ServiceHooks", "ServicePolicy",
+           "TopologyService", "TopoRequest", "TopoResponse"]

@@ -985,3 +985,38 @@ def test_batched_admm_on_card_matches_sequential_and_cpu(cuda, dtype):
             g0s, lam0s)
         for a, b in zip(batched, cpu):
             assert abs(a.lam_tilde - b.lam_tilde) <= 1e-9
+
+
+@pytest.mark.cuda
+def test_nan_rho_guarded_attempt_on_card_stops_after_one_chunk(cuda):
+    """A NaN ρ on the card: ``_eigh_clip``'s non-finite path and
+    ``abort_nonfinite`` stop the solve after its first chunk, as on the CPU;
+    the guard classifies it ``non_finite`` and the ladder falls through its
+    ρ-jittered retries to the classic rung."""
+    import dataclasses
+
+    from repro_torch.core import api as t_api
+    from repro_torch.core import guard as t_guard
+    from repro_torch.core.topologies import ring
+
+    n, r = 8, 12
+    admm = te.ADMMConfig(max_iters=120, check_every=30, rho=float("nan"))
+    cfg = t_api.BATopoConfig(sa_iters=50, polish_iters=50, admm=admm, device="cuda")
+    warm = t_api._pack_warm(n, ring(n).edges)
+    solver = t_api._make_solver(n, r, "homo", None, cfg)
+    assert solver.spec.I.device.type == "cuda"
+    kernels.reset_launch_counts()
+    res = solver.solve(g0=warm[0], lam0=warm[2])
+    assert res.iters == admm.check_every
+    assert kernels.launch_counts()["edge_laplacian_blocks"] == admm.check_every
+    assert t_guard.classify_result(res) is t_guard.SolveOutcome.NON_FINITE
+    rungs = t_guard.jittered_warm_rungs(n, r, "homo", None, cfg, warm, "t",
+                                        t_guard.GuardPolicy(warm_retries=2))
+    rungs.append(("classic", lambda: t_guard.classic_fallback(n, r)))
+    lad = t_guard.run_ladder(rungs)
+    assert lad.rung == "classic" and lad.attempts == 4
+    assert [rep.outcome for rep in lad.reports] == ["non_finite"] * 3 + ["ok"]
+    assert t_guard.check_invariants(lad.topology) is None
+    ok = dataclasses.replace(cfg, admm=dataclasses.replace(admm, rho=5.0))
+    assert t_guard.run_ladder(t_guard.jittered_warm_rungs(
+        n, r, "homo", None, ok, warm, "t", t_guard.GuardPolicy())).rung == "warm"

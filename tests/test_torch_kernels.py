@@ -344,3 +344,35 @@ ptxas info    : Used 12 registers, 368 bytes cmem[0]
          "spill_stores": 4, "spill_loads": 12},
         {"kernel": "_Z5otherv", "registers": 12, "smem_bytes": 0,
          "spill_stores": 0, "spill_loads": 0}]
+
+
+def test_build_load_and_launch_failures_are_device_faults(monkeypatch, tmp_path):
+    """No card, no ``nvcc``, a failed build, a library that does not load
+    and a failed launch each raise ``DeviceFault``, which the guard ladders
+    re-raise; it stays a ``RuntimeError``."""
+    from repro_torch.device import DeviceFault, resolve_device
+    from repro_torch.kernels import launch_util
+
+    assert issubclass(DeviceFault, RuntimeError)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceFault, match="device='cpu'"):
+        resolve_device("cuda")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    with pytest.raises(DeviceFault, match="nvcc not found"):
+        build._nvcc()
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text("#!/bin/sh\necho 'error: no card here'\nexit 1\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    with pytest.raises(DeviceFault, match="kernel build failed(.|\n)*no card here"):
+        build.build(["hop_bfs"])
+    bad = tmp_path / "bad.so"
+    bad.write_text("not a shared library")
+    monkeypatch.setattr(build, "build", lambda names: {name: bad for name in names})
+    monkeypatch.setattr(build, "_libs", {})
+    with pytest.raises(DeviceFault, match="does not load"):
+        build.load("hop_bfs", {})
+    with pytest.raises(DeviceFault, match="hop_step kernel launch failed with CUDA error 700"):
+        launch_util.raise_launch_error("hop_step", 700, 0)

@@ -103,8 +103,13 @@ def test_consensus_matches_reference_on_shared_initial_values():
 
 
 def test_entry_points_not_ported_raise_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        solve_topology(TopologyRequest(n=8, r=12), engine="barrier")
+    from repro_torch.core.engine import ADMMConfig, resolve_partition
+
+    cfg = BATopoConfig(device="cpu", admm=ADMMConfig(driver="python"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        solve_topology(TopologyRequest(n=8, r=12), cfg=cfg, engine="barrier")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        resolve_partition("edges", 8)
 
 
 def test_default_device_raises_without_a_card(monkeypatch):
