@@ -31,6 +31,13 @@ and drives the port's paths on ``cuda``:
   ``gossip_mix_batched`` kernel; then the row-loop oracle of one-worker
   ``gossip_mix`` kernels on the trained leaves, reduced smollm card vs CPU,
   and one profiled full-width train step;
+- elastic DSGD training through the launcher (``--elastic``): main_dsgd's
+  run with churn, stragglers, packet loss and a NIC collapse (a re-solve on
+  the card, adopted mid-run), every round mixing through
+  ``gossip_mix_batched`` over ``deg_cap = n − 1`` tables; a fault-free
+  elastic run held bitwise to main_dsgd's curve; and a full-width run
+  killed by SIGKILL and resumed from its checkpoint in subprocesses,
+  bitwise the uninterrupted run;
 - serving through the launcher (``repro_torch.launch.serve``): smollm-135m
   at full width (batch 16, 2,048-token prompts, 128 new tokens), every
   attention decode through the ``decode_attention`` kernel, and
@@ -98,6 +105,8 @@ PATH_KERNELS = {
     "service": ("edge_laplacian", "edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec",
                 "hop_step"),
     "reopt": ("edge_laplacian", "edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec"),
+    "elastic": ("edge_laplacian", "edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec",
+                "gossip_mix_batched"),
     "topo_cli": ("edge_laplacian", "edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec",
                  "hop_step"),
 }
@@ -1249,7 +1258,9 @@ def phase_main_service() -> dict:
     ``solve_sweep_spec``); r=128 again (a cache hit, the same object); a
     node-scenario n=16, r=32 request (the full tier, the barrier engine),
     then ``observe`` of the drifted profile (the four fast NICs at 1 GB/s)
-    invalidates it; n=64, r=112 under a 3 s deadline (the anytime route).
+    invalidates it; n=64, r=112 under a 3 s deadline (the anytime route),
+    then n=64, r=120 under a 3 s deadline, which has to answer within it:
+    the first deadlined solve taught the service its stage estimates.
     A second service whose full-tier hook answers n=16, r=24 with the real
     barrier answer and r=32 with a NaN topology: the warm tier runs the
     guarded ADMM on the card from the cached r=24 support. A third with
@@ -1292,6 +1303,13 @@ def phase_main_service() -> dict:
     svc.submit(TopoRequest(n=64, r=112, deadline_ms=3000.0))
     timed = svc.drain()[0]
     rows.append(_answer("n=64,r=112 deadline 3000 ms", timed))
+    learned = dict(svc._seed_profiles[64].phases)
+    svc.submit(TopoRequest(n=64, r=120, deadline_ms=3000.0))
+    again = svc.drain()[0]
+    rows.append(_answer("n=64,r=120 deadline 3000 ms (learned estimates)", again))
+    assert "admm" in learned, f"main_service: no ADMM estimate learned at n=64: {learned}"
+    assert again.latency_ms <= 3000.0, \
+        f"main_service: the second deadlined request took {again.latency_ms:.1f} ms ({again.reason})"
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = kernels.launch_counts()
@@ -1322,6 +1340,8 @@ def phase_main_service() -> dict:
     assert outs[2].reason.startswith("overloaded"), outs[2].reason
     rows += [_answer(f"max_queue=2 n=16,r={r}", resp) for r, resp in zip((24, 32), small.drain())]
     out = dict(cut=cut, wall_s=wall_s, launches=launches, rows=rows, stats=svc.stats,
+               deadline_latency_ms=[timed.latency_ms, again.latency_ms],
+               learned_stage_s=learned,
                stub_stats=stub.stats, overload=dict(reason=outs[2].reason, stats=small.stats))
     emit("main_service", **out)
     return out
@@ -1487,7 +1507,8 @@ def phase_main_dsgd():
     assert not missing, f"main_dsgd: kernels never launched on the path: {missing}"
     assert len(step1) == SMOLLM_LEAVES and all(ok for _, ok in step1.values()), \
         f"step-1 gossip differs from the plain mix: {step1}"
-    return last["state"], topo, launches, max(e for e, _ in step1.values())
+    run = dict(history=hist, peak_bytes=peak, steady_step_ms=float(np.mean(res["step_ms"][2:])))
+    return last["state"], topo, launches, max(e for e, _ in step1.values()), run
 
 
 # ---------------------------------------------------------------------------
@@ -1684,6 +1705,259 @@ def phase_dsgd_card_vs_cpu() -> None:
          gossip_launches_cuda=glaunch["gossip_mix_batched"])
     assert glaunch["gossip_mix_batched"] == SMOLLM_LEAVES * n_steps
     assert loss_rel <= 1e-4, f"DSGD card vs CPU: losses differ by {loss_rel} relative"
+
+
+# ---------------------------------------------------------------------------
+# phase 11b: elastic DSGD training at full width, through the launcher
+# ---------------------------------------------------------------------------
+
+ELASTIC_ARGS = ["--elastic", "--churn-events", "1", "--drift-step", "6", "--slow-nodes", "2",
+                "--slow-bw", "1.0", "--straggler-prob", "0.1", "--p-drop", "0.05",
+                "--steps", "12"]
+ELASTIC_PROFILE_ROUND = 4       # a steady round: no drift, re-solve or adoption
+
+
+def _elastic_step_timings(leaves: dict, W_eff, topo_W) -> dict:
+    """The elastic step's mix of the 11 leaves at n = 8 through
+    ``deg_cap = 7`` tables (weights gathered from the degraded matrix,
+    padded slots 0), against the BA topology's max-degree tables (row 4's
+    shape) and the dense ``torch.matmul(W_eff, x)``; kernel and witness
+    times from CUDA graphs of 10 steps, the eager call of the kernel and
+    the plain version eagerly (the plain neighbour gather allocates GBs)."""
+    from repro_torch.dsgd.gossip import (elastic_neighbor_tables, gather_neighbor_weights,
+                                         padded_neighbors)
+    from repro_torch.kernels.gossip_mix import ops as gm
+
+    n = DSGD_WORKERS
+    idx, mask = elastic_neighbor_tables(W_eff)
+    w = gather_neighbor_weights(W_eff, idx, mask)
+    pidx, pw = padded_neighbors(topo_W)
+    xs = list(leaves.values())
+    Wd = {x.dtype: W_eff.to(x.dtype) for x in xs}
+    out = dict(
+        ms=device_ms(lambda: [gm.gossip_mix_batched(x, idx, w) for x in xs], launches=10),
+        max_degree_ms=device_ms(lambda: [gm.gossip_mix_batched(x, pidx, pw) for x in xs],
+                                launches=10),
+        library_ms=device_ms(lambda: [torch.matmul(Wd[x.dtype], x.view(n, -1)) for x in xs],
+                             launches=10),
+        call_ms=eager_ms(lambda: [gm.gossip_mix_batched(x, idx, w) for x in xs],
+                         launches=10, warmup=2),
+        plain_ms=large_timings(lambda: [gm.gossip_mix_batched_plain(x, idx, w) for x in xs],
+                               None, reps=3)["ms"])
+    nbytes = sum(2 * x.numel() * x.element_size() + _table_bytes(idx, w) for x in xs)
+    out.update(bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes", bytes=nbytes,
+               deg=int(idx.shape[1]), max_degree=int(pidx.shape[1]),
+               library="torch.matmul(W_eff.to(dtype), x.view(n, -1)), all 11 leaves")
+    return out
+
+
+def phase_main_elastic(dsgd_run: dict) -> dict:
+    """``launch.train --elastic`` at full width on the card: main_dsgd's
+    arguments (smollm-135m, 8 workers, BA r=16 from the cache, batch 4, seq
+    256) with churn, stragglers, packet loss and two NICs collapsing at step
+    6, 12 rounds. Every round mixes through ``gossip_mix_batched`` over
+    ``deg_cap = 7`` tables; the drift fires a warm re-solve on the card,
+    adopted one round later. The first round's gossip is held against the
+    plain version on the same pre-gossip leaves and degraded weights; round
+    ``ELASTIC_PROFILE_ROUND`` runs under torch.profiler (busy, idle share,
+    launches, syncs: ``profile_dsgd``'s numbers for an elastic round) and
+    stays out of the steady round's mean. Then
+    a fault-free ``--elastic`` run with main_dsgd's exact arguments has to
+    give main_dsgd's losses and consensus errors bitwise (the reference's
+    contract, ``repro/dsgd/elastic.py:13-16``)."""
+    from repro_torch import kernels
+    from repro_torch.dsgd import elastic
+    from repro_torch.launch import train
+
+    real_mix, real_run = elastic.gossip_mix_batched, elastic.ElasticRuntime._run
+    real_round = elastic.ElasticRuntime.round
+    first: list = []
+    executions = [0]
+    mixed_with: dict = {}
+    prof: dict = {}
+
+    def checked_mix(x, nbr_idx, weights):
+        out = real_mix(x, nbr_idx, weights)
+        if len(first) < SMOLLM_LEAVES:
+            first.append(_batched_check(out, x, nbr_idx, weights))
+            mixed_with.update(deg=int(nbr_idx.shape[1]))
+            if len(first) == SMOLLM_LEAVES:     # the check's scratch stays out of the peak
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+        return out
+
+    def counted_run(self, state, batch, es, alive, link_up, mix):
+        executions[0] += 1
+        if "W_eff" not in mixed_with:
+            from repro_torch.dsgd.chaos import degrade_matrix
+            mixed_with["W_eff"] = degrade_matrix(es.W, mix, link_up)
+            mixed_with["W"] = es.W
+        return real_run(self, state, batch, es, alive, link_up, mix)
+
+    def profiled_round(self, state, es, batch):
+        if int(state.step) != ELASTIC_PROFILE_ROUND:
+            return real_round(self, state, es, batch)
+        out = []
+        prof.update(_profiled(lambda: out.append(real_round(self, state, es, batch)),
+                              match=("gossip_mix",)))
+        return out[0]
+
+    last = {}
+    elastic.gossip_mix_batched, elastic.ElasticRuntime._run = checked_mix, counted_run
+    elastic.ElasticRuntime.round = profiled_round
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train.main(DSGD_ARGS + ELASTIC_ARGS + ["--topo-cache", str(TOPO_CACHE)],
+                         on_step=lambda s, state, m: last.update(state=state))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        elastic.gossip_mix_batched, elastic.ElasticRuntime._run = real_mix, real_run
+        elastic.ElasticRuntime.round = real_round
+    peak = torch.cuda.max_memory_allocated()
+    hist, el = res["history"], res["elastic"]
+    losses = [h["loss"] for h in hist]
+    frozen = {e["step"] for e in el["log"] if e["attempts"] > 1 and not np.isfinite(
+        hist[e["step"]]["loss"])}
+    busy = {e["step"] for e in el["events"] if e["event"] in ("reopt", "keep_incumbent")}
+    steady = [ms for s, ms in enumerate(res["step_ms"])
+              if s >= 2 and s not in busy and s != ELASTIC_PROFILE_ROUND]
+    timing = _elastic_step_timings(_leaves(last["state"].params), mixed_with["W_eff"],
+                                   mixed_with["W"])
+    del last
+    torch.cuda.empty_cache()
+
+    # the fault-free elastic run with main_dsgd's arguments: bitwise its curve
+    kernels.reset_launch_counts()
+    clean = train.main(DSGD_ARGS + ["--elastic", "--topo-cache", str(TOPO_CACHE)])
+    clean_launches = kernels.launch_counts()
+    torch.cuda.empty_cache()
+    keys = ("loss", "loss_max", "consensus_err")
+    ref = [tuple(h[k] for k in keys) for h in dsgd_run["history"]]
+    got = [tuple(h[k] for k in keys) for h in clean["history"]]
+    errs = [e for e, _ in first]
+    out = dict(arch=res["arch"], workers=DSGD_WORKERS, batch=4, seq=256, steps=len(hist),
+               argv=ELASTIC_ARGS, topology=res["topology"], losses=losses,
+               consensus_err=[h["consensus_err"] for h in hist],
+               n_alive=[h["n_alive"] for h in hist], log=el["log"], events=el["events"],
+               reopts=el["reopts"], adopted=el["adopted"], drops=el["drops"],
+               final_topology=el["final_topology"],
+               time_to_reopt_s=[e["time_to_reopt_s"] for e in el["events"]
+                                if e["event"] == "reopt"],
+               step_executions=executions[0], step_ms=res["step_ms"],
+               steady_step_ms=float(np.mean(steady)),
+               main_dsgd_steady_step_ms=dsgd_run["steady_step_ms"],
+               max_memory_allocated_bytes=peak,
+               main_dsgd_max_memory_allocated_bytes=dsgd_run["peak_bytes"],
+               first_gossip_vs_plain=dict(deg=mixed_with["deg"], max_abs_err=max(errs),
+                                          within=all(ok for _, ok in first)),
+               profiled_round=dict(step=ELASTIC_PROFILE_ROUND, **prof),
+               wall_s=wall_s, launches=launches, kernel_timing=timing,
+               fault_free_bitwise_to_main_dsgd=got == ref,
+               fault_free_launches=clean_launches["gossip_mix_batched"])
+    emit("main_elastic", **out)
+    assert all(np.isfinite(h["loss"]) for s, h in enumerate(hist) if s not in frozen), losses
+    assert el["adopted"] >= 1 and any(e["event"] == "reopt" for e in el["events"]), el["events"]
+    assert launches["gossip_mix_batched"] == SMOLLM_LEAVES * executions[0], \
+        (launches, executions[0])
+    missing = [k for k in PATH_KERNELS["elastic"] if launches[k] == 0]
+    assert not missing, f"main_elastic: kernels never launched on the path: {missing}"
+    assert mixed_with["deg"] == DSGD_WORKERS - 1
+    assert len(first) == SMOLLM_LEAVES and all(ok for _, ok in first), \
+        f"first elastic gossip differs from the plain mix: {first}"
+    assert got == ref, f"fault-free --elastic is not main_dsgd's curve: {got} vs {ref}"
+    return dict(timing, max_abs_err=max(errs), launches=launches["gossip_mix_batched"])
+
+
+# ---------------------------------------------------------------------------
+# phase 11c: a SIGKILLed elastic run resumed from its checkpoint, bitwise
+# ---------------------------------------------------------------------------
+
+RESUME_ARGS = ["--arch", "smollm-135m", "--workers", "4", "--topo", "ba", "--r", "8",
+               "--optimizer", "sgd", "--batch", "4", "--seq", "256", "--steps", "8",
+               "--log-every", "1", "--seed", "0", "--device", "cuda", "--elastic",
+               "--drift-step", "4", "--ckpt-every", "3", "--topo-cache", str(TOPO_CACHE)]
+RESUME_DIR = ROOT / "build" / "chip_smoke" / "elastic_resume"
+
+
+def phase_elastic_resume() -> dict:
+    """The launcher in subprocesses on the card at smollm-135m's full width
+    (cut for disk and time: 4 workers, 8 steps): an uninterrupted elastic
+    run with the NICs collapsing at step 4 (a re-solve on the card, adopted
+    at step 5) and, beside it on the same card, the same run SIGKILLed
+    before step 5 (``--kill-at-step``); then that run continued with
+    ``--resume`` from its step-4 checkpoint.
+    Every logged step of the resumed run has the uninterrupted run's loss
+    and consensus error bitwise (the history's floats are shortest
+    round-trip reprs)."""
+    import os
+    import shutil
+    import signal
+
+    from repro_torch.launch import steps
+
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    RESUME_DIR.mkdir(parents=True)
+    steps.topology_for(4, "ba", 8, 0, device="cuda", cache_path=TOPO_CACHE)
+    ck = RESUME_DIR / "ck"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {}
+
+    procs: list = []
+
+    def start(extra: list) -> tuple:
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train"] + RESUME_ARGS + extra, env=env,
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        return time.perf_counter(), procs[-1]
+
+    def finish(tag: str, started: tuple) -> subprocess.CompletedProcess:
+        t0, proc = started
+        out, err = proc.communicate(timeout=600)
+        runs[tag] = dict(rc=proc.returncode, wall_s=time.perf_counter() - t0)
+        return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+    def history(path) -> dict:
+        with open(path) as f:
+            return {h["step"]: (h["loss"], h["consensus_err"]) for h in json.load(f)["history"]}
+
+    try:
+        free = shutil.disk_usage(RESUME_DIR).free
+        # the uninterrupted and the killed run share the card, side by side
+        first = start(["--json-out", str(RESUME_DIR / "full.json")])
+        second = start(["--ckpt-dir", str(ck), "--kill-at-step", "5"])
+        full, killed = finish("uninterrupted", first), finish("killed", second)
+        assert full.returncode == 0, full.stdout[-3000:] + full.stderr[-3000:]
+        survived = {f.name: f.stat().st_size for f in sorted(ck.iterdir())}
+        resumed = finish("resumed", start(["--ckpt-dir", str(ck), "--resume",
+                                           "--json-out", str(RESUME_DIR / "resumed.json")]))
+        assert resumed.returncode == 0, resumed.stdout[-3000:] + resumed.stderr[-3000:]
+        written = {f.name: f.stat().st_size for f in sorted(ck.iterdir())}
+        ref, got = history(RESUME_DIR / "full.json"), history(RESUME_DIR / "resumed.json")
+        with open(RESUME_DIR / "full.json") as f:
+            events = json.load(f)["elastic"]["events"]
+    finally:
+        for proc in procs:              # none outlives the phase, whatever failed
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    equal = {s: got[s] == ref.get(s) for s in got}
+    out = dict(argv=RESUME_ARGS, runs=runs, disk_free_bytes=free,
+               killed_returncode=killed.returncode, checkpoints_after_kill=survived,
+               checkpoints_after_resume=written,
+               resumed_line=[ln for ln in resumed.stdout.splitlines() if "resumed" in ln],
+               uninterrupted=ref, resumed=got, bitwise_equal=equal, events=events)
+    emit("elastic_resume", **out)
+    assert killed.returncode == -signal.SIGKILL, f"killed run: returncode {killed.returncode}"
+    assert survived, "no checkpoint survived the kill"
+    assert sorted(got) == list(range(max(int(k[5:-4]) for k in survived), 8)), sorted(got)
+    assert all(equal.values()), f"resumed curve differs: {equal}"
+    assert any(e["event"] == "adopt" for e in events), events
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2570,7 +2844,7 @@ def main() -> int:
     for name in BATCHED_FORMS:
         timing[name]["batched"] = dict(batched_timing[name], launches=sweep_launches[name])
 
-    state, topo, dsgd_launches, step1_err = phase_main_dsgd()
+    state, topo, dsgd_launches, step1_err, dsgd_run = phase_main_dsgd()
     timing.update(phase_gossip_kernels(state, topo))
     timing["gossip_mix_batched"]["max_abs_err"] = step1_err
     row_launches = phase_rowloop(state, topo)
@@ -2578,6 +2852,8 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     phase_dsgd_card_vs_cpu()
+    timing["gossip_mix_batched"]["elastic"] = phase_main_elastic(dsgd_run)
+    phase_elastic_resume()
 
     timing.update(phase_serve_kernels())
     dense = phase_serve_dense()
@@ -2605,7 +2881,8 @@ def main() -> int:
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], call_ms=t["call_ms"],
-            **{k: t[k] for k in ("ms_warm", "library_ms_warm", "sim", "batched") if k in t}))
+            **{k: t[k] for k in ("ms_warm", "library_ms_warm", "sim", "batched", "elastic")
+               if k in t}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

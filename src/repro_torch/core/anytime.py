@@ -241,6 +241,10 @@ class TopologyResult:
     reason: str | None = None    # degradation trail, None when clean
     request: TopologyRequest | None = None
     improvements: int = 0        # number of incumbent updates observed
+    #: the solver's per-stage-invocation cost estimates (stage → seconds,
+    #: an EMA over the invocations this solve made); what a later solve's
+    #: ``seed_profile`` takes
+    stage_estimates: dict = field(default_factory=dict)
 
     @property
     def ok(self) -> bool:
@@ -386,7 +390,8 @@ class AnytimeSolver:
             topology=topo, r_asym=inc.r_asym, quality_tier=tier,
             elapsed_ms=self.elapsed_ms, profile=self.profile,
             complete=self.complete, reason="; ".join(self.reasons) or None,
-            request=self.request, improvements=self._n_improvements)
+            request=self.request, improvements=self._n_improvements,
+            stage_estimates=dict(self._est))
 
     # -- candidate machinery --------------------------------------------
 

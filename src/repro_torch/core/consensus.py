@@ -20,7 +20,8 @@ from ..device import resolve_device
 from .bandwidth import PaperConstants, t_iter
 from .graph import Topology
 
-__all__ = ["ConsensusTrace", "simulate_consensus_batched", "time_to_error"]
+__all__ = ["ConsensusTrace", "simulate_consensus", "simulate_consensus_batched",
+           "time_to_error"]
 
 
 @dataclass
@@ -59,6 +60,24 @@ def _traces(topos, errors, iters, b_mins, const) -> list[ConsensusTrace]:
         traces.append(ConsensusTrace(errors=errors[k], t_iter_ms=ti,
                                      times_ms=times, topology=topo.name))
     return traces
+
+
+def simulate_consensus(
+    topo: Topology,
+    iters: int = 200,
+    dim: int = 16,
+    seed: int = 0,
+    b_min: float | None = None,
+    const: PaperConstants = PaperConstants(),
+    device: str = "cuda",
+    x0: np.ndarray | None = None,
+) -> ConsensusTrace:
+    """The consensus error trace of one topology: the one-topology call of
+    :func:`simulate_consensus_batched`, from ``x0`` ((n, dim), default:
+    standard-Gaussian from ``seed``); ``b_min`` turns iterations into wall
+    clock by Eq. 34."""
+    return simulate_consensus_batched([topo], iters, dim, seed, [b_min], const,
+                                      device=device, x0=x0)[0]
 
 
 def simulate_consensus_batched(

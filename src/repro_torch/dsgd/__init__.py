@@ -1,11 +1,12 @@
 """Decentralized SGD of the port on one device: gossip over stacked workers,
-the DSGD train steps, and the §VI-B evaluation engines (``sim``) with their
-schedules, round-robin cycles, CHOCO compressors and fault injection.
+the DSGD train steps, the elastic runtime (churn, stragglers, packet loss,
+live re-optimization and crash-safe resume around the real model's step),
+and the §VI-B evaluation engines (``sim``) with their schedules, round-robin
+cycles, CHOCO compressors and fault injection.
 
 Not ported yet: the collective-permute gossip (``gossip_shard``,
 ``gossip_shard_elastic``, ``gossip_shard_dynamic``) and the multi-device
-train steps (ROADMAP.md, Queue 1, item 7), and the elastic runtime
-(``dsgd/elastic.py``, item 8).
+train steps, the elastic one among them (ROADMAP.md, Queue 1, item 7).
 """
 from .schedule import (
     GossipSchedule,
@@ -33,6 +34,17 @@ from .chaos import (
     make_chaos,
     no_chaos,
     random_churn_windows,
+)
+from .elastic import (
+    ElasticHooks,
+    ElasticRuntime,
+    ElasticSpec,
+    ElasticState,
+    RoundReport,
+    fault_free_round_ms,
+    make_elastic_sharded_train_step,
+    make_elastic_train_step,
+    node_step_latency_ms,
 )
 from .dynamic import (
     cycle_contraction,
@@ -79,6 +91,10 @@ __all__ = [
     "gossip_sim", "gossip_sim_tree",
     "gossip_sim_tree_rowloop", "padded_neighbors", "elastic_neighbor_tables",
     "gather_neighbor_weights", "select_cycle_matrix",
+    "ElasticSpec", "ElasticState", "ElasticHooks", "ElasticRuntime",
+    "RoundReport", "make_elastic_train_step",
+    "make_elastic_sharded_train_step", "node_step_latency_ms",
+    "fault_free_round_ms",
     "DSGDSimConfig", "accuracy_curve_host", "accuracy_curves",
     "accuracy_curves_seeds",
     "CommSpec", "train_curves_cross", "accuracy_curve_host_cross",

@@ -15,8 +15,10 @@ Gradients of all workers come from one ``torch.func.vmap`` of
 workers. The optimizer is vmapped the same way; the update, the gossip and
 the metrics run under ``torch.no_grad()``.
 
-``make_matmul_gossip_train_step``, ``make_sharded_train_step`` and the
-elastic runtime are not ported yet.
+The elastic runtime's step (:mod:`.elastic`) is this step with the fault
+masks as arguments. ``make_matmul_gossip_train_step`` and
+``make_sharded_train_step`` are multi-device work, not ported yet
+(ROADMAP.md, Queue 1, item 7).
 """
 from __future__ import annotations
 

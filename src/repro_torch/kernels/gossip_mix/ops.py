@@ -14,12 +14,13 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils._pytree import tree_map
 
 from ...device import DeviceFault
 from .. import build as _build
 
 __all__ = ["gossip_mix_batched", "gossip_mix_batched_plain", "gossip_mix",
-           "gossip_mix_plain"]
+           "gossip_mix_plain", "gossip_mix_tree"]
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
@@ -148,6 +149,13 @@ def gossip_mix(x: torch.Tensor, nbrs: torch.Tensor, weights: torch.Tensor) -> to
         raise DeviceFault(f"gossip_mix kernel launch failed with CUDA error {err}")
     gossip_mix.launches += 1
     return out
+
+
+def gossip_mix_tree(params, nbr_params, weights: torch.Tensor):
+    """:func:`gossip_mix` leaf by leaf over a parameter pytree: ``params`` a
+    pytree of one worker's tensors, ``nbr_params`` the same pytree with a
+    leading (deg,) axis on every leaf, ``weights`` (deg+1,) float32."""
+    return tree_map(lambda x, nb: gossip_mix(x, nb, weights), params, nbr_params)
 
 
 gossip_mix_batched.launches = 0

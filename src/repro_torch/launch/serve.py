@@ -4,8 +4,10 @@ CLI of ``repro/launch/serve.py`` plus ``--device``.
 Runs on ``cuda`` unless ``--device cpu``; every attention decode goes
 through the ``decode_attention`` kernel and every SSD chunk of a Mamba-2
 prefill through ``ssd_intra_chunk`` (``--no-use-kernel`` takes the plain
-PyTorch forms). Weights are random, from ``--seed``; prompts are drawn
-from numpy's generator of the same seed, as the reference draws them.
+PyTorch forms). Weights are random, from ``--seed``, or restored from
+``--ckpt`` (a checkpoint of one model's params, as ``save_checkpoint``
+writes it); prompts are drawn from numpy's generator of the same seed, as
+the reference draws them.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --reduced --batch 4 --prompt-len 16 --max-new 32 --device cpu
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
+from ..checkpoint import load_checkpoint
 from ..configs import get_arch, reduced_for_smoke
 from ..device import resolve_device
 from ..models import transformer
@@ -44,7 +47,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--use-kernel", action=argparse.BooleanOptionalAction, default=True,
                     help="the decode_attention / ssd_intra_chunk kernels (default); "
                          "--no-use-kernel takes the plain PyTorch forms")
-    ap.add_argument("--ckpt", default=None, help="npz checkpoint to serve (not ported)")
+    ap.add_argument("--ckpt", default=None,
+                    help="npz checkpoint of one model's params to serve (from save_checkpoint)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json-out", default=None)
@@ -56,15 +60,13 @@ def main(argv=None) -> dict:
     tokens, the prefill time (to the first token), each decode step's time,
     the tokens per second and, on a card, the peak device memory."""
     args = parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt: checkpoint/store.py is not ported yet (ROADMAP.md, Queue 1, item 8, "
-            "'Checkpoint and resume')")
     dev = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced_for_smoke(cfg)
     params = tree_map(lambda t: t.to(dev), transformer.init_params(args.seed, cfg))
+    if args.ckpt:
+        params, _ = load_checkpoint(args.ckpt, params)
 
     cache_len = args.cache_len or (args.prompt_len + args.max_new + 8)
     scfg = ServeConfig(batch_size=args.batch, cache_len=cache_len,

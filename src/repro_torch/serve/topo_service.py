@@ -227,6 +227,20 @@ class TopologyService:
                 self._seed_profiles[n] = PhaseProfile(
                     {k: v / restarts for k, v in prof.phases.items()})
 
+    def _learn_stages(self, n: int, estimates: dict) -> None:
+        """Keep one anytime solve's per-stage-invocation cost estimates
+        (seconds per SA restart, per ADMM solve, per polish, per evaluation)
+        as the seed profile of ``n``, so the next deadlined request at ``n``
+        skips the stages that cannot fit. The solver seeded its estimates
+        from this profile and folded each invocation in as an EMA, so they
+        already blend the prior with this solve. The reference learns no
+        stage estimates live: it seeds them from its bench rows only (a
+        deviation; the port has no card rows to seed from)."""
+        stages = {k: v for k, v in estimates.items()
+                  if k in ("warm", "admm", "polish", "eval")}
+        if stages:
+            self._seed_profiles[n] = PhaseProfile(stages)
+
     # ------------------------------------------------------------------
     # admission
     # ------------------------------------------------------------------
@@ -527,10 +541,11 @@ class TopologyService:
         """Deadline-driven miss on the anytime pipeline (DESIGN.md §17): the
         former full→warm→sa_only ladder rungs collapse into ONE budgeted
         best-so-far solve that degrades continuously — the budget is the
-        remaining deadline, the stage scheduler is seeded from tracked
-        bench phase timings when available, and an expired budget still
-        answers via the solver's internal classic fallback. Never raises
-        for a solver outcome; a device fault propagates."""
+        remaining deadline, the stage scheduler is seeded from explicit
+        bench rows and from what earlier solves at this n learned
+        (:meth:`_learn_stages`), and an expired budget still answers via
+        the solver's internal classic fallback. Never raises for a solver
+        outcome; a device fault propagates."""
         n = int(req.n)
         key = self._cache_key(req)
         queue_s = time.perf_counter() - t_sub
@@ -542,6 +557,7 @@ class TopologyService:
                                  seed_profile=self._seed_profiles.get(n))
             topo, tier, reason = res.topology, res.quality_tier, res.reason
             prof = {"queue_s": queue_s, **res.profile.to_dict()}
+            self._learn_stages(n, res.stage_estimates)
         except DEVICE_FAULTS:
             raise
         except Exception as exc:  # noqa: BLE001 — terminal guard

@@ -36,7 +36,10 @@ launches, and the batched ADMM against its sequential solves (float64:
 λ̃ within 1e-9) and the CPU;
 reduced fp32 serving (smollm, gemma2 long context, mamba2), card vs CPU,
 within 1e-5 relative in the logits of the prefill and 8 decode steps, with
-equal greedy tokens.
+equal greedy tokens; the elastic mix over ``deg_cap = n − 1`` tables with
+weights gathered from a degraded W within the gossip tolerance, and with no
+faults bitwise the max-degree table's mix; a bfloat16 checkpoint restored
+bit for bit onto the card.
 """
 import numpy as np
 import pytest
@@ -1020,3 +1023,56 @@ def test_nan_rho_guarded_attempt_on_card_stops_after_one_chunk(cuda):
     ok = dataclasses.replace(cfg, admm=dataclasses.replace(admm, rho=5.0))
     assert t_guard.run_ladder(t_guard.jittered_warm_rungs(
         n, r, "homo", None, ok, warm, "t", t_guard.GuardPolicy())).rung == "warm"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_elastic_gossip_at_deg_cap_on_card(cuda, dtype):
+    """The elastic step's mix: weights gathered on the card from a degraded
+    W over ``deg_cap = n − 1`` tables (padded slots weigh 0), one launch
+    per leaf, within the gossip tolerance of the plain version; with no
+    faults it is bitwise the max-degree table's mix."""
+    from repro_torch.core.topologies import make_baseline
+    from repro_torch.dsgd.chaos import degrade_matrix
+    from repro_torch.dsgd.gossip import (elastic_neighbor_tables, gather_neighbor_weights,
+                                         padded_neighbors)
+
+    n = 8
+    topo = make_baseline("exponential", n)
+    W = torch.tensor(topo.W, dtype=torch.float32, device=cuda)
+    idx, mask = elastic_neighbor_tables(W)
+    assert tuple(idx.shape) == (n, n - 1) and idx.device.type == "cuda"
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((n, 3, 1000))
+                         .astype(np.float32)).to(cuda, dtype)
+    alive = torch.ones(n, device=cuda)
+    alive[3] = 0.0
+    link = torch.ones(n, n, device=cuda)
+    link[0, 1] = link[1, 0] = 0.0
+    for a, lk in ((torch.ones(n, device=cuda), torch.ones(n, n, device=cuda)), (alive, link)):
+        w = gather_neighbor_weights(degrade_matrix(W, a, lk), idx, mask)
+        before = tgm.gossip_mix_batched.launches
+        got = tgm.gossip_mix_batched(x, idx, w)
+        torch.cuda.synchronize()
+        assert tgm.gossip_mix_batched.launches == before + 1
+        want = tgm.gossip_mix_batched_plain(x, idx, w)
+        terms = tgm.gossip_mix_batched_plain(x.double().abs(), idx, w.abs()).float()
+        assert bool(((got.float() - want.float()).abs()
+                     <= _gossip_tol(got, want, terms, n - 1, dtype)).all())
+    pidx, pw = padded_neighbors(W)
+    full = gather_neighbor_weights(W, idx, mask)
+    assert torch.equal(tgm.gossip_mix_batched(x, idx, full), tgm.gossip_mix_batched(x, pidx, pw))
+
+
+@pytest.mark.cuda
+def test_bf16_checkpoint_round_trip_on_a_card_template(cuda, tmp_path):
+    """A bfloat16 leaf comes back bit for bit onto the template's card."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    tree = {"embed": torch.randn(64, 32, device=cuda).to(torch.bfloat16),
+            "opt": {"m": torch.randn(64, 32, device=cuda)}, "step": torch.tensor(3, device=cuda)}
+    save_checkpoint(str(tmp_path / "c.npz"), tree, step=3)
+    got, step = load_checkpoint(str(tmp_path / "c.npz"), tree_map(torch.zeros_like, tree))
+    assert step == 3 and got["embed"].device.type == "cuda"
+    assert got["embed"].dtype == torch.bfloat16
+    assert torch.equal(got["embed"].view(torch.int16), tree["embed"].view(torch.int16))
+    assert torch.equal(got["opt"]["m"], tree["opt"]["m"]) and int(got["step"]) == 3

@@ -35,6 +35,7 @@ from repro.models import transformer as jtr  # noqa: E402
 from repro.serve import ServeConfig as JServeConfig  # noqa: E402
 from repro.serve import ServingEngine as JServingEngine  # noqa: E402
 from repro_torch import convert, kernels  # noqa: E402
+from repro_torch.checkpoint import CheckpointError, save_checkpoint  # noqa: E402
 from repro_torch.configs import get_arch, reduced_for_smoke  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as tdec  # noqa: E402
 from repro_torch.launch import serve as tserve_cli  # noqa: E402
@@ -389,9 +390,25 @@ def test_serve_cli_asks_for_cuda_and_refuses_ckpt(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         tserve_cli.main(["--arch", "smollm-135m"])
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(CheckpointError, match="unreadable"):
         tserve_cli.main(["--arch", "smollm-135m", "--reduced", "--device", "cpu",
                          "--ckpt", "x.npz"])
+
+
+def test_serve_cli_serves_a_saved_checkpoint(tmp_path, monkeypatch):
+    """``--ckpt`` restores one model's params through ``load_checkpoint``:
+    the tokens are those of the same params served from memory, and not
+    those of the seed's random weights."""
+    cfg = reduced_for_smoke(get_arch("smollm-135m"))
+    params = ttr.init_params(1, cfg)
+    save_checkpoint(str(tmp_path / "p.npz"), params, step=3)
+    argv = ["--arch", "smollm-135m", "--reduced", "--batch", "2", "--prompt-len", "8",
+            "--max-new", "6", "--device", "cpu"]
+    seeded = tserve_cli.main(argv)["tokens"]
+    restored = tserve_cli.main(argv + ["--ckpt", str(tmp_path / "p.npz")])["tokens"]
+    monkeypatch.setattr(tserve_cli.transformer, "init_params", lambda seed, c: params)
+    in_memory = tserve_cli.main(argv)["tokens"]
+    assert restored == in_memory and restored != seeded
 
 
 def test_caches_round_trip_through_convert_keep_bf16_bits():

@@ -259,6 +259,25 @@ def test_ema_seeded_from_explicit_rows_as_the_reference():
     assert off.stats["ema_seeded"] == 0 and not off._ema_ms
 
 
+def test_deadlined_requests_learn_stage_estimates_and_skip_what_cannot_fit():
+    """After one deadlined request at n, the service's seed profile for n
+    holds that solve's per-invocation stage estimates (a deviation: the
+    reference learns none live). A second deadlined request at n whose
+    deadline is the learned ADMM estimate (× the 1.5 safety factor cannot
+    fit) records its ADMM as skipped instead of running past the deadline."""
+    cfg = t_api.BATopoConfig(sa_iters=40, polish_iters=80, device="cpu", restarts=1,
+                             admm=t_api.large_n_admm_config(max_iters=100))
+    svc = TopologyService(cfg=cfg)
+    first = svc.request(12, 24, deadline_ms=60_000.0)
+    assert first.ok and first.quality_tier == "full"
+    learned = svc._seed_profiles[12].phases
+    assert {"warm", "admm", "polish", "eval"} <= set(learned)
+    assert learned["admm"] > 0.0
+    second = svc.request(12, 26, deadline_ms=learned["admm"] * 1e3)
+    assert second.ok and check_invariants(second.topology) is None
+    assert "restart 0: skipped (admm est" in second.reason, second.reason
+
+
 # =========================================================================
 # device faults propagate
 # =========================================================================
