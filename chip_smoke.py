@@ -43,9 +43,18 @@ and drives the port's paths on ``cuda``:
   attention decode through the ``decode_attention`` kernel, and
   mamba2-780m at full width (batch 8, 1,024-token prompts, 64 new tokens),
   every layer's SSD chunks of its prefill through one ``ssd_intra_chunk``
-  launch (the bf16 tensor-core route); then both kernels at their serving
-  shapes and at gemma2-9b's, reduced smollm, gemma2 (long context) and
-  mamba2 card vs CPU, one profiled full-width decode step and one profiled
+  launch (the bf16 tensor-core route); the other four families at full
+  width: granite-moe-1b-a400m (32 experts, top-8; batch 16, 1,024-token
+  prompts, 64 new tokens), internvl2-1b (256 stub patch embeddings before
+  768-token prompts, group 7), whisper-tiny (fp32, 1,500 stub encoder
+  frames, cross attention; 64-token prompts, 128 new tokens) and
+  zamba2-2.7b (54 Mamba-2 layers, the shared attention block at head dim
+  80 after every 6; batch 8, 1,024-token prompts, 64 new tokens), every
+  self-attention decode through ``decode_attention`` and zamba2's prefill
+  through ``ssd_intra_chunk``, each family with one profiled prefill and
+  decode step on the launcher's weights; then both kernels at every
+  family's serving shape and at gemma2-9b's, the six families reduced
+  card vs CPU, one profiled full-width decode step and one profiled
   mamba2-780m prefill;
 - the §VI-B evaluation (``repro_torch.dsgd.sim``): bench_training_time's
   homo setup at n=16 (the paper's baselines and BA-Topo at r = 16, 24, 32,
@@ -99,6 +108,10 @@ PATH_KERNELS = {
     "rowloop": ("gossip_mix",),
     "serve_dense": ("decode_attention",),
     "serve_ssm": ("ssd_intra_chunk",),
+    "serve_moe": ("decode_attention",),
+    "serve_vlm": ("decode_attention",),
+    "serve_audio": ("decode_attention",),
+    "serve_hybrid": ("decode_attention", "ssd_intra_chunk"),
     "sim": ("gossip_mix_batched",),
     "barrier": ("edge_laplacian", "edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec",
                 "hop_step"),
@@ -2138,7 +2151,7 @@ def _ssd_case(Bsz, Q, H, P, N, dtype, gen, strided: bool, nc: int = 1) -> dict:
                 tc_ops=tc_ops, bytes=nbytes)
 
 
-def phase_serve_kernels() -> dict:
+def phase_serve_kernels() -> tuple[dict, dict]:
     """decode_attention at main_serve_dense's shape (B 16, C 2184, 9/3 heads,
     hd 64, bf16, the valid keys of decode step 64), with a valid key only in
     the last slot, at gemma2-9b's shape (B 4, C 4224, 16/8 heads, hd 256,
@@ -2148,7 +2161,14 @@ def phase_serve_kernels() -> dict:
     model hands it over (column slices) and contiguous, its four chunks in
     one launch, in fp32 (the CUDA-core route), at the reduced shape (Q 32,
     H 8, P 32, N 16, fp32, three chunks) and ragged (Q 50, P 30, N 18,
-    bf16). Returns the main-shape case per kernel."""
+    bf16). Then each serving family's shapes, with the valid keys of decode
+    step 64: decode_attention at granite-moe-1b-a400m's (B 16, C 1,096,
+    16/8 heads, hd 64, bf16), internvl2-1b's (B 16, C 1,096, 14/2 heads: a
+    group of 7, bf16), whisper-tiny's (B 16, C 200, 6/6 heads, fp32) and
+    zamba2-2.7b's (B 8, C 1,096, 32/32 heads, hd 80, bf16; and in fp32), and
+    ssd_intra_chunk at zamba2's prefill (B 8, Q 256, H 80, P 64, N 64,
+    bf16, its four chunks in one launch, column slices). Returns the
+    main-shape case per kernel, and the families' cases by path."""
     from repro_torch.models.attention import decode_valid
 
     gen = torch.Generator(device="cuda").manual_seed(13)
@@ -2170,6 +2190,21 @@ def phase_serve_kernels() -> dict:
         _ssd_case(2, 50, 5, 30, 18, torch.bfloat16, gen, strided=False, nc=3),
         _ssd_case(8, 256, 48, 64, 128, torch.float32, gen, strided=True),
     ]
+    families = {
+        "serve_moe": _decode_case(16, 1096, 16, 8, 64, torch.bfloat16, 0.0,
+                                  decode_valid(1096, 1024 + 64, device="cuda"), gen),
+        "serve_vlm": _decode_case(16, 1096, 14, 2, 64, torch.bfloat16, 0.0,
+                                  decode_valid(1096, 1024 + 64, device="cuda"), gen),
+        "serve_audio": _decode_case(16, 200, 6, 6, 64, torch.float32, 0.0,
+                                    decode_valid(200, 64 + 64, device="cuda"), gen),
+        "serve_hybrid": _decode_case(8, 1096, 32, 32, 80, torch.bfloat16, 0.0,
+                                     decode_valid(1096, 1024 + 64, device="cuda"), gen),
+        "serve_hybrid_ssd": _ssd_case(8, 256, 80, 64, 64, torch.bfloat16, gen, strided=True,
+                                      nc=4),
+    }
+    cases += list(families.values()) + [
+        _decode_case(8, 1096, 32, 32, 80, torch.float32, 0.0,
+                     decode_valid(1096, 1024 + 64, device="cuda"), gen)]
     torch.cuda.synchronize()
     emit("serve_kernel_checks", cases=cases,
          library_note="decode_attention: torch.nn.functional.scaled_dot_product_attention("
@@ -2183,7 +2218,7 @@ def phase_serve_kernels() -> dict:
                       "times, at 989 TFLOP/s bf16; cuda_core: float32 FMA at 67 TFLOP/s)")
     bad = [c for c in cases if not c["within"]]
     assert not bad, f"serving kernels outside their tolerance: {bad}"
-    return {"decode_attention": cases[0], "ssd_intra_chunk": cases[5]}
+    return {"decode_attention": cases[0], "ssd_intra_chunk": cases[5]}, families
 
 
 # ---------------------------------------------------------------------------
@@ -2196,10 +2231,12 @@ SERVE_SSM_ARGS = ["--arch", "mamba2-780m", "--batch", "8", "--prompt-len", "1024
                   "--max-new", "64", "--seed", "0", "--device", "cuda"]
 
 
-def _serve(label: str, argv: list, kernel: str, per_run: int, checked: dict) -> dict:
-    """One launcher run with every kernel count from 0; ``checked`` collects
-    the path's first launch, held against the plain version on the same
-    inputs (the check's own calls are not counted)."""
+def _serve(label: str, argv: list, path: str, expected: dict, checked: dict) -> dict:
+    """One launcher run with every kernel count from 0: each kernel of
+    ``expected`` launched exactly that many times, every kernel of
+    ``PATH_KERNELS[path]`` at least once, the tokens in [0, vocab).
+    ``checked`` holds each kernel's first launch, held against the plain
+    version on the same inputs (the checks' own calls are not counted)."""
     from repro_torch import kernels
     from repro_torch.launch import serve
 
@@ -2212,7 +2249,7 @@ def _serve(label: str, argv: list, kernel: str, per_run: int, checked: dict) -> 
     launches = kernels.launch_counts()
     toks = np.array(res["tokens"])
     batch, new = int(argv[argv.index("--batch") + 1]), int(argv[argv.index("--max-new") + 1])
-    vocab = {"smollm-135m": 49152, "mamba2-780m": 50280}[res["arch"]]
+    vocab = res["vocab_size"]
     out = {k: res[k] for k in ("arch", "param_count", "cache_len", "prefill_ms",
                                "steady_step_ms", "tokens_per_s", "decode_tokens_per_s",
                                "max_memory_allocated_bytes", "wall_s")}
@@ -2223,13 +2260,14 @@ def _serve(label: str, argv: list, kernel: str, per_run: int, checked: dict) -> 
     emit(label, **out)
     assert toks.shape == (batch, new) and (toks >= 0).all() and (toks < vocab).all(), \
         f"{label}: tokens of shape {toks.shape} outside [0, {vocab})"
-    assert launches[kernel] == per_run, f"{label}: {kernel} launched {launches[kernel]} " \
-                                        f"times, expected {per_run}"
-    path = "serve_dense" if kernel == "decode_attention" else "serve_ssm"
+    for kernel, per_run in expected.items():
+        assert launches[kernel] == per_run, f"{label}: {kernel} launched {launches[kernel]} " \
+                                            f"times, expected {per_run}"
     missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     assert not missing, f"{label}: kernels never launched on the path: {missing}"
-    assert checked.get("within"), f"{label}: the first {kernel} launch is outside " \
-                                  f"its tolerance: {checked}"
+    for kernel, record in checked.items():
+        assert record.get("within"), f"{label}: the first {kernel} launch is outside " \
+                                     f"its tolerance: {record}"
     return dict(res=res, launches=launches)
 
 
@@ -2259,19 +2297,43 @@ def _first_launch_checked(owner, attr: str, name: str, check):
         setattr(owner, attr, ops)
 
 
+def _decode_first_check(q, k, v, valid, *, attn_softcap=0.0) -> dict:
+    err, share, ok = _decode_check(q, k, v, valid, attn_softcap)
+    return dict(max_abs_err=err, share_of_tol=share, within=ok, C=int(k.shape[1]),
+                valid_keys=int(valid.sum()), hd=int(q.shape[-1]))
+
+
+def _ssd_first_check(*args) -> dict:
+    err, share, ok = _ssd_check(args)
+    # the check's own scratch (the plain version's Q×Q×H blocks) stays out
+    # of the serving peak: the later chunks and layers reach the same peak
+    # as this one
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return dict(max_abs_err=err, share_of_tol=share, within=ok,
+                x_strides=list(args[0].stride()))
+
+
+def _serve_checked(label: str, argv: list, path: str, expected: dict) -> dict:
+    """:func:`_serve` with the first launch of each expected kernel held
+    against its plain version on the path's own inputs."""
+    from repro_torch.models import attention, ssm
+
+    hooks = {"decode_attention": (attention, "_dec_ops", _decode_first_check),
+             "ssd_intra_chunk": (ssm, "_ssd_ops", _ssd_first_check)}
+    with contextlib.ExitStack() as stack:
+        checked = {kernel: stack.enter_context(_first_launch_checked(
+            hooks[kernel][0], hooks[kernel][1], kernel, hooks[kernel][2]))
+            for kernel in expected}
+        return _serve(label, argv, path, expected, checked)
+
+
 def phase_serve_dense() -> dict:
     """smollm-135m at full width: 30 decode_attention launches per decode
     step, 127 steps. The first launch (layer 0 of the first decode step, on
     the real cache) is also held against the plain version."""
-    from repro_torch.models import attention
-
-    def check(q, k, v, valid, *, attn_softcap=0.0):
-        err, share, ok = _decode_check(q, k, v, valid, attn_softcap)
-        return dict(max_abs_err=err, share_of_tol=share, within=ok, C=int(k.shape[1]),
-                    valid_keys=int(valid.sum()))
-
-    with _first_launch_checked(attention, "_dec_ops", "decode_attention", check) as rec:
-        return _serve("main_serve_dense", SERVE_DENSE_ARGS, "decode_attention", 30 * 127, rec)
+    return _serve_checked("main_serve_dense", SERVE_DENSE_ARGS, "serve_dense",
+                          {"decode_attention": 30 * 127})
 
 
 #: main_serve_ssm's time to first token with the CUDA-core SSD kernel
@@ -2285,23 +2347,89 @@ def phase_serve_ssm() -> dict:
     the prefill over its four chunks, 48 in all. The first launch (layer 0,
     the model's strided slices) is also held against the plain version, and
     the peak memory is counted from just after that check."""
-    from repro_torch.models import ssm
-
-    def check(*args):
-        err, share, ok = _ssd_check(args)
-        # the check's own scratch (the plain version's Q×Q×H blocks) stays
-        # out of the serving peak: the later chunks and layers reach the
-        # same peak as this one
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        return dict(max_abs_err=err, share_of_tol=share, within=ok,
-                    x_strides=list(args[0].stride()))
-
-    with _first_launch_checked(ssm, "_ssd_ops", "ssd_intra_chunk", check) as rec:
-        out = _serve("main_serve_ssm", SERVE_SSM_ARGS, "ssd_intra_chunk", 48, rec)
+    out = _serve_checked("main_serve_ssm", SERVE_SSM_ARGS, "serve_ssm",
+                         {"ssd_intra_chunk": 48})
     emit("serve_ssm_ttft", ttft_ms=out["res"]["prefill_ms"],
          ttft_ms_one_launch_per_chunk=SSM_TTFT_MS_BEFORE,
          note="the second from an earlier run on another machine")
+    return out
+
+
+#: The four other families served at full width through the launcher:
+#: label → (path, launcher arguments, exact launches of each path kernel).
+#: decode_attention runs once a self-attention layer a decode step (the
+#: first token comes from the prefill): granite 24 layers and internvl2 24
+#: over 63 steps, whisper's decoder 4 over 127, zamba2's shared block 9
+#: times (54 / 6) over 63; zamba2's prefill launches ssd_intra_chunk once
+#: a Mamba-2 layer (its four chunks' float32 outputs, ~52 MB, fit one call).
+SERVE_FAMILY_RUNS = {
+    "main_serve_moe": ("serve_moe", ["--arch", "granite-moe-1b-a400m", "--batch", "16",
+                                     "--prompt-len", "1024", "--max-new", "64"],
+                       {"decode_attention": 24 * 63}),
+    "main_serve_vlm": ("serve_vlm", ["--arch", "internvl2-1b", "--batch", "16",
+                                     "--prompt-len", "768", "--max-new", "64"],
+                       {"decode_attention": 24 * 63}),
+    "main_serve_audio": ("serve_audio", ["--arch", "whisper-tiny", "--batch", "16",
+                                         "--prompt-len", "64", "--max-new", "128"],
+                         {"decode_attention": 4 * 127}),
+    "main_serve_hybrid": ("serve_hybrid", ["--arch", "zamba2-2.7b", "--batch", "8",
+                                           "--prompt-len", "1024", "--max-new", "64"],
+                          {"decode_attention": 9 * 63, "ssd_intra_chunk": 54}),
+}
+
+
+def phase_serve_family(label: str) -> dict:
+    """One of the moe, vlm, audio and hybrid families at full width through
+    the launcher (random weights from seed 0, the stub frontends' embeddings
+    from the prompts' generator), every first kernel launch held against its
+    plain version; then, on the launcher's own weights, one prefill and one
+    decode step under torch.profiler, each after an unprofiled warm-up."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    path, args, expected = SERVE_FAMILY_RUNS[label]
+    made = {}
+    real = transformer.init_params
+
+    def keep(seed, cfg):
+        made.update(params=real(seed, cfg), cfg=cfg)
+        return made["params"]
+
+    transformer.init_params = keep
+    try:
+        out = _serve_checked(label, args + ["--seed", "0", "--device", "cuda"], path, expected)
+    finally:
+        transformer.init_params = real
+    torch.cuda.empty_cache()
+    cfg, params = made["cfg"], tree_map(lambda t: t.cuda(), made.pop("params"))
+    B, S, new = (int(args[args.index(f) + 1]) for f in ("--batch", "--prompt-len", "--max-new"))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, S))).cuda()}
+    extra = serve.stub_frontend(cfg, rng, B)
+    if extra:
+        batch["embeds"] = torch.from_numpy(extra["embeds"]).cuda()
+    cap = serve.default_cache_len(cfg, S, new)
+    state = {}
+
+    def prefill():
+        logits, state["caches"] = transformer.prefill(params, cfg, batch, cache_cap=cap)
+        state["tok"] = logits[:, -1].argmax(-1)[:, None]
+        return state["tok"].cpu()                        # the first token, on the host
+
+    def step(pos):
+        logits, _ = transformer.decode_step(params, cfg, state["tok"], state["caches"], pos)
+        return logits[:, -1].argmax(-1).cpu()
+
+    match = ("decode_attention", "ssd_intra_chunk", "gemm")
+    prefill()
+    prof_prefill = _profiled(prefill, match=match)
+    pos = S + (cfg.frontend_tokens if cfg.arch_type == "vlm" else 0)
+    step(pos)
+    prof_step = _profiled(lambda: step(pos + 1), match=match)
+    emit("profile_" + label.removeprefix("main_"), arch=cfg.name, batch=B, prompt=S,
+         cache_len=cap, prefill=prof_prefill, decode_step=prof_step)
+    del params, state
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2309,52 +2437,68 @@ def phase_serve_ssm() -> dict:
 # phase 14: serving on the card against the CPU
 # ---------------------------------------------------------------------------
 
+SERVE_CARD_VS_CPU = (("smollm-135m", False, 24), ("gemma2-9b", True, 24),
+                     ("mamba2-780m", False, 70), ("granite-moe-1b-a400m", False, 24),
+                     ("internvl2-1b", False, 24), ("whisper-tiny", False, 24),
+                     ("zamba2-2.7b", False, 70))
+
+
 def phase_serve_card_vs_cpu() -> None:
-    """Reduced fp32 smollm, gemma2 (long context: every layer windowed, a
-    ring cache of the 16-token window under a 24-token prompt) and mamba2:
-    the same weights and prompts on the card (kernels) and on the CPU (plain
-    versions). Prefill logits and the logits of 8 decode steps agree within
-    1e-5 relative to their largest magnitude, and the greedy tokens are
-    equal. With the CPU against the JAX package (tests/test_torch_serve.py,
-    tests/test_torch_ssm.py) this closes the chain JAX ⇄ port (CPU) ⇄ port
-    (card)."""
+    """Reduced fp32 models of the six families — smollm, gemma2 (long
+    context: every layer windowed, a ring cache of the 16-token window under
+    a 24-token prompt), mamba2, granite-moe, internvl2 (8 stub patch
+    embeddings), whisper (8 stub frames) and zamba2 — with the same weights,
+    prompts and embeddings on the card (kernels) and on the CPU (plain
+    versions). The four later families get a cache of the positions plus 8,
+    so the decode steps append. Prefill logits and the logits of 8 decode
+    steps agree within 1e-5 relative to their largest magnitude, and the
+    greedy tokens are equal. With the CPU against the JAX package
+    (tests/test_torch_serve.py, test_torch_ssm.py, test_torch_families.py)
+    this closes the chain JAX ⇄ port (CPU) ⇄ port (card)."""
     from repro_torch import kernels
     from repro_torch.configs import get_arch, reduced_for_smoke
+    from repro_torch.launch.serve import stub_frontend
     from repro_torch.models import transformer
 
     rows = []
-    for arch, long_context, S in (("smollm-135m", False, 24), ("gemma2-9b", True, 24),
-                                  ("mamba2-780m", False, 70)):
+    for arch, long_context, S in SERVE_CARD_VS_CPU:
         cfg = reduced_for_smoke(get_arch(arch))
         params = transformer.init_params(0, cfg)
-        prompts = torch.from_numpy(np.random.default_rng(0).integers(
-            1, cfg.vocab_size, (2, S)).astype(np.int64))
+        rng = np.random.default_rng(0)
+        prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, S)).astype(np.int64))
+        extra = stub_frontend(cfg, rng, 2)
+        prefix = cfg.frontend_tokens if cfg.arch_type == "vlm" else 0
+        cache_cap = None if cfg.arch_type in ("dense", "ssm") else S + prefix + 8
         runs = {}
         for dev in ("cuda", "cpu"):
             p = tree_map(lambda t: t.to(dev), params)
+            batch = {"tokens": prompts.to(dev)}
+            if extra:
+                batch["embeds"] = torch.from_numpy(extra["embeds"]).to(dev)
             kernels.reset_launch_counts()
-            logits, caches = transformer.prefill(p, cfg, {"tokens": prompts.to(dev)},
+            logits, caches = transformer.prefill(p, cfg, batch, cache_cap=cache_cap,
                                                  long_context=long_context)
             seq, toks = [logits.float().cpu()], []
             for t in range(8):
                 tok = logits[:, -1].argmax(-1)[:, None]
                 toks.append(tok.cpu())
-                logits, caches = transformer.decode_step(p, cfg, tok, caches, S + t,
+                logits, caches = transformer.decode_step(p, cfg, tok, caches, S + prefix + t,
                                                          long_context=long_context)
                 seq.append(logits.float().cpu())
             runs[dev] = (seq, torch.cat(toks, 1), kernels.launch_counts())
         (gseq, gtok, glaunch), (cseq, ctok, _) = runs["cuda"], runs["cpu"]
         rel = max(float((g - c).abs().max()) / float(c.abs().max()) for g, c in zip(gseq, cseq))
-        rows.append(dict(arch=cfg.name, long_context=long_context, prompt=S,
-                         logits_max_rel_diff=rel, tokens_equal=bool(torch.equal(gtok, ctok)),
-                         tokens=gtok.tolist(), launches_cuda={k: v for k, v in glaunch.items()
-                                                              if v}))
+        rows.append(dict(arch=cfg.name, family=cfg.arch_type, long_context=long_context,
+                         prompt=S, logits_max_rel_diff=rel,
+                         tokens_equal=bool(torch.equal(gtok, ctok)), tokens=gtok.tolist(),
+                         launches_cuda={k: v for k, v in glaunch.items() if v}))
     emit("serve_card_vs_cpu", rows=rows)
     for r in rows:
         assert r["logits_max_rel_diff"] <= 1e-5, f"serve card vs CPU {r['arch']}: {r}"
         assert r["tokens_equal"], f"serve card vs CPU {r['arch']}: tokens differ"
-        kernel = "ssd_intra_chunk" if r["arch"].startswith("mamba2") else "decode_attention"
-        assert r["launches_cuda"].get(kernel, 0) > 0, f"{r['arch']}: {kernel} never launched"
+        path = {"ssm": "serve_ssm", "hybrid": "serve_hybrid"}.get(r["family"], "serve_dense")
+        for kernel in PATH_KERNELS[path]:
+            assert r["launches_cuda"].get(kernel, 0) > 0, f"{r['arch']}: {kernel} never launched"
 
 
 # ---------------------------------------------------------------------------
@@ -2855,9 +2999,11 @@ def main() -> int:
     timing["gossip_mix_batched"]["elastic"] = phase_main_elastic(dsgd_run)
     phase_elastic_resume()
 
-    timing.update(phase_serve_kernels())
+    serve_timing, family_cases = phase_serve_kernels()
+    timing.update(serve_timing)
     dense = phase_serve_dense()
     ssm_run = phase_serve_ssm()
+    family_runs = {label: phase_serve_family(label) for label in SERVE_FAMILY_RUNS}
     phase_serve_card_vs_cpu()
     phase_profile_serve()
     phase_profile_prefill()
@@ -2873,6 +3019,16 @@ def main() -> int:
                      "gossip_mix": row_launches["gossip_mix"],
                      "decode_attention": dense["launches"]["decode_attention"],
                      "ssd_intra_chunk": ssm_run["launches"]["ssd_intra_chunk"]}
+    # each serving family's kernel shape with its launches on its path
+    for label, (path, _, expected) in SERVE_FAMILY_RUNS.items():
+        for name in expected:
+            case = family_cases[path + ("_ssd" if name == "ssd_intra_chunk" else "")]
+            timing[name].setdefault("serve_shapes", []).append(dict(
+                path=label, launches=family_runs[label]["launches"][name],
+                **{k: case.get(k) for k in ("B", "C", "Hq", "Hkv", "hd", "nc", "Q", "H", "P",
+                                            "N", "dtype", "max_abs_err", "ms", "ms_warm",
+                                            "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                            "library_ms_warm", "call_ms") if k in case}))
     rows = []
     for name, info in KERNEL_INFO.items():
         t = timing[name]
@@ -2881,8 +3037,8 @@ def main() -> int:
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], call_ms=t["call_ms"],
-            **{k: t[k] for k in ("ms_warm", "library_ms_warm", "sim", "batched", "elastic")
-               if k in t}))
+            **{k: t[k] for k in ("ms_warm", "library_ms_warm", "sim", "batched", "elastic",
+                                 "serve_shapes") if k in t}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -140,15 +140,17 @@ def model_params_to_numpy(params) -> dict:
 
 def caches_from_numpy(ref, device: str = "cuda") -> Caches:
     """The port's :class:`Caches` from the reference's ``Caches`` with numpy
-    leaves (``kv`` a ``KVCache`` (k, v), ``ssm`` an ``SSMCache`` (conv,
-    state), unused fields ``()``); dtypes kept, bfloat16 bit for bit."""
+    leaves (``kv``, ``shared_kv`` and ``cross_kv`` (k, v) pairs — a
+    ``KVCache`` or, for the reference prefill's cross keys, a plain tuple —
+    ``ssm`` an ``SSMCache`` (conv, state), unused fields ``()``); dtypes
+    kept, bfloat16 bit for bit."""
     dev = resolve_device(device)
-    kv = KVCache(*(_leaf(a, dev) for a in ref.kv)) if len(ref.kv) else ()
-    ssm = SSMCache(*(_leaf(a, dev) for a in ref.ssm)) if len(ref.ssm) else ()
-    if len(ref.shared_kv) or len(ref.cross_kv):
-        raise NotImplementedError("hybrid and audio caches are not ported yet (ROADMAP.md, "
-                                  "Queue 1, 'Non-dense model families')")
-    return Caches(kv=kv, ssm=ssm)
+
+    def field(f, kind):
+        return kind(*(_leaf(a, dev) for a in f)) if len(f) else ()
+
+    return Caches(kv=field(ref.kv, KVCache), ssm=field(ref.ssm, SSMCache),
+                  shared_kv=field(ref.shared_kv, KVCache), cross_kv=field(ref.cross_kv, KVCache))
 
 
 def caches_to_numpy(caches: Caches) -> Caches:

@@ -9,7 +9,7 @@
 //   out = Σ_t softmax(s)_t · v_t, divided by max(l, 1e-30), cast to q's dtype.
 // q (B, Hq, hd) contiguous; k, v (B, C, Hkv, hd) read as they lie through
 // their strides (the head dimension contiguous, 16-byte aligned); valid (C,)
-// bytes. f32, bf16 and f16; hd 32, 64, 128, 256; any group Hq / Hkv.
+// bytes. f32, bf16 and f16; hd 32, 64, 80, 128, 256; any group Hq / Hkv.
 //
 // What bounds it on the H100: bytes. Each key costs 2·hd·size bytes of K and
 // V against 4·group·hd flops, far under the card's balance, so the least
@@ -44,7 +44,12 @@
 // - A consumer lane group of LPK lanes owns one key at a time (16 bytes of
 //   K and V a lane), KPL = 4 keys a tile, reduces the q·k partials by
 //   shuffles and keeps its own online softmax state (m, l, acc) for the GN
-//   heads of its unit, rescaled once a tile. Scores are kept in log2 units
+//   heads of its unit, rescaled once a tile. LPK is a power of two, so the
+//   shuffles tile a warp: at a head dim of hd / (16 / size) 16-byte vectors
+//   that is not one (hd 80: 10 in bf16, 20 in f32), LPK rounds up to the
+//   next power of two (16, 32) and the lanes past the last vector hold
+//   zeros for q, K and V and write nothing (the 160-byte bf16 row still
+//   moves by 16-byte bulk copies). Scores are kept in log2 units
 //   (q is scaled by log2(e)/√hd once), so each weight is one exp2f and no
 //   score needs a division. The block merges its lane groups through
 //   shared memory, a warp a row for the weights.
@@ -115,11 +120,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half_rn(v); }
 
+__host__ __device__ constexpr int pow2_ceil(int x) { return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2); }
+
 template <typename T, int HD>
 struct Layout {
   static constexpr int VEC = 16 / sizeof(T);                       // elements per 16 bytes
-  static constexpr int LPK = HD / VEC < 32 ? HD / VEC : 32;        // lanes per key
-  static constexpr int EPL = HD / LPK;                             // elements per lane
+  static constexpr int NV = HD / VEC;                              // 16-byte vectors a row
+  static constexpr int LPK = pow2_ceil(NV) < 32 ? pow2_ceil(NV) : 32;   // lanes per key
+  static constexpr int EPL = (NV + LPK - 1) / LPK * VEC;           // elements per lane
+  static constexpr int ACTIVE = HD / EPL;                          // lanes that hold elements
+  static_assert(HD % VEC == 0 && HD % EPL == 0, "a row must split into whole lanes");
 };
 
 // N elements from 16-byte aligned memory (global through the read-only
@@ -245,6 +255,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qc = qc0 + unit % P.qpb;                 // query-head chunk within the group
   const int hq0 = (h0 + hl) * group + qc * GN;       // first query head of the unit
   const int e0 = li * L::EPL;
+  const bool active = L::ACTIVE == L::LPK || li < L::ACTIVE;   // lanes past the row: zeros
   // scores in log2 units: q·k·log2(e)/√hd, so that p = exp2(s − m)
   const float qscale = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
   const float cap2 = P.softcap * 1.4426950408889634f;
@@ -262,7 +273,12 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (!producer) {
 #pragma unroll
     for (int g = 0; g < GN; ++g) {
-      load_vec<T, L::EPL, true>(qr[g], q + (static_cast<long long>(b) * P.Hq + hq0 + g) * HD + e0);
+      if (active) {
+        load_vec<T, L::EPL, true>(qr[g], q + (static_cast<long long>(b) * P.Hq + hq0 + g) * HD + e0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < L::EPL; ++e) qr[g][e] = 0.f;
+      }
     }
   }
   for (int t0 = 0; t0 < c_end - c_begin; t0 += MASK_LOADS * blockDim.x) {
@@ -328,7 +344,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int x = 0; x < KPL; ++x) {
         const int at = ((x * P.lgu + lg) * P.hb + hl) * HD + e0;
-        if (in[x]) {
+        if (in[x] && active) {
           load_vec<T, L::EPL, false>(kr[x], sk + at);
           load_vec<T, L::EPL, false>(vr[x], sv + at);
         } else {
@@ -391,8 +407,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sm_m[G * GN + g] = m[g];
         sm_l[G * GN + g] = l[g];
       }
+      if (active) {
 #pragma unroll
-      for (int e = 0; e < L::EPL; ++e) sm_acc[(G * GN + g) * HD + e0 + e] = acc[g][e];
+        for (int e = 0; e < L::EPL; ++e) sm_acc[(G * GN + g) * HD + e0 + e] = acc[g][e];
+      }
     }
   }
   __syncthreads();
@@ -462,7 +480,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // A warp a row, a lane HD/32 of its elements: every split's (m, l) and
   // acc in flight at once (SPLIT_LOADS splits at a time, rescaled as they
   // come), so the merge costs one round trip for ≤ SPLIT_LOADS splits.
-  constexpr int DPL = HD / 32;                        // elements a lane
+  constexpr int DPL = (HD + 31) / 32;                 // elements a lane (the last ones masked)
   const int ns = P.splits;
   for (int r = threadIdx.x / 32; r < rows; r += blockDim.x / 32) {
     const int u = r / GN, g = r % GN;
@@ -482,7 +500,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         pl[x] = ok ? __ldcg(ml + 2 * (i0 + x) + 1) : 0.f;
 #pragma unroll
         for (int t = 0; t < DPL; ++t) {
-          pacc[x][t] = ok ? __ldcg(pa + static_cast<long long>(i0 + x) * HD + 32 * t) : 0.f;
+          pacc[x][t] = ok && lane + 32 * t < HD
+                           ? __ldcg(pa + static_cast<long long>(i0 + x) * HD + 32 * t) : 0.f;
         }
       }
       float M_new = M;
@@ -505,7 +524,9 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     const float den = fmaxf(Ls, 1e-30f);
 #pragma unroll
-    for (int t = 0; t < DPL; ++t) out[row * HD + lane + 32 * t] = from_f<T>(A[t] / den);
+    for (int t = 0; t < DPL; ++t) {
+      if (lane + 32 * t < HD) out[row * HD + lane + 32 * t] = from_f<T>(A[t] / den);
+    }
   }
   if (threadIdx.x == 0) *ticket = 0;
 }
@@ -557,6 +578,8 @@ int dispatch_hd(int hd, int gn, const void* q, const void* k, const void* v, con
     case 32: return dispatch_gn<T, 32>(gn, q, k, v, valid, out, part_ml, part_acc, tickets, P,
                                        threads, smem, device, s);
     case 64: return dispatch_gn<T, 64>(gn, q, k, v, valid, out, part_ml, part_acc, tickets, P,
+                                       threads, smem, device, s);
+    case 80: return dispatch_gn<T, 80>(gn, q, k, v, valid, out, part_ml, part_acc, tickets, P,
                                        threads, smem, device, s);
     case 128: return dispatch_gn<T, 128>(gn, q, k, v, valid, out, part_ml, part_acc, tickets,
                                          P, threads, smem, device, s);

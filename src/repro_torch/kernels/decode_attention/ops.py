@@ -21,7 +21,7 @@ import torch
 from .. import launch_util as _lu
 
 __all__ = ["decode_attention", "decode_attention_plain", "decode_attention_bound",
-           "decode_plan", "DecodePlan"]
+           "decode_plan", "DecodePlan", "lanes_per_key"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -29,7 +29,7 @@ _SIGNATURES = {
                          _F, _I, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (32, 64, 128, 256)
+_HEAD_DIMS = (32, 64, 80, 128, 256)
 _MIN_KEYS_PER_SPLIT = 128
 _MAX_SPAN = 32_768            # keys a split at most: its mask bytes sit in shared memory
 #: What one bulk copy costs in :func:`decode_plan`'s model, in bytes of K/V.
@@ -114,6 +114,15 @@ def _valid_bytes(span: int) -> int:
     return -(-span // 128) * 128
 
 
+def lanes_per_key(hd: int, size: int) -> int:
+    """LPK, the lanes that share one key (csrc/decode_attention.cu's
+    ``Layout``): one 16-byte vector of the row a lane, rounded up to a power
+    of two so that the shuffles tile a warp, at most 32. At hd 80 that is
+    16 lanes in bf16 (10 hold a vector) and 32 in fp32 (20 do)."""
+    vectors = hd // (16 // size)
+    return min(32, 1 << (vectors - 1).bit_length())
+
+
 @functools.lru_cache(maxsize=256)
 def decode_plan(B: int, Hq: int, Hkv: int, hd: int, C: int, size: int,
                 sm_count: int) -> DecodePlan:
@@ -121,7 +130,7 @@ def decode_plan(B: int, Hq: int, Hkv: int, hd: int, C: int, size: int,
     elements on a card of ``sm_count`` SMs.
 
     - GN = the largest divisor of the group up to 4 (no padded head);
-      LPK = min(32, hd / (16 / size)) lanes a key; within 320 consumer
+      LPK = :func:`lanes_per_key` lanes a key; within 320 consumer
       threads (128 at hd 256) and whole warps, as many lane groups a unit
       as fit, KT = 4 keys each; one producer warp on top issues the copies.
     - Blocks an SM: one, or two at hd 256 (the kernel's launch bound
@@ -143,7 +152,7 @@ def decode_plan(B: int, Hq: int, Hkv: int, hd: int, C: int, size: int,
     group = Hq // Hkv
     gn = max(d for d in (1, 2, 3, 4) if group % d == 0)
     qcn = group // gn
-    lpk = min(32, hd // (16 // size))
+    lpk = lanes_per_key(hd, size)
     per_warp = 32 // lpk
     resident = 2 if hd >= 256 else 1
     max_threads = MAX_THREADS_256 if hd >= 256 else MAX_THREADS

@@ -44,7 +44,10 @@ _TC_TERMS = 3                  # bf16 terms a float32 operand is split into
 def ssd_intra_chunk_plain(xc, dtc, la, Bc, Cc):
     """``ref.ssd_intra_chunk``, all in float32. xc (B, nc, Q, H, P); dtc, la
     (B, nc, Q, H); Bc, Cc (B, nc, Q, N). Returns (y_intra (B, nc, Q, H, P),
-    chunk_states (B, nc, H, P, N))."""
+    chunk_states (B, nc, H, P, N)). The mask M = G·L·dt (B, nc, Q, Q, H) is
+    formed first and each output is one batched product, so no
+    intermediate is larger than M (a four-operand einsum may contract into
+    (B, nc, Q, Q, H, P) floats: 43 GB at zamba2's prefill)."""
     Q = xc.shape[2]
     xf, dtf, laf = xc.float(), dtc.float(), la.float()
     Bf, Cf = Bc.float(), Cc.float()
@@ -52,9 +55,11 @@ def ssd_intra_chunk_plain(xc, dtc, la, Bc, Cc):
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xc.device))
     Ldec = torch.where(causal[None, None, :, :, None], Ldec, 0.0)
     CB = torch.einsum("bctn,bcsn->bcts", Cf, Bf)
-    y_intra = torch.einsum("bcts,bctsh,bcsh,bcshp->bcthp", CB, Ldec, dtf, xf)
+    M = CB[..., None] * Ldec * dtf[:, :, None, :, :]
+    y_intra = torch.einsum("bctsh,bcshp->bcthp", M, xf)
     decay_out = torch.exp(laf[:, :, -1:, :] - laf)                    # (B,nc,Q,H)
-    chunk_states = torch.einsum("bcsh,bcsh,bcsn,bcshp->bchpn", decay_out, dtf, Bf, xf)
+    xw = xf * (decay_out * dtf)[..., None]                            # (B,nc,Q,H,P)
+    chunk_states = torch.einsum("bcshp,bcsn->bchpn", xw, Bf)
     return y_intra, chunk_states
 
 

@@ -6,13 +6,21 @@ through the ``decode_attention`` kernel and every SSD chunk of a Mamba-2
 prefill through ``ssd_intra_chunk`` (``--no-use-kernel`` takes the plain
 PyTorch forms). Weights are random, from ``--seed``, or restored from
 ``--ckpt`` (a checkpoint of one model's params, as ``save_checkpoint``
-writes it); prompts are drawn from numpy's generator of the same seed, as
-the reference draws them.
+writes it); prompts, then the vlm and audio frontends' stub embeddings
+(``frontend_tokens`` × ``d_model`` float32 a request), are drawn from
+numpy's generator of the same seed, in the reference's order.
+
+The default cache holds ``prompt_len + max_new + 8`` positions and, for
+vlm, the ``frontend_tokens`` patch positions too. The reference's default
+leaves them out, so its internvl2 prefill (S + 256 > C) writes a ring
+cache, and every decode step overwrites the cache's last slot.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --reduced --batch 4 --prompt-len 16 --max-new 32 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --batch 16 --prompt-len 2048 --max-new 128
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b \\
+      --batch 16 --prompt-len 768 --max-new 64
 """
 from __future__ import annotations
 
@@ -30,7 +38,24 @@ from ..device import resolve_device
 from ..models import transformer
 from ..serve import ServeConfig, ServingEngine
 
-__all__ = ["main", "parse_args"]
+__all__ = ["main", "parse_args", "default_cache_len", "stub_frontend"]
+
+
+def default_cache_len(cfg, prompt_len: int, max_new: int) -> int:
+    """Cache positions: the prompt, the new tokens, 8 spare and, for vlm,
+    the patch prefix."""
+    prefix = cfg.frontend_tokens if cfg.arch_type == "vlm" else 0
+    return prompt_len + prefix + max_new + 8
+
+
+def stub_frontend(cfg, rng: np.random.Generator, batch: int) -> dict | None:
+    """The stub frontend's embeddings, ``{"embeds": (batch, frontend_tokens,
+    d_model)}`` float32 from standard normal draws of ``rng`` (None for a
+    model without a frontend)."""
+    if not cfg.frontend_tokens:
+        return None
+    return {"embeds": rng.normal(size=(batch, cfg.frontend_tokens, cfg.d_model))
+            .astype(np.float32)}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -68,7 +93,7 @@ def main(argv=None) -> dict:
     if args.ckpt:
         params, _ = load_checkpoint(args.ckpt, params)
 
-    cache_len = args.cache_len or (args.prompt_len + args.max_new + 8)
+    cache_len = args.cache_len or default_cache_len(cfg, args.prompt_len, args.max_new)
     scfg = ServeConfig(batch_size=args.batch, cache_len=cache_len,
                        max_new_tokens=args.max_new, temperature=args.temperature,
                        long_context=args.long_context, use_kernel=args.use_kernel)
@@ -77,15 +102,17 @@ def main(argv=None) -> dict:
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(1, cfg.vocab_size, (args.batch, args.prompt_len),
                            dtype=np.int64).astype(np.int32)
+    extra = stub_frontend(cfg, rng, args.batch)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    out = engine.generate(prompts, seed=args.seed)
+    out = engine.generate(prompts, extra_inputs=extra, seed=args.seed)
     dt = time.perf_counter() - t0
     steps = engine.timings["step_s"]
     steady = steps[2:] or steps
-    res = {"config": vars(args), "arch": cfg.name, "device": str(dev),
+    res = {"config": vars(args), "arch": cfg.name, "vocab_size": cfg.vocab_size,
+           "device": str(dev),
            "param_count": transformer.param_count(params), "cache_len": cache_len,
            "tokens": out.tolist(), "generated_per_request": int(out.shape[1]),
            "prefill_ms": 1e3 * engine.timings["prefill_s"],

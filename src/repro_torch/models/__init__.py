@@ -1,5 +1,6 @@
-"""Model zoo of the port: the dense transformer family (train, prefill, KV-cache
-decode) and the Mamba-2 family (prefill, recurrent decode)."""
+"""Model zoo of the port: the six families of the reference's zoo — dense
+(train, prefill, KV-cache decode), moe, ssm (Mamba-2), hybrid (zamba2), vlm
+and audio (prefill and decode)."""
 from .transformer import (
     Caches,
     decode_step,

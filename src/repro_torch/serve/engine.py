@@ -13,6 +13,8 @@ Deviations from the reference, by design:
   seeded by ``seed``; ``jax.random``'s stream cannot be reproduced.
 - There is no jit and no donation: the step runs eagerly and writes the KV
   cache in place, which is what the reference's donation achieves.
+- ``extra_inputs`` (the vlm patch and audio frame embeddings) are moved
+  onto the engine's device, and that copy counts in the prefill time.
 """
 from __future__ import annotations
 
@@ -108,8 +110,10 @@ class ServingEngine:
 
     def generate(self, prompts: np.ndarray, extra_inputs: dict | None = None,
                  seed: int = 0) -> np.ndarray:
-        """prompts: (B, S) int32, all of one length. Returns (B, n) int32
-        with n ≤ max_new_tokens (fewer when every request hit EOS)."""
+        """prompts: (B, S) int32, all of one length; ``extra_inputs``, for
+        vlm and audio, ``{"embeds": (B, frontend_tokens, d_model)}`` float32
+        (numpy or a tensor). Returns (B, n) int32 with n ≤ max_new_tokens
+        (fewer when every request hit EOS)."""
         B, S = prompts.shape
         if B != self.scfg.batch_size:
             raise ValueError(
@@ -117,12 +121,10 @@ class ServingEngine:
                 f"fixed batch_size={self.scfg.batch_size}; this engine "
                 f"serves one (batch_size, S) shape — pad or re-batch the "
                 f"prompts, or build a ServeConfig with batch_size={B}")
-        if extra_inputs:
-            raise NotImplementedError(
-                "extra_inputs (the vlm and audio frontends) are not ported yet "
-                "(ROADMAP.md, Queue 1, 'Non-dense model families')")
         t0 = time.perf_counter()
         batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32), device=self.device)}
+        for name, value in (extra_inputs or {}).items():
+            batch[name] = torch.as_tensor(value, device=self.device)
         logits, caches = transformer.prefill(self.params, self.cfg, batch,
                                              cache_cap=self.scfg.cache_len,
                                              long_context=self.scfg.long_context)
@@ -130,7 +132,9 @@ class ServingEngine:
         if self.scfg.temperature > 0.0:
             rng = torch.Generator(device=self.device).manual_seed(seed)
         first = greedy_sample(logits, rng, self.scfg.temperature)
-        state = DecodeState(first, caches, S, rng,
+        # the vlm patch prefix takes the first positions
+        pos = S + (self.cfg.frontend_tokens if self.cfg.arch_type == "vlm" else 0)
+        state = DecodeState(first, caches, pos, rng,
                             torch.zeros((B,), dtype=torch.bool, device=self.device))
         out = [first[:, 0].cpu().numpy()]
         steps = []

@@ -34,9 +34,13 @@ fed ``edge_adjoint``'s output; the four ADMM-path forms with a batch axis
 one launch for the batch and bitwise per instance against their unbatched
 launches, and the batched ADMM against its sequential solves (float64:
 λ̃ within 1e-9) and the CPU;
-reduced fp32 serving (smollm, gemma2 long context, mamba2), card vs CPU,
-within 1e-5 relative in the logits of the prefill and 8 decode steps, with
-equal greedy tokens; the elastic mix over ``deg_cap = n − 1`` tables with
+reduced fp32 serving of the six families (smollm, gemma2 and mixtral long
+context, mamba2, granite-moe, internvl2 and whisper with stub embeddings,
+zamba2 also long context), card vs CPU, within 1e-5 relative in the
+logits of the prefill and 8 decode steps, with equal greedy tokens;
+``decode_attention`` at zamba2's head dim 80 (16 lanes a key in bf16, 32
+in fp32), internvl2's group of 7 and whisper's fp32 MHA, and
+``ssd_intra_chunk`` at zamba2's N 64, H 80; the elastic mix over ``deg_cap = n − 1`` tables with
 weights gathered from a degraded W within the gossip tolerance, and with no
 faults bitwise the max-degree table's mix; a bfloat16 checkpoint restored
 bit for bit onto the card.
@@ -541,6 +545,12 @@ def _ulp(x, dtype):
     (2, 700, 8, 2, 128, torch.float16, 0.0, "last"),           # minitron head dim
     (2, 40, 4, 1, 32, torch.float32, 0.0, "none"),             # reduced configs
     (3, 129, 12, 2, 64, torch.bfloat16, 0.0, "linear"),        # group 6: two head chunks
+    (8, 1096, 32, 32, 80, torch.bfloat16, 0.0, "linear"),      # zamba2-2.7b: hd 80, 16 lanes
+    (8, 1096, 32, 32, 80, torch.float32, 0.0, "linear"),       # hd 80 in fp32: 32 lanes
+    (2, 300, 4, 2, 80, torch.float16, 50.0, "window"),         # hd 80, group 2, softcap
+    (16, 1096, 14, 2, 64, torch.bfloat16, 0.0, "linear"),      # internvl2-1b: a group of 7
+    (16, 200, 6, 6, 64, torch.float32, 0.0, "linear"),         # whisper-tiny: fp32 MHA
+    (16, 1096, 16, 8, 64, torch.bfloat16, 0.0, "linear"),      # granite-moe-1b-a400m
 ])
 def test_decode_attention_kernel_on_card(cuda, B, C, Hq, Hkv, hd, dtype, cap, mask):
     """Within the float32 bound of decode_attention_bound plus one output ulp."""
@@ -573,6 +583,8 @@ def test_decode_attention_kernel_on_card(cuda, B, C, Hq, Hkv, hd, dtype, cap, ma
     (1, 100, 1, 1, 64, torch.float32),        # one split
     (2, 300, 12, 2, 64, torch.float16),       # group 6: two chunks of 3 heads, many splits
     (1, 3000, 8, 1, 128, torch.bfloat16),     # one KV head, many splits
+    (2, 10, 2, 2, 80, torch.bfloat16),        # hd 80, C shorter than a tile
+    (1, 2000, 7, 1, 80, torch.float32),       # hd 80 fp32, a group of 7, many splits
 ])
 def test_decode_attention_plans_on_card(cuda, B, C, Hq, Hkv, hd, dtype):
     """One launch per call and within the float32 bound plus one output ulp,
@@ -683,6 +695,8 @@ def test_decode_attention_reads_a_stacked_cache_slice(cuda):
     (2, 1, 32, 8, 32, 16, torch.float32, True),               # the reduced config
     (2, 3, 50, 5, 30, 18, torch.float32, False),              # ragged against every tile
     (1, 2, 256, 3, 64, 128, torch.float16, False),
+    (8, 4, 256, 80, 64, 64, torch.bfloat16, True),            # zamba2-2.7b prefill, one launch
+    (2, 2, 64, 80, 64, 64, torch.float32, False),             # N 64, H 80 on the CUDA cores
 ])
 def test_ssd_intra_chunk_kernel_on_card(cuda, Bsz, nc, Q, H, P, N, dtype, strided):
     """Within the float32 bounds of ssd_intra_chunk_bound."""
@@ -739,34 +753,44 @@ def test_serving_wrappers_raise_instead_of_falling_back(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch,long_context", [("smollm-135m", False), ("gemma2-9b", True),
-                                               ("mamba2-780m", False)])
+@pytest.mark.parametrize("arch,long_context", [
+    ("smollm-135m", False), ("gemma2-9b", True), ("mamba2-780m", False),
+    ("granite-moe-1b-a400m", False), ("mixtral-8x22b", True), ("internvl2-1b", False),
+    ("whisper-tiny", False), ("zamba2-2.7b", False), ("zamba2-2.7b", True)])
 def test_reduced_serving_card_matches_cpu(cuda, arch, long_context):
-    """Prefill and 8 greedy decode steps of a reduced fp32 model: logits
-    within 1e-5 relative to their largest magnitude, tokens equal."""
+    """Prefill and 8 greedy decode steps of a reduced fp32 model (vlm and
+    audio with stub embeddings): logits within 1e-5 relative to their
+    largest magnitude, tokens equal."""
     from repro_torch.configs import get_arch, reduced_for_smoke
+    from repro_torch.launch.serve import stub_frontend
     from repro_torch.models import transformer
 
     cfg = reduced_for_smoke(get_arch(arch))
     params = transformer.init_params(0, cfg)
-    S = 70 if arch.startswith("mamba2") else 24
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab_size, (2, S)))
+    S = 70 if cfg.arch_type in ("ssm", "hybrid") else 24
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, S)))
+    extra = stub_frontend(cfg, rng, 2)
+    prefix = cfg.frontend_tokens if cfg.arch_type == "vlm" else 0
     runs = {}
     for dev in ("cpu", "cuda"):
         p = tree_map(lambda t: t.to(dev), params)
+        batch = {"tokens": prompts.to(dev)}
+        if extra:
+            batch["embeds"] = torch.from_numpy(extra["embeds"]).to(dev)
         kernels.reset_launch_counts()
-        logits, caches = transformer.prefill(p, cfg, {"tokens": prompts.to(dev)},
-                                             long_context=long_context)
+        logits, caches = transformer.prefill(p, cfg, batch, long_context=long_context)
         out, toks = [logits.cpu()], []
         for t in range(8):
             tok = logits[:, -1].argmax(-1)[:, None]
             toks.append(tok.cpu())
-            logits, caches = transformer.decode_step(p, cfg, tok, caches, S + t,
+            logits, caches = transformer.decode_step(p, cfg, tok, caches, S + prefix + t,
                                                      long_context=long_context)
             out.append(logits.cpu())
         runs[dev] = (out, torch.cat(toks, 1), kernels.launch_counts())
-    kernel = "ssd_intra_chunk" if arch.startswith("mamba2") else "decode_attention"
-    assert runs["cuda"][2][kernel] > 0 and runs["cpu"][2][kernel] == 0
+    on_path = {"ssm": ("ssd_intra_chunk",), "hybrid": ("decode_attention", "ssd_intra_chunk")}
+    for kernel in on_path.get(cfg.arch_type, ("decode_attention",)):
+        assert runs["cuda"][2][kernel] > 0 and runs["cpu"][2][kernel] == 0
     assert torch.equal(runs["cuda"][1], runs["cpu"][1])
     for g, c in zip(runs["cuda"][0], runs["cpu"][0]):
         assert float((g - c).abs().max()) <= 1e-5 * float(c.abs().max())

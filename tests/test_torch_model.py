@@ -120,18 +120,17 @@ def test_configs_copied():
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "mamba2-780m", "zamba2-2.7b",
                                   "internvl2-1b", "whisper-tiny"])
 def test_other_families_raise(arch):
-    """Training is ported for the dense family only: the others raise at
-    init, and the ssm family (whose serving is ported) at ``train_loss``,
-    since the SSD kernel has no backward yet."""
+    """Training is ported for the dense family only: every other family
+    initialises (its serving is ported) and raises at ``train_loss``,
+    naming ROADMAP Queue 1's training item."""
     cfg = reduced_for_smoke(get_arch(arch))
-    if cfg.arch_type != "ssm":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttr.init_params(0, cfg)
-        return
+    params = ttr.init_params(0, cfg)
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.int64),
              "labels": torch.zeros((1, 8), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.train_loss(ttr.init_params(0, cfg), cfg, batch)
+    if cfg.frontend_tokens:
+        batch["embeds"] = torch.zeros((1, cfg.frontend_tokens, cfg.d_model))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 8"):
+        ttr.train_loss(params, cfg, batch)
 
 
 def test_attn_cache_raises():

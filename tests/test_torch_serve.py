@@ -164,10 +164,15 @@ def test_num_splits_fills_the_card_and_keeps_128_keys():
     (4, 16, 8, 256, 4096, 2), (2, 8, 2, 128, 700, 2), (2, 4, 1, 32, 40, 4),
     (3, 12, 2, 64, 129, 2), (1, 1, 1, 64, 100, 2), (64, 8, 8, 128, 4096, 2),
     (2, 32, 1, 128, 512, 2), (1, 14, 2, 64, 300, 2), (2, 6, 2, 64, 20, 2),
+    (8, 32, 32, 80, 1096, 2), (8, 32, 32, 80, 1096, 4), (2, 4, 2, 80, 10, 2),
+    (16, 14, 2, 64, 1096, 2), (1, 7, 1, 80, 2000, 4), (16, 16, 8, 64, 1096, 2),
+    (16, 6, 6, 64, 200, 4),
 ])
 def test_decode_plan_covers_every_key_and_head_once(B, Hq, Hkv, hd, C, size):
     """Every key lies in exactly one split and every query head in exactly
-    one unit of one head block, with no padded head; the blocks fill a wave
+    one unit of one head block, with no padded head (a group of 7 too); a
+    key's lanes are a power of two that holds its row (hd 80: 16 lanes in
+    bf16, 32 in fp32, the last ones idle); the blocks fill a wave
     of 132 SMs where 128-key splits allow it; the block fits the card."""
     p = tdec.decode_plan(B, Hq, Hkv, hd, C, size, 132)
     group = Hq // Hkv
@@ -184,7 +189,9 @@ def test_decode_plan_covers_every_key_and_head_once(B, Hq, Hkv, hd, C, size):
             first = (h0 + u // p.qpb) * group + (qc0 + u % p.qpb) * p.gn
             heads[first:first + p.gn] += 1
     assert (heads == 1).all()
-    lpk = min(32, hd // (16 // size))
+    lpk = tdec.lanes_per_key(hd, size)
+    vectors = hd * size // 16                  # 16-byte vectors of a row: one a lane
+    assert lpk & (lpk - 1) == 0 and vectors <= lpk < 2 * vectors or lpk == 32
     assert p.threads == p.hb * p.qpb * p.lgu * lpk and p.threads % 32 == 0
     assert p.threads <= (tdec.MAX_THREADS_256 if hd >= 256 else tdec.MAX_THREADS)
     assert p.kt == tdec.KPL * p.lgu
@@ -300,13 +307,19 @@ def test_decode_matches_prefill_continuation():
 
 
 def test_non_dense_serving_raises():
-    for arch in ("mixtral-8x22b", "zamba2-2.7b", "internvl2-1b", "whisper-tiny"):
-        cfg = reduced_for_smoke(get_arch(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttr.init_caches(cfg, 1, 8)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttr.prefill({"embed": torch.zeros(cfg.vocab_size, cfg.d_model)}, cfg,
-                        {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
+    """Serving of the non-dense families is ported (tests/test_torch_families.py);
+    what still raises is their training. Reduced mixtral (moe, every layer
+    windowed) serves on the CPU with the long-context ring cache, its greedy
+    tokens the reference engine's, and ``train_loss`` refuses it."""
+    kw = dict(batch_size=2, cache_len=16, max_new_tokens=6, long_context=True)
+    jeng, teng = _engines("mixtral-8x22b", kw)
+    prompts = np.random.default_rng(2).integers(1, 512, (2, 20)).astype(np.int32)
+    got = teng.generate(prompts)
+    assert got.shape == (2, 6) and np.array_equal(got, jeng.generate(prompts))
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
+             "labels": torch.zeros((1, 4), dtype=torch.int64)}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttr.train_loss(teng.params, teng.cfg, batch)
 
 
 # ---------------------------------------------------------------------------
