@@ -56,6 +56,18 @@ and drives the port's paths on ``cuda``:
   family's serving shape and at gemma2-9b's, the six families reduced
   card vs CPU, one profiled full-width decode step and one profiled
   mamba2-780m prefill;
+- DSGD training of the other families at full width, 6 steps each, BA
+  topology (r = 2n), batch 4 × 256 tokens a worker: whisper-tiny (n = 8)
+  through the launcher, granite-moe-1b-a400m (12 of 24 layers),
+  mamba2-780m (16 of 48), zamba2-2.7b (6 of 54: one shared-attention
+  group) and internvl2-1b (20 of 24, 256 stub patches before the text) at
+  n = 4 on their depth-cut configs through ``dsgd_train_step``; every gossip through
+  ``gossip_mix_batched``, every Mamba-2 layer's SSD through one
+  ``ssd_intra_chunk`` launch a step for all workers (the vmap rule), its
+  first launch held against the plain version forward and backward; then
+  the reduced families card vs CPU. The bigram tables of the six
+  vocabularies are built in background processes from the start of the
+  run;
 - the §VI-B evaluation (``repro_torch.dsgd.sim``): bench_training_time's
   homo setup at n=16 (the paper's baselines and BA-Topo at r = 16, 24, 32,
   solved on the card) trained by one ``accuracy_curves`` call, 30 epochs,
@@ -85,6 +97,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import types
 import subprocess
 import sys
@@ -112,6 +125,11 @@ PATH_KERNELS = {
     "serve_vlm": ("decode_attention",),
     "serve_audio": ("decode_attention",),
     "serve_hybrid": ("decode_attention", "ssd_intra_chunk"),
+    "train_moe": ("gossip_mix_batched",),
+    "train_vlm": ("gossip_mix_batched",),
+    "train_audio": ("gossip_mix_batched",),
+    "train_ssm": ("gossip_mix_batched", "ssd_intra_chunk"),
+    "train_hybrid": ("gossip_mix_batched", "ssd_intra_chunk"),
     "sim": ("gossip_mix_batched",),
     "barrier": ("edge_laplacian", "edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec",
                 "hop_step"),
@@ -1450,11 +1468,24 @@ def _within(got, want, terms, deg) -> tuple[float, bool]:
 
 
 def _batched_check(got, x, nbr_idx, weights) -> tuple[float, bool]:
-    from repro_torch.kernels.gossip_mix import ops as gm
-
-    want = gm.gossip_mix_batched_plain(x, nbr_idx, weights)
-    terms = gm.gossip_mix_batched_plain(x.abs().float(), nbr_idx, weights.abs())
-    return _within(got, want, terms, int(nbr_idx.shape[1]))
+    """:func:`_within` for ``gossip_mix_batched``'s output against the plain
+    version, one worker's row at a time in the plain version's order (the
+    neighbour terms summed, then added to the own term): a whole leaf's
+    plain version gathers (n, deg) float32 copies of it (9 GiB at a
+    16-layer granite's expert weights), a row only deg."""
+    err, ok = 0.0, True
+    deg = int(nbr_idx.shape[1])
+    tail = (deg,) + (1,) * (x.dim() - 1)
+    for i in range(x.shape[0]):
+        w = weights[i].float()
+        nbrs = x[nbr_idx[i].long()].float()
+        want = (x[i].float() * w[0] + torch.sum(nbrs * w[1:].reshape(tail), dim=0)).to(x.dtype)
+        terms = x[i].float().abs() * w[0].abs() + torch.sum(
+            nbrs.abs_() * w[1:].abs().reshape(tail), dim=0)
+        del nbrs
+        e, o = _within(got[i], want, terms, deg)
+        err, ok = max(err, e), ok and o
+    return err, ok
 
 
 def phase_main_dsgd():
@@ -1532,6 +1563,28 @@ def _table_bytes(idx, w) -> int:
     return idx.numel() * idx.element_size() + w.numel() * w.element_size()
 
 
+def _gossip_step_case(params, W, idx, w) -> dict:
+    """A whole step's gossip (every leaf of ``params``, one neighbour table):
+    kernel, plain version and the dense ``torch.matmul(W, x)`` a leaf, with
+    the byte bound. The timing calls leave the launch count as it was."""
+    from repro_torch.dsgd.gossip import gossip_sim_tree
+    from repro_torch.kernels.gossip_mix import ops as gm
+
+    leaves = _leaves(params)
+    n = W.shape[0]
+    launches = gm.gossip_mix_batched.launches
+    t = large_timings(
+        lambda: gossip_sim_tree(params, W, nbr=(idx, w)),
+        lambda: [gm.gossip_mix_batched_plain(x, idx, w) for x in leaves.values()],
+        lambda: [torch.matmul(W.to(x.dtype), x.view(n, -1)) for x in leaves.values()])
+    gm.gossip_mix_batched.launches = launches
+    nbytes = sum(2 * x.numel() * x.element_size() + _table_bytes(idx, w)
+                 for x in leaves.values())
+    return dict(t, workers=n, leaves=len(leaves), deg=int(idx.shape[1]), bytes=nbytes,
+                dtypes=sorted({str(x.dtype).replace("torch.", "") for x in leaves.values()}),
+                bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes")
+
+
 def phase_gossip_kernels(state, topo) -> dict:
     """Each kernel against its plain version on the trained leaves: the
     embedding (bf16 and fp32), ``layers.mlp.w_gate``, ``layers.attn.wk``
@@ -1542,7 +1595,7 @@ def phase_gossip_kernels(state, topo) -> dict:
     whole step's gossip (all 11 leaves) and the one-worker kernel at the
     embedding. Returns the rows of the kernels line."""
     from repro_torch.core.graph import weight_matrix_from_weights
-    from repro_torch.dsgd.gossip import gossip_sim_tree, padded_neighbors
+    from repro_torch.dsgd.gossip import padded_neighbors
     from repro_torch.kernels.gossip_mix import ops as gm
 
     n = DSGD_WORKERS
@@ -1573,15 +1626,7 @@ def phase_gossip_kernels(state, topo) -> dict:
                 assert ok, f"gossip_mix_batched {name} {dtype} {tag}: outside the tolerance"
             del x
     # the whole step's gossip: the 11 leaves of the main path, BA table
-    (idx, w), _ = tables["ba"]
-    step_t = large_timings(
-        lambda: gossip_sim_tree(state.params, W, nbr=(idx, w)),
-        lambda: [gm.gossip_mix_batched_plain(x, idx, w) for x in leaves.values()],
-        lambda: [torch.matmul(W.to(x.dtype), x.view(n, -1)) for x in leaves.values()])
-    step_bytes = sum(2 * x.numel() * x.element_size() + _table_bytes(idx, w)
-                     for x in leaves.values())
-    step_row = dict(**step_t, bound_ms=1e3 * step_bytes / HBM_BYTES_PER_S, bound_by="bytes",
-                    bytes=step_bytes)
+    step_row = _gossip_step_case(state.params, W, *tables["ba"][0])
     # the one-worker kernel at the embedding: worker 0 and its neighbours
     x = leaves["embed"]
     row0 = [j for j in range(n) if j != 0 and float(W[0, j]) != 0.0]
@@ -2549,6 +2594,361 @@ def phase_profile_prefill() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 15b: DSGD training of the moe, vlm, audio, ssm and hybrid families
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 6
+#: label → (path, arch, workers, layers kept (None: all)). n = 8 where the
+#: workers fit one card, else 4; where 4 do not fit at full depth the depth
+#: is cut and the run drives the launcher's ``init_dsgd_state`` /
+#: ``dsgd_train_step`` on the cut config itself (the launcher has no depth
+#: flag). Peaks on an NVIDIA H100 80GB HBM3 (700 W, 85.0 GB): granite 12
+#: layers 50.8 GB, 16 layers 67.3 GB once and out of memory in another run
+#: (22.7 GiB of the cache reserved but unallocated); mamba2 16 layers 55.9
+#: GB, 24 out of memory; zamba2 6 layers 45.3 GB, 12 out of memory (whole
+#: groups of 6 Mamba-2 layers and the shared block); internvl2 20 layers
+#: 67.3 GB, full depth 79.3 GB. Each cut leaves the allocator ~17 GB or
+#: more. internvl2 runs last: its 151,655-word bigram table takes longest.
+TRAIN_FAMILY_RUNS = {
+    "main_train_moe": ("train_moe", "granite-moe-1b-a400m", 4, 12),
+    "main_train_audio": ("train_audio", "whisper-tiny", 8, None),
+    "main_train_ssm": ("train_ssm", "mamba2-780m", 4, 16),
+    "main_train_hybrid": ("train_hybrid", "zamba2-2.7b", 4, 6),
+    "main_train_vlm": ("train_vlm", "internvl2-1b", 4, 20),
+}
+#: The vocabularies whose bigram tables the training phases read (smollm's,
+#: then the five families'), each built in a process of its own from the
+#: start of the run, the largest first.
+TABLE_VOCABS = (151655, 49152, 49155, 51865, 50280, 32000)
+_TABLE_BUILDS: dict = {}
+_TABLE_WALLS: dict = {}
+
+
+def start_table_builds(vocabs=TABLE_VOCABS) -> None:
+    """One process a vocabulary, at the lowest CPU priority (the phases'
+    host work comes first), each writing its table under build/bigram
+    (atomically) and printing its wall as JSON."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import json, os, sys, time; os.nice(19); t = time.perf_counter(); "
+            "from repro_torch.data.pipeline import bigram_table, TABLE_STATS; "
+            "v = int(sys.argv[1]); bigram_table(v, 0); "
+            "print(json.dumps(dict(vocab=v, wall_s=time.perf_counter() - t, "
+            "**TABLE_STATS[(v, 0)])))")
+    for v in vocabs:
+        _TABLE_BUILDS[v] = subprocess.Popen([sys.executable, "-c", code, str(v)], cwd=ROOT,
+                                            env=env, stdout=subprocess.PIPE, text=True)
+
+
+def await_table(vocab: int) -> dict:
+    """Wait for the vocabulary's build process; its wall, and how long this
+    run waited for it (started here if no build of it runs)."""
+    if vocab not in _TABLE_WALLS:
+        if vocab not in _TABLE_BUILDS:
+            start_table_builds((vocab,))
+        t0 = time.perf_counter()
+        proc = _TABLE_BUILDS.pop(vocab)
+        out, _ = proc.communicate()
+        assert proc.returncode == 0, f"bigram table {vocab}: exit {proc.returncode}"
+        _TABLE_WALLS[vocab] = dict(json.loads(out.strip().splitlines()[-1]),
+                                   waited_s=time.perf_counter() - t0,
+                                   ready_at_s=time.perf_counter() - T0)
+        emit("bigram_table", **_TABLE_WALLS[vocab])
+    return _TABLE_WALLS[vocab]
+
+
+def stop_table_builds() -> None:
+    for proc in _TABLE_BUILDS.values():
+        proc.kill()
+        proc.wait()
+    _TABLE_BUILDS.clear()
+
+
+def _train_batches(cfg, n: int, batch: int, seq: int, step: int) -> dict:
+    from repro_torch.data import DataConfig, lm_batch_numpy
+
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch, seed=0,
+                    frontend_tokens=cfg.frontend_tokens, d_model=cfg.d_model)
+    per = [lm_batch_numpy(dc, step, node=i) for i in range(n)]
+    return {k: torch.from_numpy(np.stack([b[k] for b in per])).cuda() for k in per[0]}
+
+
+def _loss_on(cfg, params, batch) -> float:
+    """The workers' mean ``train_loss`` on ``batch`` (one per worker), with
+    no gradient."""
+    from repro_torch.models import transformer
+
+    with torch.no_grad():
+        fn = torch.func.vmap(lambda p, b: transformer.train_loss(p, cfg, b))
+        return float(fn(params, batch).mean())
+
+
+def _train_cut(cfg, n: int, on_step) -> dict:
+    """The launcher's loop (BA topology, SGD, warmup-cosine, one synced step
+    at a time) on a depth-cut config, which the launcher has no flag for."""
+    from repro_torch.dsgd import dsgd_train_step, init_dsgd_state
+    from repro_torch.launch import steps
+    from repro_torch.optim import make_optimizer, warmup_cosine
+
+    topo = steps.topology_for(n, "ba", 2 * n, 0, device="cuda", cache_path=TOPO_CACHE)
+    init, upd = make_optimizer("sgd", warmup_cosine(0.05, max(TRAIN_STEPS // 20, 1),
+                                                    TRAIN_STEPS))
+    step = dsgd_train_step(cfg, topo, upd, device="cuda")
+    state = init_dsgd_state(0, cfg, n, init, device="cuda")
+    history, step_ms = [], []
+    for s in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, _train_batches(cfg, n, 4, 256, s))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        on_step(s, state, metrics)
+        history.append({k: float(v) for k, v in metrics.items()})
+    return dict(history=history, step_ms=step_ms, topology=topo.name, edges=len(topo.edges))
+
+
+def _ssd_backward_check(args, gen) -> dict:
+    """``ssd_intra_chunk_backward`` against autograd through the plain
+    version on the path's inputs, in float32 (the gradients before their
+    cast to the inputs' dtypes), with unit-normal cotangents: each gradient
+    within 1e-4 of its largest magnitude."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    f32 = [a.float() for a in args]
+    y, st = ssd.ssd_intra_chunk_plain(*f32)
+    gy = torch.randn(y.shape, generator=gen, device="cuda")
+    gst = torch.randn(st.shape, generator=gen, device="cuda")
+    del y, st
+    got = ssd.ssd_intra_chunk_backward(*f32, gy, gst)
+    leaves = [a.clone().requires_grad_() for a in f32]
+    with torch.enable_grad():
+        y, st = ssd.ssd_intra_chunk_plain(*leaves)
+        want = torch.autograd.grad((y * gy).sum() + (st * gst).sum(), leaves)
+    share = {name: float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30) / 1e-4
+             for name, g, w in zip(("x", "dt", "la", "B", "C"), got, want)}
+    return dict(share_of_tol=share, within=all(s <= 1.0 for s in share.values()),
+                grad_tol="1e-4 of each gradient's largest magnitude, float32")
+
+
+def _ssd_train_case(args) -> dict:
+    """The kernel, its plain version and the backward at the training shape
+    (the first launch's own inputs: the workers folded into B), timed by
+    CUDA events over 10 eager calls, with the forward's bounds."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    x = args[0]
+    Bsz, nc, Q, H, P = x.shape
+    N = args[3].shape[-1]
+    plan = ssd.kernel_plan(Q, H, P, N, x.dtype)
+    nbytes, flops, tc_ops = _ssd_work(Bsz, nc, Q, H, P, N, x.element_size())
+    f32 = [a.float() for a in args]
+    y, st = ssd.ssd_intra_chunk_plain(*f32)
+    gy, gst = torch.ones_like(y), torch.ones_like(st)
+    leaves = [a.clone().requires_grad_() for a in f32]
+
+    def plain_backward():
+        with torch.enable_grad():
+            yy, ss = ssd.ssd_intra_chunk_plain(*leaves)
+            return torch.autograd.grad((yy * gy).sum() + (ss * gst).sum(), leaves)
+
+    n = ssd.ssd_intra_chunk.launches
+    t = large_timings(lambda: ssd.ssd_intra_chunk(*args),
+                      lambda: ssd.ssd_intra_chunk_plain(*args))
+    bw = large_timings(lambda: ssd.ssd_intra_chunk_backward(*f32, gy, gst), plain_backward)
+    ssd.ssd_intra_chunk.launches = n
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    ops_s = (tc_ops / BF16_OP_PER_S if plan["route"] == "tensor_core"
+             else flops / FP32_OP_PER_S)
+    return dict(B=Bsz, nc=nc, Q=Q, H=H, P=P, N=N, dtype=str(x.dtype).replace("torch.", ""),
+                route=plan["route"], ms=t["ms"], plain_ms=t["plain_ms"], library_ms=None,
+                call_ms=t["call_ms"], backward_ms=bw["ms"], backward_plain_ms=bw["plain_ms"],
+                bound_ms=1e3 * max(bytes_s, ops_s),
+                bound_by="operations" if ops_s > bytes_s else "bytes")
+
+
+def phase_train_family(label: str) -> dict:
+    """One family at full width, 6 DSGD steps, ``--topo ba --r 2n
+    --optimizer sgd --batch 4 --seq 256``: through the launcher at full
+    depth, else the launcher's loop on the depth-cut config. Every kernel
+    count from 0: ``gossip_mix_batched`` exactly once a leaf a step, and
+    ``ssd_intra_chunk`` once a Mamba-2 layer a step (the vmap rule folds the
+    workers into one launch; the backward launches nothing). The first
+    gossip and the first ``ssd_intra_chunk`` (forward and backward) are held
+    against their plain versions on the path's own inputs. The losses are
+    finite, and the first step's batch has a lower loss under the final
+    weights than under the first (each step's own loss is on a fresh batch:
+    over 6 steps their spread exceeds what the model learns, and the
+    first step's batch enters every update through the momentum). Then
+    both kernels at the run's shapes."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.core.graph import weight_matrix_from_weights
+    from repro_torch.dsgd import trainer
+    from repro_torch.dsgd.gossip import padded_neighbors
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.launch import steps, train
+    from repro_torch.models import param_count
+
+    path, arch, n, cut = TRAIN_FAMILY_RUNS[label]
+    cfg = get_arch(arch)
+    full_layers = cfg.num_layers
+    if cut:
+        cfg = dataclasses.replace(cfg, num_layers=cut)
+    table = await_table(cfg.vocab_size)
+    mix, launch = trainer.gossip_sim_tree, ssd._launch
+    first: dict = {}
+
+    def checked_mix(tree, W, *, use_kernel=True, nbr=None):
+        out = mix(tree, W, use_kernel=use_kernel, nbr=nbr)
+        if "gossip" not in first:
+            mixed = _leaves(out)
+            first["gossip"] = {k: _batched_check(mixed[k], x, *nbr)
+                               for k, x in _leaves(tree).items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        return out
+
+    def kept_launch(*args):
+        if "ssd_args" not in first:
+            first["ssd_args"] = [a.detach().clone() for a in args]
+        return launch(*args)
+
+    last: dict = {}
+
+    def keep(s, state, metrics):
+        last.update(state=state)
+
+    trainer.gossip_sim_tree, ssd._launch = checked_mix, kept_launch
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        if cut:
+            res = _train_cut(cfg, n, keep)
+        else:
+            res = train.main(["--arch", arch, "--workers", str(n), "--topo", "ba", "--r",
+                              str(2 * n), "--optimizer", "sgd", "--batch", "4", "--seq",
+                              "256", "--steps", str(TRAIN_STEPS), "--log-every", "1",
+                              "--seed", "0", "--device", "cuda", "--topo-cache",
+                              str(TOPO_CACHE)],
+                             on_step=keep)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        trainer.gossip_sim_tree, ssd._launch = mix, launch
+    peak = torch.cuda.max_memory_allocated()
+    state = last.pop("state")
+    losses = [h["loss"] for h in res["history"]]
+    n_leaves = len(_leaves(state.params))
+    mamba = cfg.num_layers if cfg.arch_type in ("ssm", "hybrid") else 0
+    steady = float(np.mean(res["step_ms"][2:]))
+    gossip_first = first.pop("gossip")
+    out = dict(arch=cfg.name, family=cfg.arch_type, workers=n, layers=cfg.num_layers,
+               full_layers=full_layers, depth_cut=bool(cut), batch=4, seq=256,
+               steps=len(res["step_ms"]), via="dsgd_train_step" if cut else "launcher",
+               param_count_per_worker=param_count(state.params) // n, leaves=n_leaves,
+               step_ms=res["step_ms"], steady_step_ms=steady, losses=losses,
+               first_loss=losses[0], last_loss=losses[-1],
+               consensus_err=[h["consensus_err"] for h in res["history"]],
+               peak_gb=peak / 1e9, max_memory_allocated_bytes=peak, wall_s=wall_s,
+               bigram_table=table, launches={k: v for k, v in launches.items() if v},
+               first_gossip_vs_plain=dict(
+                   max_abs_err=max(e for e, _ in gossip_first.values()),
+                   within=all(ok for _, ok in gossip_first.values())))
+    topo = steps.topology_for(n, "ba", 2 * n, 0, device="cuda", cache_path=TOPO_CACHE)
+    if mamba:
+        args = first.pop("ssd_args")
+        err, share, ok = _ssd_check(args)
+        out["first_ssd_vs_plain"] = dict(
+            max_abs_err=err, share_of_tol=share, within=ok, x_shape=list(args[0].shape),
+            backward=_ssd_backward_check(args, torch.Generator(device="cuda").manual_seed(0)))
+    out["first_batch_loss_at_end"] = _loss_on(cfg, state.params,
+                                              _train_batches(cfg, n, 4, 256, 0))
+    ssd.ssd_intra_chunk.launches = launches["ssd_intra_chunk"]
+    emit(label, **out)
+    assert all(np.isfinite(losses)), f"{label}: losses {losses} not finite"
+    assert out["first_batch_loss_at_end"] < losses[0], \
+        f"{label}: the first step's batch has loss {out['first_batch_loss_at_end']} at the " \
+        f"end, not below its {losses[0]} at the start"
+    assert launches["gossip_mix_batched"] == n_leaves * TRAIN_STEPS, launches
+    assert launches["ssd_intra_chunk"] == mamba * TRAIN_STEPS, launches
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+    assert not missing, f"{label}: kernels never launched on the path: {missing}"
+    assert out["first_gossip_vs_plain"]["within"], f"{label}: first gossip: {gossip_first}"
+    W = torch.tensor(weight_matrix_from_weights(topo.n, topo.edges, topo.g),
+                     dtype=torch.float32, device="cuda")
+    shapes = dict(gossip=dict(_gossip_step_case(state.params, W, *padded_neighbors(W)),
+                              path=label,
+                              launches=launches["gossip_mix_batched"],
+                              max_abs_err=out["first_gossip_vs_plain"]["max_abs_err"]))
+    if mamba:
+        first_ssd = out["first_ssd_vs_plain"]
+        assert first_ssd["within"] and first_ssd["backward"]["within"], \
+            f"{label}: the first ssd_intra_chunk is outside its tolerance: {first_ssd}"
+        shapes["ssd"] = dict(_ssd_train_case(args), path=label,
+                             launches=launches["ssd_intra_chunk"],
+                             max_abs_err=first_ssd["max_abs_err"])
+        del args
+    emit(label.replace("main_", "") + "_kernels", **shapes)
+    del state
+    torch.cuda.empty_cache()
+    return dict(out, shapes=shapes)
+
+
+#: (arch) of the reduced card-vs-CPU training rows: every trained family.
+TRAIN_CARD_VS_CPU = ("granite-moe-1b-a400m", "mixtral-8x22b", "internvl2-1b", "whisper-tiny",
+                     "mamba2-780m", "zamba2-2.7b")
+
+
+def phase_train_card_vs_cpu() -> None:
+    """Reduced fp32 models of the five trained families (and mixtral), n =
+    4 on a ring, 3 steps from the same weights and batches (vlm and audio
+    with their stub embeddings) on the card and on the CPU: the losses
+    agree within 1e-4 relative (main_dsgd's check), the card's gossip and
+    SSD counted. With the CPU against the JAX package
+    (tests/test_torch_train_families.py) this closes the chain JAX ⇄ port
+    (CPU) ⇄ port (card)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch, reduced_for_smoke
+    from repro_torch.core.topologies import make_baseline
+    from repro_torch.data import DataConfig, lm_batch_numpy
+    from repro_torch.dsgd import dsgd_train_step, init_dsgd_state
+    from repro_torch.optim import make_optimizer, warmup_cosine
+
+    rows = []
+    n, n_steps = 4, 3
+    for arch in TRAIN_CARD_VS_CPU:
+        cfg = reduced_for_smoke(get_arch(arch))
+        init, upd = make_optimizer("sgd", warmup_cosine(0.05, 1, n_steps))
+        dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch_size=4, seed=0,
+                        frontend_tokens=cfg.frontend_tokens, d_model=cfg.d_model)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            state = init_dsgd_state(0, cfg, n, init, device=dev)
+            step = dsgd_train_step(cfg, make_baseline("ring", n), upd, device=dev)
+            kernels.reset_launch_counts()
+            losses = []
+            for s in range(n_steps):
+                per = [lm_batch_numpy(dc, s, node=i) for i in range(n)]
+                bt = {k: torch.from_numpy(np.stack([b[k] for b in per])).to(dev)
+                      for k in per[0]}
+                state, m = step(state, bt)
+                losses.append(float(m["loss"]))
+            runs[dev] = (losses, kernels.launch_counts())
+        (gl, glaunch), (cl, _) = runs["cuda"], runs["cpu"]
+        rows.append(dict(arch=cfg.name, family=cfg.arch_type, losses_cuda=gl, losses_cpu=cl,
+                         loss_max_rel_diff=max(abs(a - b) / abs(b) for a, b in zip(gl, cl)),
+                         launches_cuda={k: v for k, v in glaunch.items() if v}))
+    emit("train_card_vs_cpu", workers=n, steps=n_steps, rows=rows)
+    for r in rows:
+        assert r["loss_max_rel_diff"] <= 1e-4, f"train card vs CPU {r['arch']}: {r}"
+        assert r["launches_cuda"].get("gossip_mix_batched", 0) > 0, r
+        if r["family"] in ("ssm", "hybrid"):
+            assert r["launches_cuda"].get("ssd_intra_chunk", 0) > 0, r
+
+
+# ---------------------------------------------------------------------------
 # phase 16: the §VI-B evaluation (dsgd/sim.py) on the card
 # ---------------------------------------------------------------------------
 
@@ -2967,7 +3367,15 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
+    try:
+        return _main()
+    finally:
+        stop_table_builds()
+
+
+def _main() -> int:
     phase_device_and_build()
+    start_table_builds()
     timing = phase_kernels()
     batched_timing = phase_batched_kernels()
 
@@ -2988,6 +3396,7 @@ def main() -> int:
     for name in BATCHED_FORMS:
         timing[name]["batched"] = dict(batched_timing[name], launches=sweep_launches[name])
 
+    await_table(49152)
     state, topo, dsgd_launches, step1_err, dsgd_run = phase_main_dsgd()
     timing.update(phase_gossip_kernels(state, topo))
     timing["gossip_mix_batched"]["max_abs_err"] = step1_err
@@ -3007,6 +3416,8 @@ def main() -> int:
     phase_serve_card_vs_cpu()
     phase_profile_serve()
     phase_profile_prefill()
+    trained = {label: phase_train_family(label) for label in TRAIN_FAMILY_RUNS
+               if label != "main_train_vlm"}
 
     topos, sim_data, Ws, sim_accs, sim_launches = phase_main_sim()
     timing["gossip_mix_batched"]["sim"] = dict(
@@ -3014,6 +3425,8 @@ def main() -> int:
     phase_main_sim_cross(topos, sim_data, sim_accs)
     phase_main_sim_chaos()
     phase_topo_cli()
+    phase_train_card_vs_cpu()
+    trained["main_train_vlm"] = phase_train_family("main_train_vlm")
 
     path_launches = {"gossip_mix_batched": dsgd_launches["gossip_mix_batched"],
                      "gossip_mix": row_launches["gossip_mix"],
@@ -3029,6 +3442,11 @@ def main() -> int:
                                             "N", "dtype", "max_abs_err", "ms", "ms_warm",
                                             "plain_ms", "bound_ms", "bound_by", "library_ms",
                                             "library_ms_warm", "call_ms") if k in case}))
+    # each trained family's shapes with their launches on its path
+    for label, run in trained.items():
+        timing["gossip_mix_batched"].setdefault("train_shapes", []).append(run["shapes"]["gossip"])
+        if "ssd" in run["shapes"]:
+            timing["ssd_intra_chunk"].setdefault("train_shapes", []).append(run["shapes"]["ssd"])
     rows = []
     for name, info in KERNEL_INFO.items():
         t = timing[name]
@@ -3038,7 +3456,7 @@ def main() -> int:
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], call_ms=t["call_ms"],
             **{k: t[k] for k in ("ms_warm", "library_ms_warm", "sim", "batched", "elastic",
-                                 "serve_shapes") if k in t}))
+                                 "serve_shapes", "train_shapes") if k in t}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

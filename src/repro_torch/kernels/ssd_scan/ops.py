@@ -9,6 +9,12 @@ terms, :func:`bf16_terms`), float32 and float16 the CUDA cores (float32
 FMA). The wrapper takes the plain version only for a tensor on the CPU;
 for a CUDA tensor it launches its route's kernel or raises. It counts its
 launches in ``ssd_intra_chunk.launches``.
+
+The wrapper is a ``torch.autograd.Function``, so the trainer's
+``torch.func.vmap(torch.func.grad_and_value(...))`` runs through it. Its
+backward, :func:`ssd_intra_chunk_backward`, is torch ops that recompute the
+mask from the saved inputs (the mask itself is not saved). Its ``vmap``
+rule folds the workers' axis into B, so one launch serves all workers.
 """
 from __future__ import annotations
 
@@ -19,8 +25,8 @@ import torch
 
 from .. import launch_util as _lu
 
-__all__ = ["ssd_intra_chunk", "ssd_intra_chunk_plain", "ssd_intra_chunk_bound", "kernel_plan",
-           "kernel_blocks", "bf16_terms"]
+__all__ = ["ssd_intra_chunk", "ssd_intra_chunk_plain", "ssd_intra_chunk_backward",
+           "ssd_intra_chunk_bound", "kernel_plan", "kernel_blocks", "bf16_terms"]
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
@@ -41,19 +47,32 @@ _TC_NC = 128                   # columns of N a state block takes
 _TC_TERMS = 3                  # bf16 terms a float32 operand is split into
 
 
+def _compute_dtype(xc) -> torch.dtype:
+    """float32, or float64 for float64 inputs (on the CPU only)."""
+    return torch.promote_types(xc.dtype, torch.float32)
+
+
+def _decay(laf, causal):
+    """L[t, s] = exp(la_t − la_s) for s ≤ t, else 0: the exponent is masked
+    before ``exp``, since la_t − la_s for s > t may overflow to inf, whose
+    gradient through a masked ``where`` would be 0·inf = NaN."""
+    diff = laf[:, :, :, None, :] - laf[:, :, None, :, :]               # (B,nc,Qt,Qs,H)
+    return torch.exp(torch.where(causal[None, None, :, :, None], diff, -torch.inf))
+
+
 def ssd_intra_chunk_plain(xc, dtc, la, Bc, Cc):
-    """``ref.ssd_intra_chunk``, all in float32. xc (B, nc, Q, H, P); dtc, la
-    (B, nc, Q, H); Bc, Cc (B, nc, Q, N). Returns (y_intra (B, nc, Q, H, P),
-    chunk_states (B, nc, H, P, N)). The mask M = G·L·dt (B, nc, Q, Q, H) is
-    formed first and each output is one batched product, so no
-    intermediate is larger than M (a four-operand einsum may contract into
-    (B, nc, Q, Q, H, P) floats: 43 GB at zamba2's prefill)."""
+    """``ref.ssd_intra_chunk``, all in float32 (float64 for float64
+    inputs). xc (B, nc, Q, H, P); dtc, la (B, nc, Q, H); Bc, Cc (B, nc, Q,
+    N). Returns (y_intra (B, nc, Q, H, P), chunk_states (B, nc, H, P, N)).
+    The mask M = G·L·dt (B, nc, Q, Q, H) is formed first and each output is
+    one batched product, so no intermediate is larger than M (a
+    four-operand einsum may contract into (B, nc, Q, Q, H, P) floats: 43 GB
+    at zamba2's prefill)."""
     Q = xc.shape[2]
-    xf, dtf, laf = xc.float(), dtc.float(), la.float()
-    Bf, Cf = Bc.float(), Cc.float()
-    Ldec = torch.exp(laf[:, :, :, None, :] - laf[:, :, None, :, :])   # (B,nc,Qt,Qs,H)
+    ft = _compute_dtype(xc)
+    xf, dtf, laf, Bf, Cf = (t.to(ft) for t in (xc, dtc, la, Bc, Cc))
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xc.device))
-    Ldec = torch.where(causal[None, None, :, :, None], Ldec, 0.0)
+    Ldec = _decay(laf, causal)
     CB = torch.einsum("bctn,bcsn->bcts", Cf, Bf)
     M = CB[..., None] * Ldec * dtf[:, :, None, :, :]
     y_intra = torch.einsum("bctsh,bcshp->bcthp", M, xf)
@@ -61,6 +80,55 @@ def ssd_intra_chunk_plain(xc, dtc, la, Bc, Cc):
     xw = xf * (decay_out * dtf)[..., None]                            # (B,nc,Q,H,P)
     chunk_states = torch.einsum("bcshp,bcsn->bchpn", xw, Bf)
     return y_intra, chunk_states
+
+
+def ssd_intra_chunk_backward(xc, dtc, la, Bc, Cc, gy, gst):
+    """The gradients of (y_intra, chunk_states) with respect to (xc, dtc,
+    la, Bc, Cc), given their cotangents ``gy`` (B, nc, Q, H, P) and ``gst``
+    (B, nc, H, P, N), in torch ops, in the inputs' dtypes. Per (batch,
+    chunk), with G = C·Bᵀ, L[t,s] = exp(la_t − la_s) (s ≤ t), M = G·L·dt,
+    w_s = exp(la_last − la_s)·dt_s:
+
+      y[t]  = Σ_s M[t,s]·x[s]         st = Σ_s w_s·x[s] ⊗ B[s]
+      dM    = gy·xᵀ (over P)          R = dM·M
+      dx[s] = Σ_t M[t,s]·gy[t] + w_s·(gst·B[s])
+      dG    = Σ_h dM·L·dt             dC = dG·B, dB = dGᵀ·C + Σ_hp (w·x)·gst
+      ddt_s = Σ_t dM·G·L + dw_s·exp(la_last − la_s),  dw_s = Σ_p x[s]·(gst·B[s])
+      dla_t = Σ_s R[t,s] − Σ_s' R[s',t] − dw_t·w_t, and dla_last += Σ_s dw_s·w_s
+
+    la enters through L and through the state's decay, dt through M and w,
+    B through both outputs. M is recomputed from the inputs, in float32
+    (float64 for float64 inputs)."""
+    Q = xc.shape[2]
+    ft = _compute_dtype(xc)
+    xf, dtf, laf, Bf, Cf, gy, gst = (t.to(ft) for t in (xc, dtc, la, Bc, Cc, gy, gst))
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xc.device))
+    L = _decay(laf, causal)                                           # (B,nc,t,s,H)
+    G = torch.einsum("bctn,bcsn->bcts", Cf, Bf)
+    GL = G[..., None] * L
+    M = GL * dtf[:, :, None, :, :]
+    dM = torch.einsum("bcthp,bcshp->bctsh", gy, xf)
+    gx = torch.einsum("bctsh,bcthp->bcshp", M, gy)
+    R = dM * M
+    gla = R.sum(dim=3) - R.sum(dim=2)
+    gdt = (dM * GL).sum(dim=2)
+    del GL, R
+    dG = (dM * L * dtf[:, :, None, :, :]).sum(dim=-1)                 # (B,nc,t,s)
+    del dM, L, M
+    gC = torch.einsum("bcts,bcsn->bctn", dG, Bf)
+    gB = torch.einsum("bcts,bctn->bcsn", dG, Cf)
+    decay_out = torch.exp(laf[:, :, -1:, :] - laf)                    # (B,nc,Q,H)
+    w = decay_out * dtf
+    gB_st = torch.einsum("bchpn,bcsn->bcshp", gst, Bf)                # gst·B[s]
+    gx = gx + w[..., None] * gB_st
+    dw = (xf * gB_st).sum(dim=-1)                                     # (B,nc,Q,H)
+    gB = gB + torch.einsum("bcshp,bchpn->bcsn", xf * w[..., None], gst)
+    gdt = gdt + dw * decay_out
+    dww = dw * w
+    last = (torch.arange(Q, device=xc.device) == Q - 1).to(ft)
+    gla = gla - dww + dww.sum(dim=2, keepdim=True) * last[:, None]
+    return (gx.to(xc.dtype), gdt.to(dtc.dtype), gla.to(la.dtype), gB.to(Bc.dtype),
+            gC.to(Cc.dtype))
 
 
 def ssd_intra_chunk_bound(xc, dtc, la, Bc, Cc):
@@ -221,18 +289,7 @@ def _vec_ok(xc, Bc, Cc, P: int, N: int) -> bool:
                     for t in (xc, Bc, Cc)))
 
 
-def ssd_intra_chunk(xc, dtc, la, Bc, Cc):
-    """The intra-chunk outputs of every (batch, chunk) and head.
-
-    ``xc``: (B, nc, Q, H, P); ``Bc``, ``Cc``: (B, nc, Q, N), of one dtype
-    (float32, bfloat16 or float16); ``dtc``, ``la``: (B, nc, Q, H) float32
-    (post-softplus dt and the cumulative log-decay). Dimensions 0, 1 and 2
-    may have any strides (a chunk of a column slice of the conv output is
-    taken as it lies); the others must be dense. Returns (y_intra (B, nc, Q, H, P),
-    chunk_states (B, nc, H, P, N)), both float32. One launch covers every
-    chunk; bfloat16 takes the tensor-core route, float32 and float16 the
-    CUDA-core route (:func:`kernel_plan`).
-    """
+def _validate(xc, dtc, la, Bc, Cc) -> None:
     if xc.dim() != 5 or dtc.dim() != 4 or Bc.dim() != 4:
         raise ValueError(f"xc must be (B, nc, Q, H, P), dtc and la (B, nc, Q, H), Bc and Cc "
                          f"(B, nc, Q, N); got {tuple(xc.shape)}, {tuple(dtc.shape)}, "
@@ -243,13 +300,23 @@ def ssd_intra_chunk(xc, dtc, la, Bc, Cc):
             or tuple(Bc.shape) != (Bsz, nc, Q, N) or tuple(Cc.shape) != (Bsz, nc, Q, N)):
         raise ValueError(f"shapes do not fit xc {tuple(xc.shape)}: dtc {tuple(dtc.shape)}, "
                          f"la {tuple(la.shape)}, Bc {tuple(Bc.shape)}, Cc {tuple(Cc.shape)}")
-    if xc.dtype not in _DTYPES or Bc.dtype != xc.dtype or Cc.dtype != xc.dtype:
+    f64 = all(t.dtype == torch.float64 and t.device.type == "cpu"
+              for t in (xc, dtc, la, Bc, Cc))
+    if not f64 and (xc.dtype not in _DTYPES or Bc.dtype != xc.dtype or Cc.dtype != xc.dtype):
         raise TypeError(f"xc, Bc and Cc must share one dtype, float32, bfloat16 or float16, "
                         f"not {xc.dtype}/{Bc.dtype}/{Cc.dtype}")
-    if dtc.dtype != torch.float32 or la.dtype != torch.float32:
-        raise TypeError(f"dtc and la must be float32, not {dtc.dtype}/{la.dtype}")
+    if not f64 and (dtc.dtype != torch.float32 or la.dtype != torch.float32):
+        raise TypeError(f"dtc and la must be float32, not {dtc.dtype}/{la.dtype} (float64 "
+                        "only with float64 x, B and C, on the CPU)")
+
+
+def _launch(xc, dtc, la, Bc, Cc):
+    """The plain version on the CPU; on a CUDA device the route's kernel,
+    counted in ``ssd_intra_chunk.launches``, or raise."""
     if xc.device.type == "cpu":
         return ssd_intra_chunk_plain(xc, dtc, la, Bc, Cc)
+    Bsz, nc, Q, H, P = (int(s) for s in xc.shape)
+    N = int(Bc.shape[3])
     for what, t in (("xc", xc), ("dtc", dtc), ("la", la), ("Bc", Bc), ("Cc", Cc)):
         if t.device.type != "cuda":
             raise ValueError(f"{what} must lie on the CPU or a CUDA device, not {t.device}")
@@ -281,6 +348,53 @@ def ssd_intra_chunk(xc, dtc, la, Bc, Cc):
         _lu.raise_launch_error("ssd_intra_chunk", err, xc.device.index)
     ssd_intra_chunk.launches += 1
     return y, st
+
+
+class _IntraChunk(torch.autograd.Function):
+    """The kernel forward, the torch-ops backward, and a vmap rule that folds
+    the vmapped axis into B: one launch for all workers."""
+
+    @staticmethod
+    def forward(xc, dtc, la, Bc, Cc):
+        return _launch(xc, dtc, la, Bc, Cc)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)            # the inputs only: M is recomputed
+
+    @staticmethod
+    def backward(ctx, gy, gst):
+        return ssd_intra_chunk_backward(*ctx.saved_tensors, gy, gst)
+
+    @staticmethod
+    def vmap(info, in_dims, xc, dtc, la, Bc, Cc):
+        n = info.batch_size
+
+        def fold(t, d):
+            t = t.expand(n, *t.shape) if d is None else t.movedim(d, 0)
+            return t.reshape(n * t.shape[1], *t.shape[2:])
+
+        y, st = _IntraChunk.apply(*(fold(t, d) for t, d in zip((xc, dtc, la, Bc, Cc), in_dims)))
+        return (y.unflatten(0, (n, -1)), st.unflatten(0, (n, -1))), (0, 0)
+
+
+def ssd_intra_chunk(xc, dtc, la, Bc, Cc):
+    """The intra-chunk outputs of every (batch, chunk) and head.
+
+    ``xc``: (B, nc, Q, H, P); ``Bc``, ``Cc``: (B, nc, Q, N), of one dtype
+    (float32, bfloat16 or float16); ``dtc``, ``la``: (B, nc, Q, H) float32
+    (post-softplus dt and the cumulative log-decay); on the CPU all five may
+    also be float64. Dimensions 0, 1 and 2 may have any strides (a chunk of
+    a column slice of the conv output is taken as it lies); the others must
+    be dense. Returns (y_intra (B, nc, Q, H, P), chunk_states (B, nc, H, P,
+    N)), float32 (float64 for float64 inputs). One launch covers every
+    chunk, and under ``torch.func.vmap`` every vmapped copy too; bfloat16
+    takes the tensor-core route, float32 and float16 the CUDA-core route
+    (:func:`kernel_plan`). Differentiable: the backward is
+    :func:`ssd_intra_chunk_backward`.
+    """
+    _validate(xc, dtc, la, Bc, Cc)
+    return _IntraChunk.apply(xc, dtc, la, Bc, Cc)
 
 
 ssd_intra_chunk.launches = 0

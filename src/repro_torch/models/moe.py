@@ -12,7 +12,10 @@ Where the port must take care to give the reference's bits:
   does: a stable descending sort, not ``torch.topk`` (which promises no
   order among equal values);
 - a dropped choice goes to slot C of an (E, C + 1, D) buffer whose last row
-  is cut off, so no index ever leaves the buffer;
+  is cut off, so no index ever leaves the buffer; the buffer is written by
+  the out-of-place ``index_put``, so the dispatch composes with the
+  trainer's ``torch.func.vmap`` and ``grad`` (capacity is then per worker,
+  T = B·S of one worker, as under the reference's vmap);
 - the combine adds the k choices one by one in x's dtype, each weight
   ``topv · keep`` cast to x's dtype first, each product and sum rounded, as
   the reference's loop does (a sum over a k axis would round once);
@@ -76,9 +79,11 @@ def moe_forward(params, x, *, top_k: int, capacity_factor: float = 1.25,
     slot = torch.where(keep, pos, C)                                    # C: dropped
 
     # every kept (expert, slot) holds one choice, so writing is the
-    # reference's add into zeros; the dropped ones land in row C, cut off
-    buf = torch.zeros((E, C + 1, D), dtype=x.dtype, device=x.device)
-    buf[topi.reshape(-1), slot.reshape(-1)] = xt[:, None].expand(T, top_k, D).reshape(-1, D)
+    # reference's add into zeros; the dropped ones land in row C, cut off.
+    # Out of place: torch.func.vmap refuses an in-place write of the
+    # workers' values into a buffer made here
+    buf = torch.zeros((E, C + 1, D), dtype=x.dtype, device=x.device).index_put(
+        (topi.reshape(-1), slot.reshape(-1)), xt[:, None].expand(T, top_k, D).reshape(-1, D))
     expert_in = buf[:, :C]
     h = _silu(torch.bmm(expert_in, params["w_gate"])) * torch.bmm(expert_in, params["w_up"])
     expert_out = torch.bmm(h, params["w_down"])                          # (E, C, D)

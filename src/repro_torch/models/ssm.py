@@ -122,7 +122,10 @@ def ssd_chunk_scan(x, dt, A, B_mat, C_mat, chunk: int, h0=None, use_kernel: bool
     outputs, so one group's y_intra and states are live at a time; each
     chunk then only adds the incoming state's part and carries the state.
     The reference calls its kernel once per chunk inside its scan; the
-    intra-chunk half does not depend on the carried state. False takes the
+    intra-chunk half does not depend on the carried state. The kernel's
+    wrapper is differentiable (its backward recomputes the mask in torch
+    ops), and under the trainer's ``torch.func.vmap`` one launch takes
+    every worker's group, so training keeps the kernel on. False takes the
     reference's einsum route, chunk by chunk. There G = C·Bᵀ stays
     float32: the reference's einsum of two x-dtype operands would round it
     to x's dtype, but XLA removes that round trip inside the compiled scan,

@@ -1,20 +1,19 @@
-"""Model assembly of ``repro/models/transformer.py``, for all six families:
+"""Model assembly of ``repro/models/transformer.py``, for all six families,
+each trained (``train_loss``), prefilled and decoded from a KV or SSM cache:
 
   dense  — GQA attention + SwiGLU (smollm, minitron, qwen1.5, and gemma2 with
-           local/global alternating windows and logit softcaps): train,
-           prefill and KV-cache decode;
-  moe    — GQA attention + top-k MoE FFN (mixtral with SWA, granite):
-           prefill and decode;
-  ssm    — Mamba-2 / SSD blocks (mamba2-780m): prefill and recurrent decode;
+           local/global alternating windows and logit softcaps);
+  moe    — GQA attention + top-k MoE FFN (mixtral with SWA, granite), whose
+           load-balance aux term joins the training loss;
+  ssm    — Mamba-2 / SSD blocks (mamba2-780m);
   hybrid — Mamba-2 blocks with one SHARED attention block after every
            ``shared_attn_every`` layers, with its own KV cache per group
-           (zamba2): prefill and decode;
+           (zamba2);
   vlm    — the dense decoder over [patch embeddings ; text embeddings]
            (internvl2; the vision frontend is a stub that hands over the
-           patch embeddings): prefill and decode;
+           patch embeddings, and the loss skips their positions);
   audio  — encoder-decoder with cross attention (whisper; the mel and conv
-           frontend is a stub that hands over the frame embeddings):
-           prefill and decode.
+           frontend is a stub that hands over the frame embeddings).
 
 Parameters are a nested dict with the reference's keys; the layers are
 stacked on a leading L axis, as the reference's vmapped init stacks them,
@@ -24,16 +23,14 @@ and ``torch.utils.checkpoint`` does not compose with the ``torch.func``
 transforms the trainer applies. Decode caches are stacked (L, ...) too and
 written in place, layer slice by layer slice (the reference donates them).
 
-Deviations from the reference: the hybrid prefill's Mamba-2 layers take
-the ``ssd_intra_chunk`` kernel (the reference's ``_stack_hybrid`` takes the
+Deviations from the reference: the ssm and hybrid stacks' Mamba-2 layers
+take the ``ssd_intra_chunk`` kernel in training too, and the hybrid's in
+its prefill (the reference trains both and prefills the hybrid on its
 einsum route), since the port keeps kernels on; and the frontend
 embeddings are promoted explicitly to the wider of their dtype and the
 projector's before ``@ frontend_proj``, which JAX does implicitly. The
 audio encoder's self-attention is causal, as the reference's
 ``attn_forward`` makes it.
-
-``train_loss`` admits only the dense family: training the others is
-ROADMAP.md Queue 1, item 8 ('Training the non-dense families').
 """
 from __future__ import annotations
 
@@ -355,17 +352,15 @@ def loss_chunk_for(cfg, batch_size: int, budget_bytes: float = 2e9) -> int:
 
 def train_loss(params, cfg, batch, *, aux_weight: float = 0.01,
                loss_chunk: int | None = None):
-    """Causal-LM next-token loss. batch: tokens (B,S), labels (B,S) with
-    -100 = ignore. The unembedding and cross-entropy run over sequence
+    """Causal-LM next-token loss plus ``aux_weight`` × the MoE load-balance
+    aux sum. batch: tokens (B,S), labels (B,S) with -100 = ignore; vlm and
+    audio also ``embeds`` (B,T,D), and vlm's T patch positions are cut off
+    before the loss. The unembedding and cross-entropy run over sequence
     chunks by the reference's rule; ``loss_chunk=None`` picks the chunk
-    from a 2 GB logits budget, 0 disables chunking. Only the dense family
-    trains, and it has no auxiliary loss, so ``aux_weight`` only keeps the
-    reference's signature."""
-    if cfg.arch_type != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.arch_type!r} family is not ported yet; only "
-            "'dense' (ROADMAP.md, Queue 1, item 8, 'Training the non-dense families')")
-    x, _, _, _ = _forward_seq(params, cfg, batch)
+    from a 2 GB logits budget, 0 disables chunking."""
+    x, aux, _, n_prefix = _forward_seq(params, cfg, batch)
+    if n_prefix:
+        x = x[:, n_prefix:]
     labels = batch["labels"]
     B, S, _ = x.shape
     if loss_chunk is None:
@@ -378,7 +373,10 @@ def train_loss(params, cfg, batch, *, aux_weight: float = 0.01,
             tot, cnt = tot + si, cnt + ni
     else:
         tot, cnt = _nll_sum(params, x, labels, cfg)
-    return tot / torch.clamp(cnt, min=1)
+    loss = tot / torch.clamp(cnt, min=1)
+    if isinstance(aux, torch.Tensor):        # the families without a MoE add 0.0
+        loss = loss + aux_weight * aux
+    return loss
 
 
 def prefill(params, cfg, batch, *, cache_cap: int | None = None, long_context: bool = False):

@@ -40,7 +40,10 @@ zamba2 also long context), card vs CPU, within 1e-5 relative in the
 logits of the prefill and 8 decode steps, with equal greedy tokens;
 ``decode_attention`` at zamba2's head dim 80 (16 lanes a key in bf16, 32
 in fp32), internvl2's group of 7 and whisper's fp32 MHA, and
-``ssd_intra_chunk`` at zamba2's N 64, H 80; the elastic mix over ``deg_cap = n − 1`` tables with
+``ssd_intra_chunk`` at zamba2's N 64, H 80, and under ``vmap(grad)`` one
+launch for four workers with gradients equal to a loop over them (within
+1e-5 of their largest magnitude); three DSGD steps of each reduced trained
+family card vs CPU within 1e-4 relative in the losses; the elastic mix over ``deg_cap = n − 1`` tables with
 weights gathered from a degraded W within the gossip tolerance, and with no
 faults bitwise the max-degree table's mix; a bfloat16 checkpoint restored
 bit for bit onto the card.
@@ -794,6 +797,101 @@ def test_reduced_serving_card_matches_cpu(cuda, arch, long_context):
     assert torch.equal(runs["cuda"][1], runs["cpu"][1])
     for g, c in zip(runs["cuda"][0], runs["cpu"][0]):
         assert float((g - c).abs().max()) <= 1e-5 * float(c.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bsz,Q,H,P,N,dtype", [
+    (4, 256, 48, 64, 128, torch.bfloat16),                  # mamba2-780m's training shape
+    (2, 32, 8, 32, 16, torch.float32),                      # the reduced config
+])
+def test_ssd_intra_chunk_vmap_one_launch_for_all_workers(cuda, Bsz, Q, H, P, N, dtype):
+    """``vmap(grad)`` of a loss through ``ssd_intra_chunk`` over four
+    workers launches the kernel once, on the workers folded into B; its
+    gradients equal a loop over the workers (four launches) within 1e-5 of
+    each gradient's largest magnitude (the backward's einsums may pick other
+    cuBLAS algorithms at 4·B than at B), and the forward outputs bit for
+    bit (each (batch, chunk) is one block's work either way)."""
+    from repro_torch.kernels.ssd_scan import ops as tssd
+
+    n = 4
+    gen = torch.Generator(device="cuda").manual_seed(H)
+    x = torch.randn((n, Bsz, 1, Q, H, P), generator=gen, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((n, Bsz, 1, Q, H), generator=gen,
+                                                  device=cuda))
+    la = torch.cumsum(-(torch.rand(H, generator=gen, device=cuda) + 0.05) * dt, dim=3)
+    Bm = torch.randn((n, Bsz, 1, Q, N), generator=gen, device=cuda).to(dtype)
+    Cm = torch.randn((n, Bsz, 1, Q, N), generator=gen, device=cuda).to(dtype)
+    gy = torch.randn((n, Bsz, 1, Q, H, P), generator=gen, device=cuda)
+
+    def loss(x, dt, la, Bm, Cm, gy):
+        y, st = tssd.ssd_intra_chunk(x, dt, la, Bm, Cm)
+        return (y * gy).sum() + st.square().sum(), (y, st)
+
+    fn = torch.func.grad(loss, argnums=(0, 1, 2, 3, 4), has_aux=True)
+    before = tssd.ssd_intra_chunk.launches
+    grads, outs = torch.func.vmap(fn)(x, dt, la, Bm, Cm, gy)
+    torch.cuda.synchronize()
+    assert tssd.ssd_intra_chunk.launches == before + 1
+    for i in range(n):
+        gi, oi = fn(x[i], dt[i], la[i], Bm[i], Cm[i], gy[i])
+        assert all(torch.equal(a[i], b) for a, b in zip(outs, oi)), i
+        for a, b in zip(grads, gi):
+            assert float((a[i].float() - b.float()).abs().max()) \
+                <= 1e-5 * float(b.float().abs().max()), i
+    assert tssd.ssd_intra_chunk.launches == before + 1 + n
+
+
+@pytest.mark.cuda
+def test_ssd_intra_chunk_refuses_float64_on_the_card(cuda):
+    from repro_torch.kernels.ssd_scan import ops as tssd
+
+    x = torch.zeros((1, 1, 8, 2, 4), dtype=torch.float64, device=cuda)
+    dt = torch.zeros((1, 1, 8, 2), dtype=torch.float64, device=cuda)
+    bc = torch.zeros((1, 1, 8, 3), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        tssd.ssd_intra_chunk(x, dt, dt, bc, bc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mixtral-8x22b", "internvl2-1b",
+                                  "whisper-tiny", "mamba2-780m", "zamba2-2.7b"])
+def test_reduced_training_card_matches_cpu(cuda, arch):
+    """Three DSGD steps of a reduced fp32 model of each trained family, n = 4
+    on a ring (vlm and audio with the launcher's stub embeddings): losses
+    within 1e-4 relative card vs CPU; the card gossips every leaf through
+    ``gossip_mix_batched`` and runs each Mamba-2 layer's SSD through one
+    ``ssd_intra_chunk`` launch a step for all four workers."""
+    from repro_torch.configs import get_arch, reduced_for_smoke
+    from repro_torch.core.topologies import make_baseline
+    from repro_torch.data import DataConfig, lm_batch_numpy
+    from repro_torch.dsgd import dsgd_train_step, init_dsgd_state
+    from repro_torch.optim import make_optimizer, warmup_cosine
+
+    cfg = reduced_for_smoke(get_arch(arch))
+    n, steps = 4, 3
+    init, upd = make_optimizer("sgd", warmup_cosine(0.05, 1, steps))
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch_size=2, seed=0,
+                    frontend_tokens=cfg.frontend_tokens, d_model=cfg.d_model)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        state = init_dsgd_state(0, cfg, n, init, device=dev)
+        step = dsgd_train_step(cfg, make_baseline("ring", n), upd, device=dev)
+        kernels.reset_launch_counts()
+        losses[dev] = []
+        for s in range(steps):
+            per = [lm_batch_numpy(dc, s, node=i) for i in range(n)]
+            batch = {k: torch.from_numpy(np.stack([b[k] for b in per])).to(dev) for k in per[0]}
+            state, m = step(state, batch)
+            losses[dev].append(float(m["loss"]))
+        if dev == "cuda":
+            counts = kernels.launch_counts()
+            leaves = len(torch.utils._pytree.tree_leaves(state.params))
+            assert counts["gossip_mix_batched"] == steps * leaves
+            mamba = cfg.num_layers if cfg.arch_type in ("ssm", "hybrid") else 0
+            assert counts["ssd_intra_chunk"] == steps * mamba
+    assert all(np.isfinite(losses["cuda"]))
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert abs(a - b) <= 1e-4 * abs(b)
 
 
 # --- the §VI-B evaluation engines (repro_torch.dsgd.sim) on the card ------------

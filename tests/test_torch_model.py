@@ -117,22 +117,6 @@ def test_configs_copied():
         assert cfg.__dict__ == JARCHS[name].__dict__
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "mamba2-780m", "zamba2-2.7b",
-                                  "internvl2-1b", "whisper-tiny"])
-def test_other_families_raise(arch):
-    """Training is ported for the dense family only: every other family
-    initialises (its serving is ported) and raises at ``train_loss``,
-    naming ROADMAP Queue 1's training item."""
-    cfg = reduced_for_smoke(get_arch(arch))
-    params = ttr.init_params(0, cfg)
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int64),
-             "labels": torch.zeros((1, 8), dtype=torch.int64)}
-    if cfg.frontend_tokens:
-        batch["embeds"] = torch.zeros((1, cfg.frontend_tokens, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 8"):
-        ttr.train_loss(params, cfg, batch)
-
-
 def test_attn_cache_raises():
     """A KV cache whose batch or head layout does not fit the keys is refused."""
     from repro_torch.models.attention import attn_forward, init_attn, init_kv_cache
