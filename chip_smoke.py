@@ -27,13 +27,16 @@ and drives the port's paths on ``cuda``:
   ADMM on the card, and an overload rejection;
 - DSGD training of smollm-135m at full width through the launcher
   (``repro_torch.launch.train``): n=8 workers on one card, BA topology
-  (r=16) solved on the card, 10 steps, every gossip through the
-  ``gossip_mix_batched`` kernel; then the row-loop oracle of one-worker
+  (r=16) solved on the card, 10 steps, every step's gossip one
+  ``gossip_mix_batched`` launch for all 11 leaves (the tiled kernel, held
+  bitwise to the first-cut witness kernel at the first gossip); the witness
+  and the tiled kernel timed over tables of degree 1, 4 and 7 at the same
+  bytes (``tools/gossip_deg.py``); then the row-loop oracle of one-worker
   ``gossip_mix`` kernels on the trained leaves, reduced smollm card vs CPU,
   and one profiled full-width train step;
 - elastic DSGD training through the launcher (``--elastic``): main_dsgd's
   run with churn, stragglers, packet loss and a NIC collapse (a re-solve on
-  the card, adopted mid-run), every round mixing through
+  the card, adopted mid-run), every round mixing leaf by leaf through
   ``gossip_mix_batched`` over ``deg_cap = n − 1`` tables; a fault-free
   elastic run held bitwise to main_dsgd's curve; and a full-width run
   killed by SIGKILL and resumed from its checkpoint in subprocesses,
@@ -61,8 +64,8 @@ and drives the port's paths on ``cuda``:
   through the launcher, granite-moe-1b-a400m (12 of 24 layers),
   mamba2-780m (16 of 48), zamba2-2.7b (6 of 54: one shared-attention
   group) and internvl2-1b (20 of 24, 256 stub patches before the text) at
-  n = 4 on their depth-cut configs through ``dsgd_train_step``; every gossip through
-  ``gossip_mix_batched``, every Mamba-2 layer's SSD through one
+  n = 4 on their depth-cut configs through ``dsgd_train_step``; every step's gossip one
+  ``gossip_mix_batched`` launch a dtype, every Mamba-2 layer's SSD through one
   ``ssd_intra_chunk`` launch a step for all workers (the vmap rule), its
   first launch held against the plain version forward and backward; then
   the reduced families card vs CPU. The bigram tables of the six
@@ -71,9 +74,9 @@ and drives the port's paths on ``cuda``:
 - the §VI-B evaluation (``repro_torch.dsgd.sim``): bench_training_time's
   homo setup at n=16 (the paper's baselines and BA-Topo at r = 16, 24, 32,
   solved on the card) trained by one ``accuracy_curves`` call, 30 epochs,
-  every step's gossip one ``gossip_mix_batched`` launch per leaf for all
-  nine topologies, checked against the CPU and the host oracle; the kernel
-  at that fp32 shape beside ``torch.bmm``, one profiled epoch; the
+  every step's gossip one ``gossip_mix_batched`` launch for all four
+  leaves and nine topologies, checked against the CPU and the host oracle;
+  the kernel at that fp32 shape beside ``torch.bmm``, one profiled epoch; the
   cross-product engine ({static, round-robin} × {dense, top-k, random-k})
   and bench_compression's consensus curves; the chaos engine at
   bench_chaos's defaults with its re-optimized run (the drift detector and
@@ -90,7 +93,8 @@ error against the plain version and its times; the last line is
 ``{"ok": true, "device": {...}}``.
 
 It needs one card and exits non-zero without one. It imports only torch,
-numpy and ``repro_torch`` (from ``src/`` beside this file).
+numpy, ``repro_torch`` (from ``src/`` beside this file) and
+``tools/gossip_deg.py``.
 """
 from __future__ import annotations
 
@@ -1488,12 +1492,36 @@ def _batched_check(got, x, nbr_idx, weights) -> tuple[float, bool]:
     return err, ok
 
 
+def _first_gossip(mixed: dict, leaves: dict, nbr_idx, weights) -> dict:
+    """A path's first gossip, leaf by leaf: (max |err|, within
+    :func:`_batched_check`'s tolerance of the plain version, bitwise equal
+    to the first-cut witness kernel on the same inputs)."""
+    from repro_torch.kernels.gossip_mix import ops as gm
+
+    return {k: _batched_check(mixed[k], x, nbr_idx, weights)
+            + (torch.equal(mixed[k], gm.gossip_mix_batched_witness(x, nbr_idx, weights)),)
+            for k, x in leaves.items()}
+
+
+def _first_summary(first: dict) -> dict:
+    return dict(max_abs_err=max(e for e, _, _ in first.values()),
+                within=all(ok for _, ok, _ in first.values()),
+                equal_to_witness=all(eq for _, _, eq in first.values()))
+
+
+def _dtypes(tree) -> int:
+    """The dtypes among a parameter tree's leaves: the gossip's launches a step."""
+    return len({x.dtype for x in _leaves(tree).values()})
+
+
 def phase_main_dsgd():
     """The launcher's run at full width on the card: the BA topology solved
     on the card (a fresh cache file), 10 steps with every gossip through
     ``gossip_mix_batched``. The first gossip (step 1) is also mixed by the
     plain version from the same pre-gossip leaves and held against the
-    kernel's, by wrapping the trainer's ``gossip_sim_tree``."""
+    kernel's, and bitwise against the first-cut witness kernel's, by
+    wrapping the trainer's ``gossip_sim_tree``. One launch a step mixes all
+    leaves (one dtype)."""
     from repro_torch import kernels
     from repro_torch.dsgd import trainer
     from repro_torch.launch import steps, train
@@ -1505,9 +1533,7 @@ def phase_main_dsgd():
     def checked_mix(tree, W, *, use_kernel=True, nbr=None):
         out = mix(tree, W, use_kernel=use_kernel, nbr=nbr)
         if not step1:
-            mixed = _leaves(out)
-            for name, x in _leaves(tree).items():
-                step1[name] = _batched_check(mixed[name], x, *nbr)
+            step1.update(_first_gossip(_leaves(out), _leaves(tree), *nbr))
             # the check's own scratch stays out of the training's peak: the
             # later steps reach the same peak as step 1
             torch.cuda.synchronize()
@@ -1541,18 +1567,20 @@ def phase_main_dsgd():
          topology_solve_s=res["topology_s"], bigram_table=res["bigram_table"],
          step_ms=res["step_ms"], steady_step_ms=float(np.mean(res["step_ms"][2:])),
          losses=losses, loss_max=[h["loss_max"] for h in hist], consensus_err=cons,
-         step1_gossip_vs_plain={k: dict(max_abs_err=e, within=ok) for k, (e, ok) in step1.items()},
+         step1_gossip_vs_plain={k: dict(max_abs_err=e, within=ok, equal_to_witness=eq)
+                                for k, (e, ok, eq) in step1.items()},
          max_memory_allocated_bytes=peak, wall_s=wall_s, launches=launches)
     assert res["param_count_per_worker"] == SMOLLM_PARAMS, res["param_count_per_worker"]
     assert len(hist) == n_steps == 10 and all(np.isfinite(losses)) and all(np.isfinite(cons))
     assert abs(losses[0] - np.log(49152)) <= 0.5, f"first loss {losses[0]} vs ln 49152"
-    assert launches["gossip_mix_batched"] == SMOLLM_LEAVES * n_steps, launches
+    assert launches["gossip_mix_batched"] == _dtypes(last["state"].params) * n_steps, launches
     missing = [k for k in PATH_KERNELS["dsgd"] if launches[k] == 0]
     assert not missing, f"main_dsgd: kernels never launched on the path: {missing}"
-    assert len(step1) == SMOLLM_LEAVES and all(ok for _, ok in step1.values()), \
+    assert len(step1) == SMOLLM_LEAVES and all(ok for _, ok, _ in step1.values()), \
         f"step-1 gossip differs from the plain mix: {step1}"
+    assert all(eq for _, _, eq in step1.values()), f"step-1 gossip is not the witness's: {step1}"
     run = dict(history=hist, peak_bytes=peak, steady_step_ms=float(np.mean(res["step_ms"][2:])))
-    return last["state"], topo, launches, max(e for e, _ in step1.values()), run
+    return last["state"], topo, launches, max(e for e, _, _ in step1.values()), run
 
 
 # ---------------------------------------------------------------------------
@@ -1565,8 +1593,10 @@ def _table_bytes(idx, w) -> int:
 
 def _gossip_step_case(params, W, idx, w) -> dict:
     """A whole step's gossip (every leaf of ``params``, one neighbour table):
-    kernel, plain version and the dense ``torch.matmul(W, x)`` a leaf, with
-    the byte bound. The timing calls leave the launch count as it was."""
+    the tiled kernel (one launch a dtype, through ``gossip_sim_tree``), the
+    first-cut witness kernel a leaf, the plain version and the dense
+    ``torch.matmul(W, x)`` a leaf, with the byte bound. The timing calls
+    leave the launch count as it was."""
     from repro_torch.dsgd.gossip import gossip_sim_tree
     from repro_torch.kernels.gossip_mix import ops as gm
 
@@ -1577,9 +1607,10 @@ def _gossip_step_case(params, W, idx, w) -> dict:
         lambda: gossip_sim_tree(params, W, nbr=(idx, w)),
         lambda: [gm.gossip_mix_batched_plain(x, idx, w) for x in leaves.values()],
         lambda: [torch.matmul(W.to(x.dtype), x.view(n, -1)) for x in leaves.values()])
+    t["witness_ms"] = large_timings(
+        lambda: [gm.gossip_mix_batched_witness(x, idx, w) for x in leaves.values()], None)["ms"]
     gm.gossip_mix_batched.launches = launches
-    nbytes = sum(2 * x.numel() * x.element_size() + _table_bytes(idx, w)
-                 for x in leaves.values())
+    nbytes = sum(2 * x.numel() * x.element_size() for x in leaves.values()) + _table_bytes(idx, w)
     return dict(t, workers=n, leaves=len(leaves), deg=int(idx.shape[1]), bytes=nbytes,
                 dtypes=sorted({str(x.dtype).replace("torch.", "") for x in leaves.values()}),
                 bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes")
@@ -1591,9 +1622,10 @@ def phase_gossip_kernels(state, topo) -> dict:
     and a norm leaf, n = 8, with the BA topology's neighbour table and with
     deg = 7 (every other worker). Times: kernel, plain, the dense
     ``torch.matmul(W, x)`` of ``gossip_sim`` as the library call, and the
-    bound 2·n·M·size bytes (x read once, the output written once). Also the
-    whole step's gossip (all 11 leaves) and the one-worker kernel at the
-    embedding. Returns the rows of the kernels line."""
+    bound 2·n·M·size bytes (x read once, the output written once), and
+    the first-cut witness kernel (bitwise equal) beside the tiled one. Also
+    the whole step's gossip (all 11 leaves, one launch) and the one-worker
+    kernel at the embedding. Returns the rows of the kernels line."""
     from repro_torch.core.graph import weight_matrix_from_weights
     from repro_torch.dsgd.gossip import padded_neighbors
     from repro_torch.kernels.gossip_mix import ops as gm
@@ -1611,6 +1643,7 @@ def phase_gossip_kernels(state, topo) -> dict:
             for tag, ((idx, w), Wd) in tables.items():
                 got = gm.gossip_mix_batched(x, idx, w)
                 err, ok = _batched_check(got, x, idx, w)
+                same = torch.equal(got, gm.gossip_mix_batched_witness(x, idx, w))
                 del got
                 Wx = Wd.to(dtype)
                 big = x.numel() * x.element_size() > 64 << 20
@@ -1618,12 +1651,19 @@ def phase_gossip_kernels(state, topo) -> dict:
                     lambda: gm.gossip_mix_batched(x, idx, w),
                     lambda: gm.gossip_mix_batched_plain(x, idx, w),
                     lambda: torch.matmul(Wx, x.view(n, -1)))
+
+                def witness():
+                    return gm.gossip_mix_batched_witness(x, idx, w)
+
+                t["witness_ms"] = large_timings(witness, None)["ms"] if big else device_ms(witness)
                 nbytes = 2 * x.numel() * x.element_size() + _table_bytes(idx, w)
                 cases.append(dict(kernel="gossip_mix_batched", leaf=name, shape=list(x.shape),
                                   dtype=str(dtype).replace("torch.", ""), table=tag,
-                                  deg=int(idx.shape[1]), max_abs_err=err, within=ok, **t,
+                                  deg=int(idx.shape[1]), max_abs_err=err, within=ok,
+                                  equal_to_witness=same, **t,
                                   bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes"))
                 assert ok, f"gossip_mix_batched {name} {dtype} {tag}: outside the tolerance"
+                assert same, f"gossip_mix_batched {name} {dtype} {tag}: not the witness's bits"
             del x
     # the whole step's gossip: the 11 leaves of the main path, BA table
     step_row = _gossip_step_case(state.params, W, *tables["ba"][0])
@@ -1654,8 +1694,32 @@ def phase_gossip_kernels(state, topo) -> dict:
     torch.cuda.synchronize()
     emit("gossip_kernel_checks", cases=cases, whole_step=step_row, one_worker=one_row,
          library_note="gossip_mix_batched: torch.matmul(W.to(dtype), x.view(n, -1)) "
-                      "(the dense Eq. 1 of gossip_sim); gossip_mix: torch.addmv")
+                      "(the dense Eq. 1 of gossip_sim); gossip_mix: torch.addmv; witness_ms: "
+                      "the first-cut gossip_mix_batched_witness kernel")
     return {"gossip_mix_batched": step_row, "gossip_mix": one_row}
+
+
+def phase_gossip_deg() -> list:
+    """The first-cut witness kernel and the tiled kernel on smollm's
+    embedding leaf (n = 8, bf16) over tables of degree 1, 4 and 7 and a
+    degree-7 table with 3 padded slots, at the same bytes
+    (``tools/gossip_deg.py``'s ``measure``): the witness's time grows with
+    the degree (it reads x's rows deg + 1 times), the tiled kernel's should
+    not. The two are bitwise equal in every case."""
+    import importlib.util
+
+    from repro_torch.kernels.gossip_mix import ops as gm
+
+    spec = importlib.util.spec_from_file_location("gossip_deg", ROOT / "tools" / "gossip_deg.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    launches = gm.gossip_mix_batched.launches
+    rows = tool.measure()
+    gm.gossip_mix_batched.launches = launches
+    torch.cuda.empty_cache()
+    emit("gossip_deg", shape=[tool.N, tool.ROWS], dtype="bfloat16", rows=rows)
+    assert all(r["bitwise_equal"] for r in rows), f"gossip_deg: kernels differ: {rows}"
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1761,7 +1825,7 @@ def phase_dsgd_card_vs_cpu() -> None:
          losses_cpu=cl, loss_max_rel_diff=loss_rel, consensus_cuda=gc, consensus_cpu=cc,
          consensus_max_rel_diff=cons_rel, param_max_abs_diff=param_drift,
          gossip_launches_cuda=glaunch["gossip_mix_batched"])
-    assert glaunch["gossip_mix_batched"] == SMOLLM_LEAVES * n_steps
+    assert glaunch["gossip_mix_batched"] == n_steps * len({x.dtype for x in gp.values()})
     assert loss_rel <= 1e-4, f"DSGD card vs CPU: losses differ by {loss_rel} relative"
 
 
@@ -1778,10 +1842,12 @@ ELASTIC_PROFILE_ROUND = 4       # a steady round: no drift, re-solve or adoption
 def _elastic_step_timings(leaves: dict, W_eff, topo_W) -> dict:
     """The elastic step's mix of the 11 leaves at n = 8 through
     ``deg_cap = 7`` tables (weights gathered from the degraded matrix,
-    padded slots 0), against the BA topology's max-degree tables (row 4's
-    shape) and the dense ``torch.matmul(W_eff, x)``; kernel and witness
-    times from CUDA graphs of 10 steps, the eager call of the kernel and
-    the plain version eagerly (the plain neighbour gather allocates GBs)."""
+    padded slots 0), one launch a leaf as the elastic step mixes, against
+    the BA topology's max-degree tables (row 4's shape) and the dense
+    ``torch.matmul(W_eff, x)``; the tiled kernel's, the first-cut witness
+    kernel's and the library's times from CUDA graphs of 10 steps, the
+    eager call of the kernel and the plain version eagerly (the plain
+    neighbour gather allocates GBs)."""
     from repro_torch.dsgd.gossip import (elastic_neighbor_tables, gather_neighbor_weights,
                                          padded_neighbors)
     from repro_torch.kernels.gossip_mix import ops as gm
@@ -1796,6 +1862,10 @@ def _elastic_step_timings(leaves: dict, W_eff, topo_W) -> dict:
         ms=device_ms(lambda: [gm.gossip_mix_batched(x, idx, w) for x in xs], launches=10),
         max_degree_ms=device_ms(lambda: [gm.gossip_mix_batched(x, pidx, pw) for x in xs],
                                 launches=10),
+        witness_ms=device_ms(lambda: [gm.gossip_mix_batched_witness(x, idx, w) for x in xs],
+                             launches=10),
+        max_degree_witness_ms=device_ms(
+            lambda: [gm.gossip_mix_batched_witness(x, pidx, pw) for x in xs], launches=10),
         library_ms=device_ms(lambda: [torch.matmul(Wd[x.dtype], x.view(n, -1)) for x in xs],
                              launches=10),
         call_ms=eager_ms(lambda: [gm.gossip_mix_batched(x, idx, w) for x in xs],
@@ -1837,7 +1907,7 @@ def phase_main_elastic(dsgd_run: dict) -> dict:
     def checked_mix(x, nbr_idx, weights):
         out = real_mix(x, nbr_idx, weights)
         if len(first) < SMOLLM_LEAVES:
-            first.append(_batched_check(out, x, nbr_idx, weights))
+            first.append(_first_gossip({0: out}, {0: x}, nbr_idx, weights)[0])
             mixed_with.update(deg=int(nbr_idx.shape[1]))
             if len(first) == SMOLLM_LEAVES:     # the check's scratch stays out of the peak
                 torch.cuda.synchronize()
@@ -1897,7 +1967,7 @@ def phase_main_elastic(dsgd_run: dict) -> dict:
     keys = ("loss", "loss_max", "consensus_err")
     ref = [tuple(h[k] for k in keys) for h in dsgd_run["history"]]
     got = [tuple(h[k] for k in keys) for h in clean["history"]]
-    errs = [e for e, _ in first]
+    errs = [e for e, _, _ in first]
     out = dict(arch=res["arch"], workers=DSGD_WORKERS, batch=4, seq=256, steps=len(hist),
                argv=ELASTIC_ARGS, topology=res["topology"], losses=losses,
                consensus_err=[h["consensus_err"] for h in hist],
@@ -1912,7 +1982,8 @@ def phase_main_elastic(dsgd_run: dict) -> dict:
                max_memory_allocated_bytes=peak,
                main_dsgd_max_memory_allocated_bytes=dsgd_run["peak_bytes"],
                first_gossip_vs_plain=dict(deg=mixed_with["deg"], max_abs_err=max(errs),
-                                          within=all(ok for _, ok in first)),
+                                          within=all(ok for _, ok, _ in first),
+                                          equal_to_witness=all(eq for _, _, eq in first)),
                profiled_round=dict(step=ELASTIC_PROFILE_ROUND, **prof),
                wall_s=wall_s, launches=launches, kernel_timing=timing,
                fault_free_bitwise_to_main_dsgd=got == ref,
@@ -1925,8 +1996,9 @@ def phase_main_elastic(dsgd_run: dict) -> dict:
     missing = [k for k in PATH_KERNELS["elastic"] if launches[k] == 0]
     assert not missing, f"main_elastic: kernels never launched on the path: {missing}"
     assert mixed_with["deg"] == DSGD_WORKERS - 1
-    assert len(first) == SMOLLM_LEAVES and all(ok for _, ok in first), \
+    assert len(first) == SMOLLM_LEAVES and all(ok for _, ok, _ in first), \
         f"first elastic gossip differs from the plain mix: {first}"
+    assert all(eq for _, _, eq in first), f"first elastic gossip is not the witness's: {first}"
     assert got == ref, f"fault-free --elastic is not main_dsgd's curve: {got} vs {ref}"
     return dict(timing, max_abs_err=max(errs), launches=launches["gossip_mix_batched"])
 
@@ -2768,11 +2840,12 @@ def phase_train_family(label: str) -> dict:
     """One family at full width, 6 DSGD steps, ``--topo ba --r 2n
     --optimizer sgd --batch 4 --seq 256``: through the launcher at full
     depth, else the launcher's loop on the depth-cut config. Every kernel
-    count from 0: ``gossip_mix_batched`` exactly once a leaf a step, and
+    count from 0: ``gossip_mix_batched`` exactly once a dtype a step, and
     ``ssd_intra_chunk`` once a Mamba-2 layer a step (the vmap rule folds the
     workers into one launch; the backward launches nothing). The first
     gossip and the first ``ssd_intra_chunk`` (forward and backward) are held
-    against their plain versions on the path's own inputs. The losses are
+    against their plain versions on the path's own inputs, the gossip also
+    bitwise against the first-cut witness kernel. The losses are
     finite, and the first step's batch has a lower loss under the final
     weights than under the first (each step's own loss is on a fresh batch:
     over 6 steps their spread exceeds what the model learns, and the
@@ -2799,9 +2872,7 @@ def phase_train_family(label: str) -> dict:
     def checked_mix(tree, W, *, use_kernel=True, nbr=None):
         out = mix(tree, W, use_kernel=use_kernel, nbr=nbr)
         if "gossip" not in first:
-            mixed = _leaves(out)
-            first["gossip"] = {k: _batched_check(mixed[k], x, *nbr)
-                               for k, x in _leaves(tree).items()}
+            first["gossip"] = _first_gossip(_leaves(out), _leaves(tree), *nbr)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         return out
@@ -2853,9 +2924,7 @@ def phase_train_family(label: str) -> dict:
                consensus_err=[h["consensus_err"] for h in res["history"]],
                peak_gb=peak / 1e9, max_memory_allocated_bytes=peak, wall_s=wall_s,
                bigram_table=table, launches={k: v for k, v in launches.items() if v},
-               first_gossip_vs_plain=dict(
-                   max_abs_err=max(e for e, _ in gossip_first.values()),
-                   within=all(ok for _, ok in gossip_first.values())))
+               first_gossip_vs_plain=_first_summary(gossip_first))
     topo = steps.topology_for(n, "ba", 2 * n, 0, device="cuda", cache_path=TOPO_CACHE)
     if mamba:
         args = first.pop("ssd_args")
@@ -2871,11 +2940,13 @@ def phase_train_family(label: str) -> dict:
     assert out["first_batch_loss_at_end"] < losses[0], \
         f"{label}: the first step's batch has loss {out['first_batch_loss_at_end']} at the " \
         f"end, not below its {losses[0]} at the start"
-    assert launches["gossip_mix_batched"] == n_leaves * TRAIN_STEPS, launches
+    assert launches["gossip_mix_batched"] == _dtypes(state.params) * TRAIN_STEPS, launches
     assert launches["ssd_intra_chunk"] == mamba * TRAIN_STEPS, launches
     missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     assert not missing, f"{label}: kernels never launched on the path: {missing}"
     assert out["first_gossip_vs_plain"]["within"], f"{label}: first gossip: {gossip_first}"
+    assert out["first_gossip_vs_plain"]["equal_to_witness"], \
+        f"{label}: the first gossip is not the witness's: {gossip_first}"
     W = torch.tensor(weight_matrix_from_weights(topo.n, topo.edges, topo.g),
                      dtype=torch.float32, device="cuda")
     shapes = dict(gossip=dict(_gossip_step_case(state.params, W, *padded_neighbors(W)),
@@ -3008,13 +3079,15 @@ def phase_main_sim():
     baselines and BA-Topo at r ∈ {16, 24, 32} (solved on the card), all
     trained by one ``accuracy_curves`` call (30 epochs, batch 32, lr 0.05,
     momentum 0.9, hidden 128), every step's gossip one
-    ``gossip_mix_batched`` launch per leaf for all topologies; the call is
-    timed cold (its first run in the process) and warm. Checks: the warm
-    call repeats the curves bitwise; the same call on the CPU within 0.005
-    accuracy at every epoch; the host oracle on the card within 1e-6 for
-    two topologies."""
+    ``gossip_mix_batched`` launch for all four leaves and all topologies;
+    the call is timed cold (its first run in the process) and warm. Checks:
+    the first gossip within the plain version's tolerance and bitwise the
+    first-cut witness kernel's; the warm call repeats the curves bitwise;
+    the same call on the CPU within 0.005 accuracy at every epoch; the host
+    oracle on the card within 1e-6 for two topologies."""
     from repro_torch import kernels
     from repro_torch.core.bandwidth import homo_edge_bandwidth, min_edge_bandwidth, t_epoch
+    from repro_torch.dsgd import sim
     from repro_torch.dsgd.sim import DSGDSimConfig, accuracy_curve_host, accuracy_curves
 
     n = SIM_N
@@ -3024,12 +3097,25 @@ def phase_main_sim():
     topo_s = time.perf_counter() - t0
     Ws = np.stack([t.W for t in topos]).astype(np.float32)
     cfg = DSGDSimConfig(epochs=30, batch=32, lr=0.05, momentum=0.9, hidden=128, seed=0)
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    accs, iters = accuracy_curves(Ws, *data, cfg)          # ends in the host read
-    wall_s = time.perf_counter() - t0
-    launches = kernels.launch_counts()
+    mix, first = sim.gossip_mix_batched_leaves, {}
+
+    def checked_mix(xs, nbr_idx, weights):
+        out = mix(xs, nbr_idx, weights)
+        if not first:
+            first.update(_first_gossip(dict(zip(sim.LEAVES, out)), dict(zip(sim.LEAVES, xs)),
+                                       nbr_idx, weights))
+        return out
+
+    sim.gossip_mix_batched_leaves = checked_mix
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        accs, iters = accuracy_curves(Ws, *data, cfg)      # ends in the host read
+        wall_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        sim.gossip_mix_batched_leaves = mix
     t0 = time.perf_counter()
     again, _ = accuracy_curves(Ws, *data, cfg)             # warm: torch's kernels loaded
     warm_s = time.perf_counter() - t0
@@ -3055,7 +3141,7 @@ def phase_main_sim():
                   default=inf)
     best_other = min((r["t_target_s"] or inf for r in rows
                       if "ba-topo" not in r["topology"]), default=inf)
-    expected = cfg.epochs * iters * SIM_LEAVES
+    expected = cfg.epochs * iters              # one launch a step for all SIM_LEAVES leaves
     emit("main_sim", n=n, topologies=len(topos), epochs=cfg.epochs, iters=iters,
          batch=cfg.batch, rows=rows, best_ba_t_target_s=best_ba,
          best_baseline_t_target_s=best_other,
@@ -3063,8 +3149,11 @@ def phase_main_sim():
          topology_build_s=topo_s, curves_wall_s=wall_s, curves_wall_s_warm=warm_s,
          cpu_curves_wall_s=cpu_s,
          card_vs_cpu_max_acc_drift=drift, host_vs_curves_max_err=host_err,
-         launches=launches, expected_gossip_launches=expected)
+         launches=launches, expected_gossip_launches=expected,
+         first_gossip_vs_plain=_first_summary(first))
     assert accs.shape == (len(topos), cfg.epochs) and np.all(np.isfinite(accs))
+    assert len(first) == SIM_LEAVES and _first_summary(first)["within"], first
+    assert _first_summary(first)["equal_to_witness"], f"main_sim: not the witness's bits: {first}"
     assert np.array_equal(again, accs), "main_sim: a second call gave other curves"
     assert launches["gossip_mix_batched"] == expected, launches
     missing = [k for k in PATH_KERNELS["sim"] if launches[k] == 0]
@@ -3077,11 +3166,13 @@ def phase_main_sim():
 def phase_sim_kernel(Ws, data) -> dict:
     """``gossip_mix_batched`` at the sim's fp32 shape: the four MLP leaves
     stacked to (T·n, M) rows (9 × 16 = 144) over main_sim's block-diagonal
-    table, each against its plain version, timed in a CUDA graph beside
+    table, each against its plain version and bitwise against the first-cut
+    witness kernel, timed in a CUDA graph beside the witness and
     ``torch.bmm`` of the stacked (T, n, n) W over the (T, n, M) view — the
-    one PyTorch call for the same function. Bound: x read once, the output
-    written once, and the table, at the card's memory rate. Then one
-    profiled epoch of main_sim's call. Returns the w1 row."""
+    one PyTorch call for the same function; then the four leaves in one
+    launch, as a step mixes them. Bound: x read once, the output written
+    once, and the table, at the card's memory rate. Then one profiled epoch
+    of main_sim's call. Returns the w1 row, with the step's."""
     from repro_torch.dsgd import sim
     from repro_torch.dsgd.dynamic import stack_cycles
     from repro_torch.kernels.gossip_mix import ops as gm
@@ -3100,20 +3191,25 @@ def phase_sim_kernel(Ws, data) -> dict:
     for k, x in leaves.items():
         got = gm.gossip_mix_batched(x, idx, w)
         err, ok = _batched_check(got, x, idx, w)
+        same = torch.equal(got, gm.gossip_mix_batched_witness(x, idx, w))
         xv = x.view(T, n, -1)
         t = timings(lambda: gm.gossip_mix_batched(x, idx, w),
                     lambda: gm.gossip_mix_batched_plain(x, idx, w),
                     lambda: torch.bmm(Wd, xv))
+        t["witness_ms"] = device_ms(lambda: gm.gossip_mix_batched_witness(x, idx, w))
         nbytes = 2 * x.numel() * x.element_size() + _table_bytes(idx, w)
         cases.append(dict(leaf=k, shape=list(x.shape), dtype="float32", deg=int(idx.shape[1]),
-                          max_abs_err=err, within=ok, **t,
+                          max_abs_err=err, within=ok, equal_to_witness=same, **t,
                           bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes"))
         assert ok, f"gossip_mix_batched at the sim shape, {k}: outside the tolerance"
+        assert same, f"gossip_mix_batched at the sim shape, {k}: not the witness's bits"
     xs = list(leaves.values())
-    step_t = timings(lambda: [gm.gossip_mix_batched(x, idx, w) for x in xs],
+    step_t = timings(lambda: gm.gossip_mix_batched_leaves(xs, idx, w),
                      lambda: [gm.gossip_mix_batched_plain(x, idx, w) for x in xs],
                      lambda: [torch.bmm(Wd, x.view(T, n, -1)) for x in xs])
-    step_bytes = sum(2 * x.numel() * 4 + _table_bytes(idx, w) for x in xs)
+    step_t["witness_ms"] = device_ms(lambda: [gm.gossip_mix_batched_witness(x, idx, w)
+                                              for x in xs])
+    step_bytes = sum(2 * x.numel() * 4 for x in xs) + _table_bytes(idx, w)
     # one epoch of main_sim's call (its set-up included), under the profiler
     one = sim.DSGDSimConfig(epochs=1, batch=32, lr=0.05, momentum=0.9, hidden=128, seed=0)
     sim.accuracy_curves(Ws, *data, one)
@@ -3126,7 +3222,9 @@ def phase_sim_kernel(Ws, data) -> dict:
                              launches_per_step=(prof["device_launches"] / iters
                                                 if prof["device_launches"] else None)),
          library_note="torch.bmm(W (T, n, n), x.view(T, n, M)): the stacked dense Eq. 1")
-    return next(c for c in cases if c["leaf"] == "w1")
+    return dict(next(c for c in cases if c["leaf"] == "w1"),
+                whole_step=dict(**step_t, bound_ms=1e3 * step_bytes / HBM_BYTES_PER_S,
+                                bound_by="bytes"))
 
 
 # ---------------------------------------------------------------------------
@@ -3167,7 +3265,8 @@ def phase_main_sim_cross(topos, data, accs) -> dict:
         walls[spec.name] = time.perf_counter() - t0
         launches[spec.name] = kernels.launch_counts()["gossip_mix_batched"]
         train[spec.name] = a
-        assert launches[spec.name] == cfg.epochs * iters * SIM_LEAVES, launches
+        # one launch a step for all leaves: dense mixes x, CHOCO mixes x̂
+        assert launches[spec.name] == cfg.epochs * iters, launches
     static_err = float(np.abs(train["dense"][:len(topos)] - accs[:, :cfg.epochs]).max())
     # consensus: bench_compression's families and γ grid, one call a family
     x0 = np.random.default_rng(0).normal(size=(SIM_N, 256)).astype(np.float32)
@@ -3210,7 +3309,56 @@ def phase_main_sim_cross(topos, data, accs) -> dict:
     rand = next(c for c in consensus if c["compressor"] == "rand10%")
     assert np.all(train["rand10%"][:, -1] < 2 * chance), train["rand10%"][:, -1]
     assert rand["diverged"] == rand["runs"], rand
-    return launches
+    return launches, _choco_step_case(cycles)
+
+
+def _choco_step_case(cycles) -> dict:
+    """A CHOCO step's gossip at main_sim_cross's shape: the four x̂ leaves
+    stacked to (runs·n, M) rows (17 × 16 = 272) over step 0's block-diagonal
+    table with (W − I)'s weights, in one launch as the step mixes them,
+    against the plain version and bitwise against the first-cut witness
+    kernel; timed beside the witness (a launch a leaf), the tiled kernel a
+    launch a leaf (each leaf alone), the plain version and ``torch.bmm`` of
+    the (runs, n, n) W − I over the (runs, n, M) views, with the byte bound.
+    The timing calls leave the launch count as it was."""
+    from repro_torch.dsgd import sim
+    from repro_torch.dsgd.compression import choco_weights
+    from repro_torch.dsgd.dynamic import stack_cycles
+    from repro_torch.kernels.gossip_mix import ops as gm
+
+    Wc, lens = stack_cycles(cycles)
+    tables = sim._Tables(Wc.astype(np.float32), lens, 1, "cuda")
+    idx, w = tables.at(0)
+    w = choco_weights(w)
+    B, n = tables.B, tables.n
+    A = tables.Wc.index_select(0, tables.sel[0])
+    A = A - torch.eye(n, device=A.device)
+    p0 = sim.init_mlp(0, 64, 128, 10)
+    gen = torch.Generator().manual_seed(2)
+    xs = [(torch.rand((B * n,) + tuple(p0[k].shape), generator=gen) - 0.5).cuda()
+          for k in sim.LEAVES]
+    before = gm.gossip_mix_batched.launches
+    got = gm.gossip_mix_batched_leaves(xs, idx, w)
+    err, ok, same = 0.0, True, True
+    for g, x in zip(got, xs):
+        e, o = _batched_check(g, x, idx, w)
+        err, ok = max(err, e), ok and o
+        same = same and torch.equal(g, gm.gossip_mix_batched_witness(x, idx, w))
+    t = timings(lambda: gm.gossip_mix_batched_leaves(xs, idx, w),
+                lambda: [gm.gossip_mix_batched_plain(x, idx, w) for x in xs],
+                lambda: [torch.bmm(A, x.view(B, n, -1)) for x in xs])
+    t["witness_ms"] = device_ms(lambda: [gm.gossip_mix_batched_witness(x, idx, w) for x in xs])
+    t["leaf_by_leaf_ms"] = device_ms(lambda: [gm.gossip_mix_batched(x, idx, w) for x in xs])
+    gm.gossip_mix_batched.launches = before
+    nbytes = sum(2 * x.numel() * 4 for x in xs) + _table_bytes(idx, w)
+    case = dict(rows=B * n, runs=B, deg=int(idx.shape[1]), leaves=[list(x.shape) for x in xs],
+                dtype="float32", max_abs_err=err, within=ok, equal_to_witness=same, **t,
+                bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes", bytes=nbytes,
+                library_note="torch.bmm(W − I (runs, n, n), x̂.view(runs, n, M)) a leaf")
+    emit("choco_step_gossip", **case)
+    assert ok, "gossip_mix_batched at main_sim_cross's CHOCO step: outside the tolerance"
+    assert same, "gossip_mix_batched at main_sim_cross's CHOCO step: not the witness's bits"
+    return case
 
 
 #: Steps from drift detection to the re-optimized topology taking over in
@@ -3311,7 +3459,7 @@ def phase_main_sim_chaos() -> dict:
          consensus_iters=120, consensus_final_rel_error=[float(e[-1] / e[0]) for e in errs],
          consensus_wall_s=cons_s, no_chaos_bitwise_equal_to_cross=bitwise)
     assert np.all(np.isfinite(accs)) and np.all(np.isfinite(errs))
-    assert launches == steps * SIM_LEAVES, launches
+    assert launches == steps, launches               # dense: one launch a step
     assert all(bitwise.values()), f"no_chaos differs from the cross engine: {bitwise}"
     return launches
 
@@ -3400,6 +3548,7 @@ def _main() -> int:
     state, topo, dsgd_launches, step1_err, dsgd_run = phase_main_dsgd()
     timing.update(phase_gossip_kernels(state, topo))
     timing["gossip_mix_batched"]["max_abs_err"] = step1_err
+    timing["gossip_mix_batched"]["deg"] = phase_gossip_deg()
     row_launches = phase_rowloop(state, topo)
     phase_profile_dsgd(state, topo)
     del state
@@ -3422,7 +3571,8 @@ def _main() -> int:
     topos, sim_data, Ws, sim_accs, sim_launches = phase_main_sim()
     timing["gossip_mix_batched"]["sim"] = dict(
         phase_sim_kernel(Ws, sim_data), launches=sim_launches["gossip_mix_batched"])
-    phase_main_sim_cross(topos, sim_data, sim_accs)
+    _, timing["gossip_mix_batched"]["sim"]["choco_step"] = phase_main_sim_cross(
+        topos, sim_data, sim_accs)
     phase_main_sim_chaos()
     phase_topo_cli()
     phase_train_card_vs_cpu()
@@ -3455,8 +3605,8 @@ def _main() -> int:
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], call_ms=t["call_ms"],
-            **{k: t[k] for k in ("ms_warm", "library_ms_warm", "sim", "batched", "elastic",
-                                 "serve_shapes", "train_shapes") if k in t}))
+            **{k: t[k] for k in ("ms_warm", "library_ms_warm", "witness_ms", "sim", "batched",
+                                 "elastic", "deg", "serve_shapes", "train_shapes") if k in t}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

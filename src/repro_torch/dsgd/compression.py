@@ -10,8 +10,9 @@ while CHOCO's error feedback keeps convergence:
 
 The compressors and ``choco_mix`` are shared by the engines of
 :mod:`repro_torch.dsgd.sim` and the step loop here. ``choco_mix`` takes the
-product (W − I)x̂ either as a dense matmul or, given a neighbour table whose
-column 0 holds float32(W_ii − 1), through the ``gossip_mix_batched`` kernel.
+product (W − I)x̂ as a dense matmul; the sim's training engines take it
+through the ``gossip_mix_batched`` kernel, all leaves in one launch, over a
+neighbour table whose column 0 holds float32(W_ii − 1) (:func:`choco_weights`).
 
 Random-k draws its masks from a ``torch.Generator``: the reference's
 ``jax.random.bernoulli`` stream cannot be reproduced, so the two agree in
@@ -23,8 +24,6 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
-
-from ..kernels.gossip_mix.ops import gossip_mix_batched
 
 __all__ = ["Compressor", "compress_top_k", "compress_random_k",
            "compression_ratio", "top_k_compressor", "random_k_compressor",
@@ -144,20 +143,14 @@ def choco_weights(weights: torch.Tensor) -> torch.Tensor:
     return torch.cat([weights[..., :1] - 1.0, weights[..., 1:]], dim=-1)
 
 
-def choco_mix(x: torch.Tensor, x_hat: torch.Tensor, W: torch.Tensor | None, gamma, *,
-              nbr: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+def choco_mix(x: torch.Tensor, x_hat: torch.Tensor, W: torch.Tensor, gamma) -> torch.Tensor:
     """x + γ (W − I) x̂ on a stacked ``(n, ...)`` tensor.
 
-    Without ``nbr`` the product is the dense ``(W − I) @ x̂`` in W's dtype
-    (as the reference's ``dot_general``); a (B, n, n) W mixes B runs'
-    (B, n, d) values. With ``nbr = (idx, w)``, a
-    neighbour table whose weights already hold (W − I) (see
-    :func:`choco_weights`), it is one ``gossip_mix_batched`` launch and W is
-    not read. ``gamma`` is a scalar or a tensor that broadcasts over x.
+    The product is the dense ``(W − I) @ x̂`` in W's dtype (as the
+    reference's ``dot_general``); a (B, n, n) W mixes B runs' (B, n, d)
+    values. ``gamma`` is a scalar or a tensor that broadcasts over x.
     """
-    if nbr is not None:
-        delta = gossip_mix_batched(x_hat, *nbr)
-    elif W.dim() == 2:
+    if W.dim() == 2:
         A = W - torch.eye(W.shape[-1], dtype=W.dtype, device=W.device)
         delta = (A @ x_hat.reshape(x_hat.shape[0], -1)).reshape(x_hat.shape)
     else:                                   # (B, n, n) over (B, n, d): B runs at once

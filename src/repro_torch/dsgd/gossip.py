@@ -5,7 +5,7 @@
                            as the reference leaves it to XLA)
   gossip_sim_tree          gossip over a parameter dict, by default through
                            the ``gossip_mix_batched`` kernel: one launch per
-                           leaf for all n workers
+                           dtype for all leaves and all n workers
   gossip_sim_tree_rowloop  one ``gossip_mix`` launch per worker row, the
                            parity oracle of the batched path
 
@@ -21,9 +21,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
-from ..kernels.gossip_mix.ops import gossip_mix, gossip_mix_batched
+from ..kernels.gossip_mix.ops import gossip_mix, gossip_mix_batched_leaves
 
 __all__ = ["gossip_sim", "gossip_sim_tree", "gossip_sim_tree_rowloop", "padded_neighbors",
            "elastic_neighbor_tables", "gather_neighbor_weights", "select_cycle_matrix"]
@@ -122,15 +122,16 @@ def gossip_sim_tree(tree, W: torch.Tensor, *, use_kernel: bool = True,
                     nbr: tuple[torch.Tensor, torch.Tensor] | None = None):
     """Leaf-wise gossip over stacked (n, ...) parameter dicts.
 
-    ``use_kernel`` (default on, unlike the reference) mixes each leaf with
-    one ``gossip_mix_batched`` launch over the padded neighbour table; pass
-    ``nbr=padded_neighbors(W)`` built once to keep the host out of the step.
-    ``use_kernel=False`` is the dense :func:`gossip_sim`.
+    ``use_kernel`` (default on, unlike the reference) mixes all leaves with
+    one ``gossip_mix_batched`` launch per dtype over the padded neighbour
+    table; pass ``nbr=padded_neighbors(W)`` built once to keep the host out
+    of the step. ``use_kernel=False`` is the dense :func:`gossip_sim`.
     """
     if not use_kernel:
         return tree_map(lambda x: gossip_sim(x, W), tree)
     nbr_idx, weights = padded_neighbors(W) if nbr is None else nbr
-    return tree_map(lambda x: gossip_mix_batched(x, nbr_idx, weights), tree)
+    leaves, spec = tree_flatten(tree)
+    return tree_unflatten(gossip_mix_batched_leaves(leaves, nbr_idx, weights), spec)
 
 
 def gossip_sim_tree_rowloop(tree, W):

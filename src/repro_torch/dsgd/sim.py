@@ -7,8 +7,8 @@ The reference's ``repro/dsgd/sim.py`` on one device, in torch:
     init and batch order). The runs are stacked on ONE worker axis of
     (S·T·n, ...) leaves where the reference vmaps, so each training step
     is one batch gather, one ``torch.func.vmap`` of the MLP's gradient, and
-    one ``gossip_mix_batched`` launch per parameter leaf for all runs over
-    a block-diagonal neighbour table (run b's rows and neighbour indices
+    one ``gossip_mix_batched`` launch for all parameter leaves and all runs
+    over a block-diagonal neighbour table (run b's rows and neighbour indices
     offset by b·n, padded to the widest degree of any run; a padded slot
     adds an exact 0·x).
   - ``train_curves_cross`` runs the cross product {static, round-robin
@@ -51,7 +51,7 @@ import torch
 
 from ..data import epoch_permutations
 from ..device import resolve_device
-from ..kernels.gossip_mix.ops import gossip_mix_batched
+from ..kernels.gossip_mix.ops import gossip_mix_batched_leaves
 from .chaos import ChaosSpec, degrade_matrix
 from .compression import (
     Compressor,
@@ -190,21 +190,21 @@ def _mix_pytree(spec: CommSpec, x: dict, hat: dict, nbr, gamma, masks):
     """One CHOCO exchange on stacked ``(rows, ...)`` leaf dicts → (x', x̂').
 
     ``nbr = (idx, w)`` is the step's neighbour table with the weights of W;
-    the product (W − I)x̂ is one ``gossip_mix_batched`` launch per leaf over
-    it (column 0 made float32(W_ii − 1)). ``gamma`` broadcasts over the rows;
-    ``masks`` are the random-k keep-masks, leaf by leaf."""
-    table = (nbr[0], choco_weights(nbr[1]))
-    out_x, out_h = {}, {}
+    the products (W − I)x̂ of all leaves are one ``gossip_mix_batched``
+    launch over it (column 0 made float32(W_ii − 1)), then x + γ·(W − I)x̂
+    leaf by leaf, as :func:`choco_mix` adds it. ``gamma`` broadcasts over
+    the rows; ``masks`` are the random-k keep-masks, leaf by leaf."""
+    out_h = {}
     for i, k in enumerate(LEAVES):
         xl, hl = x[k], hat[k]
         if spec.compressor == "top_k":
             q = compress_top_k(xl - hl, spec.frac)
         else:
             q = compress_random_k(xl - hl, spec.frac, None, mask=masks[i])
-        hl = hl + q
-        g = gamma.reshape((-1,) + (1,) * (xl.dim() - 1))
-        out_x[k] = choco_mix(xl, hl, None, g, nbr=table)
-        out_h[k] = hl
+        out_h[k] = hl + q
+    deltas = gossip_mix_batched_leaves([out_h[k] for k in LEAVES], nbr[0], choco_weights(nbr[1]))
+    out_x = {k: x[k] + gamma.reshape((-1,) + (1,) * (x[k].dim() - 1)) * d
+             for k, d in zip(LEAVES, deltas)}
     return out_x, out_h
 
 
@@ -309,7 +309,8 @@ def _make_step(spec: CommSpec, cfg: DSGDSimConfig, n: int, runs: int, gamma_rows
             masks = _random_masks(spec, gen, n, widths, runs)
             p_mix, hat_new = _mix_pytree(spec, p_new, hat, table, gamma_rows, masks)
         else:
-            p_mix = {k: gossip_mix_batched(p_new[k], *table) for k in LEAVES}
+            p_mix = dict(zip(LEAVES, gossip_mix_batched_leaves([p_new[k] for k in LEAVES],
+                                                               *table)))
             hat_new = hat
         if keep is None:
             return p_mix, mom_new, hat_new

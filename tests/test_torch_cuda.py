@@ -16,8 +16,12 @@ columns in one block, on directed graphs and on uint8 bytes > 1);
 ``graph.aspl``; the gossip kernels within one ulp of the output dtype (none
 for fp32) plus the float32 summation bound (deg+2)·2⁻²⁴·Σ|w·x| of their
 plain versions, which sum the neighbour terms in another order; the row
-loop of one-worker kernels bitwise equal to the batched kernel (the same
-products added in the same order); three DSGD steps of reduced smollm,
+loop of one-worker kernels and the first-cut witness kernel bitwise equal
+to the tiled batched kernel (the same products added in the same order)
+at n from 1 to 144, deg 1 to 7 with padded slots, rows aligned, misaligned,
+narrower than a tile and of 1,000,003 elements, x off a 16-byte boundary,
+and a group of leaves of three dtypes in one launch a dtype; the row limit
+raising and an index out of range trapping; three DSGD steps of reduced smollm,
 card vs CPU, within 1e-4 relative in the losses; ``decode_attention``
 within the float32 bound of ``decode_attention_bound`` plus one output ulp,
 one launch a call, at one split and many, at a cache shorter than a tile,
@@ -422,7 +426,7 @@ def _gossip_table(n, deg, rng):
     w = np.zeros((n, deg + 1), np.float32)
     for i in range(n):
         others = [j for j in range(n) if j != i]
-        k = min(deg, len(others), int(rng.integers(1, deg + 1)) if i % 2 else deg)
+        k = min(deg, len(others), int(rng.integers(1, deg + 1)) if i % 2 and deg else deg)
         pick = rng.choice(others, size=k, replace=False) if k else []
         idx[i, :k] = pick
         idx[i, k:] = i
@@ -503,6 +507,125 @@ def test_gossip_wrappers_raise_instead_of_falling_back(cuda):
         tgm.gossip_mix(x[:, 0], torch.zeros((2, 4), device=cuda), torch.zeros(3, device=cuda))
 
 
+def _tiled_vs_witness(x, idx, w):
+    """The tiled kernel's mix of x against the first-cut kernel's and the
+    row loop of one-worker kernels: the same products added in the same
+    order, so all three bitwise equal."""
+    got = tgm.gossip_mix_batched(x, idx, w)
+    wit = tgm.gossip_mix_batched_witness(x, idx, w)
+    rows = torch.stack([tgm.gossip_mix(x[i], x[idx[i].long()], w[i].contiguous())
+                        for i in range(x.shape[0])])
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert torch.equal(got, wit) and torch.equal(got, rows)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("deg", [0, 1, 3, 4, 6, 7, 8, 12])
+@pytest.mark.parametrize("n", [1, 3, 4, 8, 144])
+def test_gossip_tiled_kernel_bitwise_witness_and_rowloop_on_card(cuda, n, deg, dtype):
+    """Every table of max degree ``deg`` (rows with fewer neighbours padded
+    with weight-0 slots) at an aligned row, one launch: deg 0…7 take the
+    unrolled slot loops, 8 and 12 the runtime one."""
+    rng = np.random.default_rng(n * 101 + deg)
+    idx_np, w_np = _gossip_table(n, deg, rng)
+    idx, w = torch.from_numpy(idx_np).to(cuda), torch.from_numpy(w_np).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n, 3, 1000)).astype(np.float32)).to(cuda, dtype)
+    before = tgm.gossip_mix_batched.launches
+    _tiled_vs_witness(x, idx, w)
+    assert tgm.gossip_mix_batched.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("M", [4096, 4099, 5, 1_000_003])
+@pytest.mark.parametrize("n,deg", [(8, 4), (3, 2), (144, 6)])
+def test_gossip_tiled_kernel_row_lengths_on_card(cuda, n, deg, M, dtype):
+    """Rows aligned, with M·size % 16 ≠ 0, narrower than one tile, and of
+    1,000,003 elements (many tiles and a ragged last one)."""
+    rng = np.random.default_rng(M + n)
+    idx_np, w_np = _gossip_table(n, deg, rng)
+    idx, w = torch.from_numpy(idx_np).to(cuda), torch.from_numpy(w_np).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n, M)).astype(np.float32)).to(cuda, dtype)
+    _tiled_vs_witness(x, idx, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_gossip_tiled_kernel_reads_misaligned_rows_on_card(cuda, dtype):
+    """x one element past a 16-byte boundary: its rows come in element by
+    element, the output (fresh) is stored 16 bytes at a time."""
+    n, deg, M = 8, 4, 4096
+    rng = np.random.default_rng(5)
+    idx_np, w_np = _gossip_table(n, deg, rng)
+    idx, w = torch.from_numpy(idx_np).to(cuda), torch.from_numpy(w_np).to(cuda)
+    buf = torch.from_numpy(rng.standard_normal(n * M + 1).astype(np.float32)).to(cuda, dtype)
+    x = buf[1:].view(n, M)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    _tiled_vs_witness(x, idx, w)
+
+
+@pytest.mark.cuda
+def test_gossip_leaves_one_launch_per_dtype_on_card(cuda):
+    """Leaves of mixed sizes and dtypes over one table: one launch per
+    dtype, each leaf bitwise its own one-leaf mix and the witness's."""
+    n, deg = 8, 5
+    rng = np.random.default_rng(9)
+    idx_np, w_np = _gossip_table(n, deg, rng)
+    idx, w = torch.from_numpy(idx_np).to(cuda), torch.from_numpy(w_np).to(cuda)
+    shapes = [(130,), (4, 7), (49, 4096), (1,), (3, 1000), (10,), (2, 50_001)]
+    dtypes = [torch.bfloat16, torch.float32, torch.bfloat16, torch.float16, torch.float32,
+              torch.bfloat16, torch.float32]
+    xs = [torch.from_numpy(rng.standard_normal((n,) + s).astype(np.float32)).to(cuda, dt)
+          for s, dt in zip(shapes, dtypes)]
+    before = tgm.gossip_mix_batched.launches
+    got = tgm.gossip_mix_batched_leaves(xs, idx, w)
+    torch.cuda.synchronize()
+    assert tgm.gossip_mix_batched.launches == before + len(set(dtypes))
+    for g, x in zip(got, xs):
+        assert g.dtype == x.dtype and g.shape == x.shape
+        assert torch.equal(g, tgm.gossip_mix_batched_witness(x, idx, w))
+        assert torch.equal(g, tgm.gossip_mix_batched(x, idx, w))
+
+
+@pytest.mark.cuda
+def test_gossip_tiled_kernel_raises_past_the_row_limit(cuda):
+    deg = 6
+    n = tgm.max_rows(deg) + 1
+    idx = torch.zeros((n, deg), dtype=torch.int32, device=cuda)
+    w = torch.zeros((n, deg + 1), device=cuda)
+    before = tgm.gossip_mix_batched.launches
+    with pytest.raises(ValueError, match="rows at deg 6"):
+        tgm.gossip_mix_batched(torch.zeros((n, 64), device=cuda), idx, w)
+    assert tgm.gossip_mix_batched.launches == before
+
+
+@pytest.mark.cuda
+def test_gossip_tiled_kernel_traps_an_index_out_of_range(cuda):
+    """A neighbour index outside [0, n) traps; the trap leaves the context
+    unusable, so the launch runs in a child process."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    code = ("import torch\n"
+            "from repro_torch.kernels.gossip_mix import ops\n"
+            "idx = torch.tensor([[1], [2], [3]], dtype=torch.int32, device='cuda')\n"
+            "w = torch.full((3, 2), 0.5, device='cuda')\n"
+            "x = torch.ones((3, 64), device='cuda')\n"
+            "ops.gossip_mix_batched(x, idx, w)\n"
+            "torch.cuda.synchronize()\n"
+            "print('no trap')\n")
+    env = dict(os.environ, PYTHONPATH=src)
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0 and "no trap" not in r.stdout, (r.stdout, r.stderr)
+
+
 @pytest.mark.cuda
 def test_dsgd_steps_card_match_cpu(cuda):
     from repro_torch.configs import get_arch, reduced_for_smoke
@@ -526,8 +649,9 @@ def test_dsgd_steps_card_match_cpu(cuda):
             batch = {k: torch.from_numpy(np.stack([b[k] for b in per])).to(dev) for k in per[0]}
             state, m = step(state, batch)
             losses[dev].append(float(m["loss"]))
-        if dev == "cuda":
-            assert kernels.launch_counts()["gossip_mix_batched"] == 3 * 11
+        if dev == "cuda":       # all leaves in one launch a step: one dtype
+            assert kernels.launch_counts()["gossip_mix_batched"] == 3 * len(
+                {x.dtype for x in torch.utils._pytree.tree_leaves(state.params)})
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-4 * abs(b)
 
@@ -885,8 +1009,8 @@ def test_reduced_training_card_matches_cpu(cuda, arch):
             losses[dev].append(float(m["loss"]))
         if dev == "cuda":
             counts = kernels.launch_counts()
-            leaves = len(torch.utils._pytree.tree_leaves(state.params))
-            assert counts["gossip_mix_batched"] == steps * leaves
+            dtypes = {x.dtype for x in torch.utils._pytree.tree_leaves(state.params)}
+            assert counts["gossip_mix_batched"] == steps * len(dtypes)   # a launch a dtype
             mamba = cfg.num_layers if cfg.arch_type in ("ssm", "hybrid") else 0
             assert counts["ssd_intra_chunk"] == steps * mamba
     assert all(np.isfinite(losses["cuda"]))
@@ -963,8 +1087,8 @@ def test_top_k_threshold_and_degrade_bitwise_on_card(cuda, dtype):
 
 @pytest.mark.cuda
 def test_sim_engines_on_card(cuda):
-    """accuracy_curves on the card: one gossip_mix_batched launch per leaf
-    per step for all runs, within one test sample of the CPU, 1e-6 of the
+    """accuracy_curves on the card: one gossip_mix_batched launch a step for
+    all leaves and runs, within one test sample of the CPU, 1e-6 of the
     host oracle, and bitwise equal to the static dense cross run; the
     fault-free chaos engine bitwise equal to the cross engine."""
     from repro_torch.dsgd import sim as tsim
@@ -978,7 +1102,7 @@ def test_sim_engines_on_card(cuda):
     cfg = tsim.DSGDSimConfig(epochs=2, batch=16, hidden=32)
     kernels.reset_launch_counts()
     card, iters = tsim.accuracy_curves(Ws, *data, cfg)
-    assert kernels.launch_counts()["gossip_mix_batched"] == cfg.epochs * iters * 4
+    assert kernels.launch_counts()["gossip_mix_batched"] == cfg.epochs * iters   # all 4 leaves
     cpu, _ = tsim.accuracy_curves(Ws, *data, cfg, device="cpu")
     assert np.abs(card - cpu).max() <= 1.0 / 144 + 1e-12
     host, _ = tsim.accuracy_curve_host(Ws[1], *data, cfg)
