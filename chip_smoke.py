@@ -123,6 +123,8 @@ PATH_KERNELS = {
     "sweep": ("edge_laplacian", "edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec",
               "hop_step"),
     "rowloop": ("gossip_mix",),
+    "dsgd_dynamic": ("gossip_mix_batched",),
+    "xstep_kkt": ("edge_laplacian_blocks", "edge_adjoint"),
     "serve_dense": ("decode_attention",),
     "serve_ssm": ("ssd_intra_chunk",),
     "serve_moe": ("decode_attention",),
@@ -151,8 +153,8 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM memory rate (NVIDIA data sheet)
 INT8_OP_PER_S = 1.979e15        # H100 SXM dense int8 tensor-core rate
 BF16_OP_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate
 FP32_OP_PER_S = 67e12           # H100 SXM float32 rate outside the tensor cores
-TIMED_LAUNCHES = 1000
-WARMUP_LAUNCHES = 50
+TIMED_LAUNCHES = 200             # a timing's launches: few enough for the run's time limit
+WARMUP_LAUNCHES = 20
 T0 = time.perf_counter()
 
 
@@ -854,11 +856,11 @@ def _profiled(fn, match: tuple = ()) -> dict:
 
 def phase_profile() -> None:
     """Short windows of the n=64 main path's three device stages, each run
-    once unprofiled to warm up: 60 ADMM steps (pipeline stack; the
+    once unprofiled to warm up: 20 ADMM steps (pipeline stack; the
     ``edge_schur_matvec`` launches count its CG matvecs, the
     ``edge_laplacian_blocks`` and ``edge_adjoint`` launches its right-hand
-    sides and last adjoints; no ``edge_quadform`` may launch there), 100 SA
-    moves, 100 polish iterations."""
+    sides and last adjoints; no ``edge_quadform`` may launch there), 50 SA
+    moves, 50 polish iterations (short for the run's time limit)."""
     from repro_torch.core import BATopoConfig, HomogeneousADMM
     from repro_torch.core.anneal import greedy_degree_graph
     from repro_torch.core.api import _pack_warm
@@ -869,14 +871,14 @@ def phase_profile() -> None:
     edges = greedy_degree_graph(n, np.full(n, 4), np.random.default_rng(0))
     g0, _, lam0 = _pack_warm(n, edges)
     cfg = BATopoConfig()
-    admm_cfg = dataclasses.replace(cfg.admm, max_iters=60, device="cuda")
+    admm_cfg = dataclasses.replace(cfg.admm, max_iters=20, device="cuda")
     solver = HomogeneousADMM(n, r, admm_cfg)
     stages = {
-        "admm_60_steps": lambda: solver.solve(g0=g0, lam0=lam0),
-        "sa_100_moves": lambda: anneal_topology_batched(n, [edges], None, iters=100,
-                                                        seeds=[0]),
-        "polish_100_iters": lambda: polish_weights_batched(
-            n, [edges], [metropolis_weights(n, edges)], iters=100),
+        "admm_20_steps": lambda: solver.solve(g0=g0, lam0=lam0),
+        "sa_50_moves": lambda: anneal_topology_batched(n, [edges], None, iters=50,
+                                                       seeds=[0]),
+        "polish_50_iters": lambda: polish_weights_batched(
+            n, [edges], [metropolis_weights(n, edges)], iters=50),
     }
     admm_kernels = ("edge_schur_matvec", "edge_adjoint", "edge_laplacian_blocks",
                     "edge_quadform")
@@ -885,7 +887,7 @@ def phase_profile() -> None:
         fn()
         out[name] = _profiled(fn, match=admm_kernels if name.startswith("admm") else ())
     emit("profile", n=n, r=r, stages=out)
-    matched = out["admm_60_steps"].get("matched")
+    matched = out["admm_20_steps"].get("matched")
     assert matched is not None, "the profiler saw no device activity in the ADMM steps"
     assert matched["edge_schur_matvec"]["launches"] > 0 and \
         matched["edge_quadform"]["launches"] == 0, f"ADMM steps' kernels: {matched}"
@@ -1120,8 +1122,9 @@ def phase_main_restarts(restarts: list) -> dict:
     same warm starts earlier in this process (``restarts``, from
     :func:`_recorded_restarts`; reused rather than run again, as is their
     SA). Wall (host clock, ending in the host reads), launches of each edge
-    form and, over a profiled window of ``RESTART_PROFILE_STEPS`` steps of
-    each, host syncs and device launches. The restarts are fp32 and start
+    form and, over a profiled window of ``RESTART_PROFILE_STEPS`` batched
+    steps, host syncs and device launches (no sequential window: the
+    run's time limit). The restarts are fp32 and start
     from tied Metropolis weights, so batched and sequential are compared
     (λ̃ drift, support overlap) and not held equal; main_restarts_f64
     holds them."""
@@ -1140,15 +1143,13 @@ def phase_main_restarts(restarts: list) -> dict:
     short = HomogeneousADMM(n, r, dataclasses.replace(solver.cfg,
                                                       max_iters=RESTART_PROFILE_STEPS))
     prof_b = _profiled(lambda: short.solve_batched(g0s, lam0s), match=BATCHED_FORMS)
-    prof_s = _profiled(lambda: [short.solve(g0=g0, lam0=lam0) for g0, lam0 in zip(g0s, lam0s)],
-                       match=BATCHED_FORMS)
     rows = _compare_restarts(batched, seq)
     out = dict(n=n, r=r, restarts=R, max_iters=solver.cfg.max_iters, dtype=solver.cfg.dtype,
                sequential_from="main_n64",
                wall_s=dict(batched=wall_b, sequential=wall_s),
                launches=dict(batched=launches_b, sequential=launches_s),
                profile_steps=RESTART_PROFILE_STEPS,
-               profile=dict(batched=prof_b, sequential=prof_s), restarts_rows=rows)
+               profile=dict(batched=prof_b), restarts_rows=rows)
     emit("main_restarts", **out)
     assert all(np.isfinite(row["lam_batched"]) for row in rows)
     assert launches_b["edge_laplacian"] == 1 and launches_s["edge_laplacian"] == R, \
@@ -1181,6 +1182,179 @@ def phase_main_restarts_f64() -> dict:
             f"main_restarts_f64 restart {k}: batched differs from sequential: {row}"
         assert row["iters"][0] == row["iters"][1], f"restart {k}: iterations {row['iters']}"
     return rows
+
+
+def _overlap(a, b) -> float:
+    sa, sb = set(np.nonzero(a.g > 1e-6)[0].tolist()), set(np.nonzero(b.g > 1e-6)[0].tolist())
+    return len(sa & sb) / max(len(sa | sb), 1)
+
+
+#: helper processes of the phases, stopped when the script ends
+_CHILDREN: list = []
+XSTEP_FORMS = ("edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec")
+#: card against CPU at card_vs_cpu's request, per backend: |Δλ̃| (float64)
+XSTEP_CARD_CPU_BAND = 1e-7
+XSTEP_CARD_CPU_BACKENDS = {"scan/kkt_bicgstab": dict(solver="kkt_bicgstab"),
+                           "python/schur_cg": dict(driver="python"),
+                           "python/kkt_bicgstab_ilu": dict(solver="kkt_bicgstab_ilu")}
+#: card_vs_cpu's request by each backend on the CPU, in a process of its own
+XSTEP_CPU_SIDE = """
+import dataclasses, json, sys, time
+import numpy as np, torch
+torch.set_num_threads(1)
+from repro_torch.core import BATopoConfig, HomogeneousADMM
+g16 = np.random.default_rng(16).random(16 * 15 // 2) * 0.2
+out = {}
+for label, kw in json.loads(sys.argv[1]).items():
+    cfg = dataclasses.replace(BATopoConfig().admm, dtype="float64", device="cpu", **kw)
+    t0 = time.perf_counter()
+    res = HomogeneousADMM(16, 32, cfg).solve(g0=g16, lam0=0.5)
+    out[label] = dict(lam=res.lam_tilde, g=res.g.tolist(), iters=res.iters,
+                      wall_s=time.perf_counter() - t0)
+print(json.dumps(out))
+"""
+
+
+def phase_main_xstep_backends(restarts: list) -> dict:
+    """The ADMM's X-step backends and the per-iteration driver on the card,
+    from main_n64's first recorded restart (n = 64, r = 128, its annealed
+    warm start):
+
+    - one X-step by ``schur_cg``, ``kkt_bicgstab`` and the scipy ILU from
+      the same float64 state (``init_state`` of the warm start, as the
+      reference's ``tests/test_engine_parity.py:29-45``) with the exact CG
+      tolerance: the ILU's x, S, y and T within 1e-6 of schur_cg's (the
+      reference's band). ``kkt_bicgstab`` from a state with A X₀ = b stops
+      at its first iteration with ω = 0 (α rounds to 1, so s has no X part
+      and ⟨t, s⟩ = 0): JAX's bicgstab does the same there (ROADMAP.md Queue
+      3), so its X-step is held to the CPU's, within 1e-9, and its distance
+      from schur_cg's and its constraint residual ‖A X − b‖∞ are reported;
+    - whole solves from the warm start: scan/kkt_bicgstab, python/schur_cg
+      and python/kkt_bicgstab at the pipeline default (fp32, inexact CG),
+      beside main_n64's own scan/schur_cg solve of the same start (not run
+      again), and the ILU (float64, exact tolerance) beside a float64 scan
+      solve at the same tolerance: wall, iterations, λ̃, support overlap,
+      edge-form launches (no ``edge_schur_matvec`` on the kkt route) and the
+      ILU's ``spsolve`` fallbacks;
+    - card_vs_cpu's request (n = 16, r = 32, float64) by each backend on the
+      card and on the CPU: for python/schur_cg and the ILU the same support
+      and λ̃ within ``XSTEP_CARD_CPU_BAND``; for kkt_bicgstab, whose X-steps
+      stop on ω = 0 or at rounding-level ω (the reference's fault), both
+      reported without a band."""
+    from repro_torch.core import BATopoConfig, HomogeneousADMM
+    from repro_torch.core import engine as te
+
+    rec = restarts[0]
+    base, g0, lam0 = rec["solver"], rec["g0"], rec["lam0"]
+    n, r, cfg = base.n, base.r, base.cfg
+    exact64 = dataclasses.replace(cfg, dtype="float64", cg_inexact=False)
+    # the CPU side of the card-vs-CPU rows runs in a process of its own
+    # while the card works through the rest of the phase
+    cpu_side = subprocess.Popen(
+        [sys.executable, "-c", XSTEP_CPU_SIDE, json.dumps(XSTEP_CARD_CPU_BACKENDS)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), stdout=subprocess.PIPE, text=True)
+    _CHILDREN.append(cpu_side)
+
+    # one X-step per backend from the same float64 state
+    spec = te.make_homo_spec(n, r, exact64)
+    st = te.init_state(spec, g0, lam0)
+    ilu_step = te.make_ilu_step(spec)
+    xsteps, launches_x = {}, {}
+    for name, fn in (("schur_cg", lambda: te.step(spec, st, "schur_cg")),
+                     ("kkt_bicgstab", lambda: te.step(spec, st, "kkt_bicgstab")),
+                     ("kkt_bicgstab_ilu", lambda: ilu_step(st))):
+        (out, _), wall, counts = _timed_xstep(fn)
+        xsteps[name] = out
+        launches_x[name] = dict(counts, wall_s=wall)
+    xstep_diff = {name: max(float((a - b).abs().max()) for a, b in
+                            zip(xsteps[name].X, xsteps["schur_cg"].X))
+                  for name in ("kkt_bicgstab", "kkt_bicgstab_ilu")}
+    spec_cpu = te.make_homo_spec(n, r, dataclasses.replace(exact64, device="cpu"))
+    kkt_cpu, _ = te.step(spec_cpu, te.init_state(spec_cpu, g0, lam0), "kkt_bicgstab")
+    kkt_vs_cpu = max(float((a.cpu() - b).abs().max())
+                     for a, b in zip(xsteps["kkt_bicgstab"].X, kkt_cpu.X))
+    kkt_residual = float((te.A_op(spec, xsteps["kkt_bicgstab"].X) - te.b_rhs(spec)).abs().max())
+
+    def solve(solver_cfg):
+        solver = HomogeneousADMM(n, r, solver_cfg)
+        res, wall, counts = _timed_solves(lambda: solver.solve(g0=g0, lam0=lam0))
+        fallbacks = (solver._ilu_step().ilu.fallbacks
+                     if solver_cfg.solver == "kkt_bicgstab_ilu" else None)
+        return res, dict(wall_s=wall, iters=res.iters, lam_tilde=res.lam_tilde,
+                         cg_iters=res.cg_iters, residual=res.residual, launches=counts,
+                         ilu_fallbacks=fallbacks)
+
+    ref = rec["result"]
+    solves = {"scan/schur_cg": dict(wall_s=rec["wall_s"], iters=ref.iters,
+                                    lam_tilde=ref.lam_tilde, cg_iters=ref.cg_iters,
+                                    residual=ref.residual, launches=rec["launches"],
+                                    support_overlap=1.0, from_main_n64=True)}
+    for label, kw in (("scan/kkt_bicgstab", dict(solver="kkt_bicgstab")),
+                      ("python/schur_cg", dict(driver="python")),
+                      ("python/kkt_bicgstab", dict(driver="python", solver="kkt_bicgstab"))):
+        res, row = solve(dataclasses.replace(cfg, **kw))
+        solves[label] = dict(row, support_overlap=_overlap(res, ref))
+    scan64, row64 = solve(exact64)
+    ilu, row_ilu = solve(dataclasses.replace(exact64, solver="kkt_bicgstab_ilu"))
+    solves["scan/schur_cg float64"] = dict(row64, support_overlap=_overlap(scan64, ref))
+    solves["python/kkt_bicgstab_ilu float64"] = dict(
+        row_ilu, support_overlap=_overlap(ilu, scan64),
+        abs_d_lam_vs_scan64=abs(ilu.lam_tilde - scan64.lam_tilde))
+
+    # card against CPU at card_vs_cpu's request, per backend
+    g16 = np.random.default_rng(16).random(16 * 15 // 2) * 0.2
+    card_cpu = {}
+    for label, kw in XSTEP_CARD_CPU_BACKENDS.items():
+        c16 = dataclasses.replace(BATopoConfig().admm, dtype="float64", device="cuda", **kw)
+        t0 = time.perf_counter()
+        a = HomogeneousADMM(16, 32, c16).solve(g0=g16, lam0=0.5)
+        card_cpu[label] = dict(lam_cuda=a.lam_tilde, iters=[a.iters],
+                               wall_s=[time.perf_counter() - t0], g=a.g)
+    out_cpu, _ = cpu_side.communicate(timeout=600)
+    assert cpu_side.returncode == 0, f"main_xstep_backends: the CPU side exited {cpu_side.returncode}"
+    for label, b in json.loads(out_cpu.splitlines()[-1]).items():
+        row = card_cpu[label]
+        g_cuda, g_cpu = row.pop("g"), np.asarray(b["g"])
+        row.update(lam_cpu=b["lam"], lam_drift=abs(row["lam_cuda"] - b["lam"]),
+                   support_equal=bool(np.array_equal(g_cuda > 1e-6, g_cpu > 1e-6)),
+                   iters=row["iters"] + [b["iters"]], wall_s=row["wall_s"] + [b["wall_s"]])
+    out = dict(n=n, r=r, start="main_n64 restart 0", xstep_max_abs_diff_vs_schur_cg=xstep_diff,
+               kkt_xstep=dict(max_abs_diff_vs_cpu=kkt_vs_cpu, constraint_residual=kkt_residual,
+                              loop_passes=(launches_x["kkt_bicgstab"]["edge_adjoint"] - 1)
+                              // 2),
+               xstep_launches=launches_x, solves=solves,
+               card_vs_cpu=dict(n=16, r=32, dtype="float64", band=XSTEP_CARD_CPU_BAND,
+                                rows=card_cpu))
+    emit("main_xstep_backends", **out)
+    assert xstep_diff["kkt_bicgstab_ilu"] <= 1e-6, f"X-steps differ: {xstep_diff}"
+    assert kkt_vs_cpu <= 1e-9, f"kkt_bicgstab X-step: card and CPU differ by {kkt_vs_cpu}"
+    kkt = launches_x["kkt_bicgstab"]
+    assert kkt["edge_schur_matvec"] == 0 and not _missing("xstep_kkt", kkt), kkt
+    assert kkt["edge_laplacian_blocks"] == kkt["edge_adjoint"], kkt
+    for label, row in solves.items():
+        assert np.isfinite(row["lam_tilde"]), (label, row)
+        if "kkt_bicgstab" in label and "ilu" not in label:
+            assert row["launches"]["edge_schur_matvec"] == 0 and \
+                not _missing("xstep_kkt", row["launches"]), (label, row["launches"])
+    for label, row in card_cpu.items():
+        if "ilu" in label or "schur" in label:
+            assert row["support_equal"] and row["lam_drift"] <= XSTEP_CARD_CPU_BAND, (label, row)
+        assert np.isfinite(row["lam_cuda"]) and np.isfinite(row["lam_cpu"]), (label, row)
+    return out
+
+
+def _timed_xstep(fn):
+    """``fn()``'s result, wall and edge-form launches, on counts from 0."""
+    from repro_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    return out, wall, {f: counts[f] for f in XSTEP_FORMS}
 
 
 @contextlib.contextmanager
@@ -1830,6 +2004,80 @@ def phase_dsgd_card_vs_cpu() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 11a: --sync dynamic, one matching of the topology a step
+# ---------------------------------------------------------------------------
+
+def phase_main_dsgd_dynamic(dsgd_run: dict) -> dict:
+    """main_dsgd's run (smollm-135m at full width, 8 workers, BA r = 16 from
+    main_dsgd's cache, batch 4 × 256, 10 steps) with ``--sync dynamic``:
+    step t mixes by the matching W_{t mod R}, all 11 leaves in one
+    ``gossip_mix_batched`` launch (one dtype) over its slot's deg-1 table.
+    The first gossip is held against the plain version and bitwise against
+    the first-cut witness kernel, by wrapping the trainer's
+    ``gossip_sim_tree`` as main_dsgd does. Then the whole step's gossip at
+    that shape is timed (row 4i). Returns the timing row with the run's
+    launches."""
+    from repro_torch import kernels
+    from repro_torch.dsgd import trainer
+    from repro_torch.launch import train
+
+    mix = trainer.gossip_sim_tree
+    first: dict = {}
+    tables: list = []
+
+    def checked_mix(tree, W, *, use_kernel=True, nbr=None):
+        out = mix(tree, W, use_kernel=use_kernel, nbr=nbr)
+        if not first:
+            first.update(_first_gossip(_leaves(out), _leaves(tree), *nbr))
+            tables.append((W, nbr))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        return out
+
+    last = {}
+    trainer.gossip_sim_tree = checked_mix
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train.main(DSGD_ARGS + ["--topo-cache", str(TOPO_CACHE), "--sync", "dynamic"],
+                         on_step=lambda s, state, m: last.update(state=state))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        trainer.gossip_sim_tree = mix
+    peak = torch.cuda.max_memory_allocated()
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    steady = float(np.mean(res["step_ms"][2:]))
+    W, (idx, w) = tables[0]
+    step_row = _gossip_step_case(last["state"].params, W, idx, w)
+    out = dict(arch=res["arch"], workers=DSGD_WORKERS, batch=4, seq=256,
+               steps=len(res["step_ms"]), topology=res["topology"], edges=res["edges"],
+               rounds=res["rounds"], step_ms=res["step_ms"], steady_step_ms=steady,
+               main_dsgd_steady_step_ms=dsgd_run["steady_step_ms"], losses=losses,
+               consensus_err=[h["consensus_err"] for h in hist],
+               step1_gossip_vs_plain=_first_summary(first), whole_step_gossip=step_row,
+               max_memory_allocated_bytes=peak, wall_s=wall_s, launches=launches)
+    emit("main_dsgd_dynamic", **out)
+    n_steps = len(res["step_ms"])
+    assert n_steps == 10 and all(np.isfinite(losses)), losses
+    assert abs(losses[0] - np.log(49152)) <= 0.5, f"first loss {losses[0]} vs ln 49152"
+    assert res["rounds"] >= 2 and idx.shape[1] == 1, (res["rounds"], tuple(idx.shape))
+    assert launches["gossip_mix_batched"] == _dtypes(last["state"].params) * n_steps == 10, \
+        launches
+    assert launches["gossip_mix"] == 0, launches
+    assert not _missing("dsgd_dynamic", launches), _missing("dsgd_dynamic", launches)
+    assert len(first) == SMOLLM_LEAVES and all(ok for _, ok, _ in first.values()), \
+        f"step-1 dynamic gossip differs from the plain mix: {first}"
+    assert all(eq for _, _, eq in first.values()), f"step-1 gossip is not the witness's: {first}"
+    return dict(step_row, launches=launches["gossip_mix_batched"], rounds=res["rounds"],
+                steady_step_ms=steady)
+
+
+# ---------------------------------------------------------------------------
 # phase 11b: elastic DSGD training at full width, through the launcher
 # ---------------------------------------------------------------------------
 
@@ -2008,7 +2256,7 @@ def phase_main_elastic(dsgd_run: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 RESUME_ARGS = ["--arch", "smollm-135m", "--workers", "4", "--topo", "ba", "--r", "8",
-               "--optimizer", "sgd", "--batch", "4", "--seq", "256", "--steps", "8",
+               "--optimizer", "sgd", "--batch", "4", "--seq", "256", "--steps", "6",
                "--log-every", "1", "--seed", "0", "--device", "cuda", "--elastic",
                "--drift-step", "4", "--ckpt-every", "3", "--topo-cache", str(TOPO_CACHE)]
 RESUME_DIR = ROOT / "build" / "chip_smoke" / "elastic_resume"
@@ -2016,7 +2264,8 @@ RESUME_DIR = ROOT / "build" / "chip_smoke" / "elastic_resume"
 
 def phase_elastic_resume() -> dict:
     """The launcher in subprocesses on the card at smollm-135m's full width
-    (cut for disk and time: 4 workers, 8 steps): an uninterrupted elastic
+    (cut for disk and time: 4 workers, 6 steps, two 3.23 GB checkpoints):
+    an uninterrupted elastic
     run with the NICs collapsing at step 4 (a re-solve on the card, adopted
     at step 5) and, beside it on the same card, the same run SIGKILLed
     before step 5 (``--kill-at-step``); then that run continued with
@@ -2084,7 +2333,7 @@ def phase_elastic_resume() -> dict:
     emit("elastic_resume", **out)
     assert killed.returncode == -signal.SIGKILL, f"killed run: returncode {killed.returncode}"
     assert survived, "no checkpoint survived the kill"
-    assert sorted(got) == list(range(max(int(k[5:-4]) for k in survived), 8)), sorted(got)
+    assert sorted(got) == list(range(max(int(k[5:-4]) for k in survived), 6)), sorted(got)
     assert all(equal.values()), f"resumed curve differs: {equal}"
     assert any(e["event"] == "adopt" for e in events), events
     return out
@@ -3519,6 +3768,9 @@ def main() -> int:
         return _main()
     finally:
         stop_table_builds()
+        for proc in _CHILDREN:
+            proc.kill()
+            proc.wait()
 
 
 def _main() -> int:
@@ -3538,6 +3790,11 @@ def _main() -> int:
     phase_profile()
     phase_main_restarts(restarts)
     phase_main_restarts_f64()
+    kkt_solve = phase_main_xstep_backends(restarts)["solves"]["scan/kkt_bicgstab"]["launches"]
+    for name in ("edge_laplacian_blocks", "edge_adjoint"):
+        timing[name]["kkt_route"] = dict(path="main_xstep_backends, scan/kkt_bicgstab",
+                                         launches=kkt_solve[name],
+                                         edge_schur_matvec=kkt_solve["edge_schur_matvec"])
     sweep_launches, _ = phase_main_sweep()
     phase_sweep_card_vs_cpu()
     phase_main_service()
@@ -3554,6 +3811,7 @@ def _main() -> int:
     del state
     torch.cuda.empty_cache()
     phase_dsgd_card_vs_cpu()
+    timing["gossip_mix_batched"]["dynamic"] = phase_main_dsgd_dynamic(dsgd_run)
     timing["gossip_mix_batched"]["elastic"] = phase_main_elastic(dsgd_run)
     phase_elastic_resume()
 
@@ -3606,7 +3864,8 @@ def _main() -> int:
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], call_ms=t["call_ms"],
             **{k: t[k] for k in ("ms_warm", "library_ms_warm", "witness_ms", "sim", "batched",
-                                 "elastic", "deg", "serve_shapes", "train_shapes") if k in t}))
+                                 "elastic", "dynamic", "kkt_route", "deg", "serve_shapes",
+                                 "train_shapes") if k in t}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

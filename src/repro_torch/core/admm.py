@@ -5,8 +5,17 @@ Thin wrappers over ``engine``: each class builds a
 through ``engine.solve_spec`` and batched restarts (``solve_batched``)
 through ``engine.solve_batched_spec``: every step of the batch serves all
 restarts at once.
+
+Drivers (``ADMMConfig.driver``), as in the reference: ``"scan"`` (default,
+the chunked driver) and ``"python"`` (``engine.solve_python``, one host
+read an iteration), which also carries the scipy-ILU backend
+(``solver="kkt_bicgstab_ilu"``: homogeneous and float64 only; a
+heterogeneous solver falls back to ``schur_cg``). ``solve_batched`` takes
+the device backends only.
 """
 from __future__ import annotations
+
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -20,8 +29,10 @@ from .engine import (
     init_state,
     make_hetero_spec,
     make_homo_spec,
+    make_ilu_step,
     resolve_partition,
     solve_batched_spec,
+    solve_python,
     solve_spec,
 )
 
@@ -40,15 +51,42 @@ class _ADMMBase:
     def r(self) -> int:
         return int(self.spec.r)
 
-    def _solve_state(self, state: ADMMState) -> ADMMResult:
+    def _device_cfg(self) -> ADMMConfig:
+        """The config with its backend checked. The scipy-ILU backend
+        exists only for the homogeneous problem; like the reference, the
+        heterogeneous solver falls back to schur_cg when it is asked for."""
         check_solver(self.cfg)
-        resolve_partition(self.cfg.partition, self.spec.n)
-        return solve_spec(self.spec, state, self.cfg)
+        if self.spec.hetero and self.cfg.solver == "kkt_bicgstab_ilu":
+            return replace(self.cfg, solver="schur_cg")
+        if self.cfg.solver == "kkt_bicgstab_ilu" and self.cfg.dtype != "float64":
+            raise ValueError("the scipy-ILU backend is float64-only; use solver='schur_cg' "
+                             "with dtype='float32'")
+        return self.cfg
+
+    def _solve_state(self, state: ADMMState) -> ADMMResult:
+        cfg = self._device_cfg()
+        if cfg.solver == "kkt_bicgstab_ilu":
+            return solve_python(self.spec, state, cfg, step_fn=self._ilu_step())
+        if cfg.driver == "python":
+            return solve_python(self.spec, state, cfg)
+        resolve_partition(cfg.partition, self.spec.n)
+        return solve_spec(self.spec, state, cfg)
+
+    def _batched_cfg(self) -> ADMMConfig:
+        """The config of ``solve_batched`` (always the chunked driver)."""
+        cfg = self._device_cfg()
+        if cfg.solver == "kkt_bicgstab_ilu":
+            raise ValueError("solve_batched needs a device backend (schur_cg or "
+                             "kkt_bicgstab); the scipy-ILU backend is host-side")
+        return cfg
 
     def _solve_states_batched(self, states: ADMMState) -> list[ADMMResult]:
-        check_solver(self.cfg)
-        resolve_partition(self.cfg.partition, self.spec.n)
-        return solve_batched_spec(self.spec, states, self.cfg)
+        cfg = self._batched_cfg()
+        resolve_partition(cfg.partition, self.spec.n)
+        return solve_batched_spec(self.spec, states, cfg)
+
+    def _ilu_step(self):
+        raise ValueError("the ILU backend supports the homogeneous problem only")
 
 
 def _as_f64(a):
@@ -69,6 +107,7 @@ class HomogeneousADMM(_ADMMBase):
                  edge_ok: np.ndarray | None = None):
         self.n, self.cfg = n, cfg or ADMMConfig()
         self.spec = make_homo_spec(n, r, self.cfg, edge_ok)
+        self._ilu_step_fn = None
 
     def init_state(self, g0=None, lam0: float = 0.5) -> ADMMState:
         g = torch.zeros(self.spec.m, dtype=torch.float64) if g0 is None else _as_f64(g0)
@@ -80,10 +119,17 @@ class HomogeneousADMM(_ADMMBase):
     def solve_batched(self, g0s, lam0s) -> list[ADMMResult]:
         """Solve a batch of warm starts together: ``g0s`` (B, m) edge
         weights, ``lam0s`` (B,) λ̃ starts. One result per warm start."""
+        self._batched_cfg()
         B = len(lam0s)
         states = init_state(self.spec, _batch_of("g0s", g0s, (B, self.spec.m)),
                             _batch_of("lam0s", lam0s, (B,)))
         return self._solve_states_batched(states)
+
+    def _ilu_step(self):
+        """The ILU step, built (sparse KKT matrix and its ILU) once a solver."""
+        if self._ilu_step_fn is None:
+            self._ilu_step_fn = make_ilu_step(self.spec)
+        return self._ilu_step_fn
 
 
 class HeterogeneousADMM(_ADMMBase):
@@ -107,6 +153,7 @@ class HeterogeneousADMM(_ADMMBase):
 
     def solve_batched(self, g0s, z0s, lam0s) -> list[ADMMResult]:
         """Batched restarts: (B, m) ``g0s``, (B, m) ``z0s``, (B,) ``lam0s``."""
+        self._batched_cfg()
         B, m = len(lam0s), self.spec.m
         states = init_state(self.spec, _batch_of("g0s", g0s, (B, m)),
                             _batch_of("lam0s", lam0s, (B,)), z=_batch_of("z0s", z0s, (B, m)))

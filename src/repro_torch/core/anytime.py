@@ -715,7 +715,9 @@ def solve_topologies(requests, *, cfg=None) -> list[TopologyResult]:
     """Solve many requests, amortizing where the problem shape allows: the
     homogeneous, unbudgeted requests without ``restarts`` or ``seed`` of one
     n run as ONE batched sweep (``api._sweep_one_n``: one ADMM solve for all
-    their budgets); every other request goes through
+    their budgets) under the scan driver and a device backend; every other
+    request (all of them under ``driver="python"`` or the scipy-ILU
+    backend) goes through
     :func:`solve_topology`. Results come back in the input order. The
     stages run on ``cfg.device`` (default ``"cuda"``)."""
     from . import api as _api
@@ -729,7 +731,9 @@ def solve_topologies(requests, *, cfg=None) -> list[TopologyResult]:
     groups: dict[int, list[int]] = {}
     for i, q in enumerate(requests):
         if (q.scenario == "homo" and q.deadline_ms is None
-                and q.restarts is None and q.seed is None):
+                and q.restarts is None and q.seed is None
+                and cfg.admm.driver == "scan"
+                and cfg.admm.solver != "kkt_bicgstab_ilu"):
             groups.setdefault(int(q.n), []).append(i)
     for n, idxs in groups.items():
         t0 = time.perf_counter()

@@ -493,7 +493,7 @@ def _optimize_request(
     solver = _make_solver(n, r, scenario, cs, cfg)
 
     # ---- phase 2: ADMM — batched restarts in one call (scan driver only;
-    # any other driver or backend goes through the solver's check_solver)
+    # an explicit driver="python" request keeps the per-restart loop)
     t0 = time.perf_counter()
     if (n_restarts > 1 and cfg.admm.solver != "kkt_bicgstab_ilu"
             and cfg.admm.driver == "scan"):

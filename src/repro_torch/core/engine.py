@@ -42,8 +42,15 @@ Precision: the loop runs in the spec dtype; the squared primal residual
 and the CG inner products are float64 whatever it is (the reference's
 convention). ``r`` is an int64 tensor.
 
-Not ported yet: the ``python`` driver and the scipy-ILU step (ROADMAP.md
-Queue 1 item 2).
+X-step backends (``step``'s ``backend``, ``ADMMConfig.solver``): the
+default ``schur_cg`` (CG on the Schur complement, ``linalg.pcg_solve``),
+``kkt_bicgstab`` (matrix-free Bi-CGSTAB on the KKT system: on the card two
+``edge_laplacian_blocks`` and two ``edge_adjoint`` launches an iteration,
+no ``edge_schur_matvec``) and the paper's ``kkt_bicgstab_ilu``
+(``make_ilu_step``: scipy's ILU-preconditioned Bi-CGSTAB on the host, the
+homogeneous problem in float64 only). ``solve_python`` is the reference's
+per-iteration driver: one step and one host read of the residual an
+iteration; it carries the ILU step.
 """
 from __future__ import annotations
 
@@ -57,12 +64,14 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.edge_laplacian import ops as _el_ops
-from .linalg import pcg_solve
+from .graph import all_edges
+from .linalg import ILUKKTSolver, kkt_bicgstab_solve, pcg_solve
 
 __all__ = [
     "ADMMConfig", "ADMMResult", "ADMMState", "ProblemSpec",
     "make_homo_spec", "make_hetero_spec", "init_state", "step",
-    "solve_spec", "solve_batched_spec", "solve_sweep_spec", "proj_psd", "proj_psd_ns",
+    "solve_spec", "solve_batched_spec", "solve_sweep_spec", "solve_python", "build_sparse_A",
+    "make_ilu_step", "check_solver", "proj_psd", "proj_psd_ns",
     "proj_card_nonneg", "proj_binary_topr", "jacobi_diag", "resolve_psd_backend",
     "A_op", "AT_op", "schur_matvec", "b_rhs", "lam_sizes", "split_lam",
 ]
@@ -98,8 +107,8 @@ class ADMMConfig:
     alpha: float = 2.0
     max_iters: int = 1500
     eps: float = 1e-7
-    solver: str = "schur_cg"   # the only ported backend (item 2 holds the rest)
-    driver: str = "scan"       # chunked driver; "python" waits for item 2
+    solver: str = "schur_cg"   # schur_cg | kkt_bicgstab | kkt_bicgstab_ilu (host, homo, fp64)
+    driver: str = "scan"       # scan (chunked) | python (per-iteration host loop)
     cg_tol: float = 1e-11
     cg_maxiter: int = 3000
     check_every: int = 10
@@ -536,20 +545,31 @@ def _cg_tolerance(spec: ProblemSpec, prev_res: torch.Tensor):
     return torch.clamp(INEXACT_ETA * torch.sqrt(prev_res), tol0, cap)
 
 
-def step(spec: ProblemSpec, state: ADMMState):
-    """One ADMM iteration of every instance: Y-projection, X-step
-    Schur-complement CG solve, dual update. Returns ``(new_state, squared
-    primal residual)``, the residual float64, one per instance."""
+def step(spec: ProblemSpec, state: ADMMState, backend: str = "schur_cg"):
+    """One ADMM iteration of every instance: Y-projection, X-step KKT solve
+    by ``backend`` (``schur_cg``: CG on the Schur complement;
+    ``kkt_bicgstab``: Bi-CGSTAB on the KKT system, which leaves
+    ``state.cg`` as it is, as the reference does), dual update. Returns
+    ``(new_state, squared primal residual)``, the residual float64, one
+    per instance."""
     lead = state.X[0].dim() - 1
     U = tuple(x + d / _per_row(spec.rho, d) for x, d in zip(state.X, state.D))
     Y = _project_blocks(spec, U)
     V = _xstep_target(spec, Y, state.D)
     lam0 = torch.cat([blk.flatten(lead) for blk in state.lam], dim=-1)
-    Xn, lam, cg_it = pcg_solve(partial(A_op, spec), partial(AT_op, spec), V,
-                               b_rhs(spec), lam0, jd=spec.jd,
-                               tol=_cg_tolerance(spec, state.res),
-                               maxiter=spec.cg_maxiter,
-                               matvec=partial(schur_matvec, spec))
+    tol = _cg_tolerance(spec, state.res)
+    if backend == "schur_cg":
+        Xn, lam, cg_it = pcg_solve(partial(A_op, spec), partial(AT_op, spec), V,
+                                   b_rhs(spec), lam0, jd=spec.jd, tol=tol,
+                                   maxiter=spec.cg_maxiter,
+                                   matvec=partial(schur_matvec, spec))
+    elif backend == "kkt_bicgstab":
+        Xn, lam = kkt_bicgstab_solve(partial(A_op, spec), partial(AT_op, spec), V,
+                                     b_rhs(spec), state.X, lam0, tol=tol,
+                                     maxiter=spec.cg_maxiter)
+        cg_it = 0
+    else:
+        raise ValueError(f"unknown device backend {backend!r}")
     if spec.hetero and spec.equality:
         Xn = Xn[:6] + (torch.zeros_like(Xn[6]),)
     D = tuple(d + _per_row(spec.rho, d) * (xn - y1) for d, xn, y1 in zip(state.D, Xn, Y))
@@ -601,14 +621,15 @@ def init_state(spec: ProblemSpec, g, lam0, z=None) -> ADMMState:
 # Drivers
 # =========================================================================
 
+SOLVERS = ("schur_cg", "kkt_bicgstab", "kkt_bicgstab_ilu")
+
+
 def check_solver(cfg: ADMMConfig) -> None:
-    """Raise for the driver/backend selections the port does not have."""
+    """Raise ``ValueError`` for an unknown driver or X-step backend."""
     if cfg.driver not in ("scan", "python"):
         raise ValueError(f"unknown driver {cfg.driver!r}; expected 'scan' or 'python'")
-    if cfg.driver == "python":
-        raise NotImplementedError("driver='python': " + _NOT_PORTED.format(2))
-    if cfg.solver != "schur_cg":
-        raise NotImplementedError(f"solver={cfg.solver!r}: " + _NOT_PORTED.format(2))
+    if cfg.solver not in SOLVERS:
+        raise ValueError(f"unknown solver {cfg.solver!r}; expected one of {SOLVERS}")
 
 
 def _select(done: torch.Tensor, old: ADMMState, new: ADMMState) -> ADMMState:
@@ -632,7 +653,9 @@ def _run_batch(spec: ProblemSpec, state: ADMMState, cfg: ADMMConfig) -> list[ADM
     with ``abort_nonfinite``, not finite; from then on every leaf of it,
     its residual and its count are frozen, and its history (one (it, res,
     λ̃) entry per chunk it ran) stops. The loop ends when every instance is
-    done or ``max_iters`` steps have run."""
+    done or ``max_iters`` steps have run. Every step runs ``cfg.solver``, a
+    device backend; ``cfg.driver`` is not read (a batch always runs this
+    driver, as the reference's vmapped scan does)."""
     check_solver(cfg)
     B = int(state.X[0].shape[0])
     dev = state.X[0].device
@@ -646,7 +669,7 @@ def _run_batch(spec: ProblemSpec, state: ADMMState, cfg: ADMMConfig) -> list[ADM
         clen = chunk if c < n_chunks - 1 else cfg.max_iters - chunk * (n_chunks - 1)
         new = state
         for _ in range(clen):
-            new, _ = step(spec, new)
+            new, _ = step(spec, new, cfg.solver)
         state = _select(done, state, new) if any(done_host) else new
         now = state.res < cfg.eps
         if cfg.abort_nonfinite:
@@ -701,3 +724,143 @@ def solve_sweep_spec(spec: ProblemSpec, rs, states: ADMMState, cfg: ADMMConfig,
               else torch.as_tensor(np.asarray(rhos), dtype=getattr(torch, spec.dtype),
                                    device=dev))
     return _run_batch(spec.replace(r=rs_t, rho=rhos_t), states, cfg)
+
+
+def _result_from(spec: ProblemSpec, state: ADMMState, iters: int, residual: float,
+                 history: list) -> ADMMResult:
+    """The result of one solve from its final iterate (no batch axis)."""
+    m = spec.m
+    x, x1 = state.X[0].cpu().numpy(), state.Y[0].cpu().numpy()
+    return ADMMResult(g=x1[:m], g_raw=x[:m], lam_tilde=float(x1[m]),
+                      z=state.Y[4].cpu().numpy() if spec.hetero else None, iters=iters,
+                      residual=float(residual), history=history, cg_iters=int(state.cg))
+
+
+def solve_python(spec: ProblemSpec, state0: ADMMState, cfg: ADMMConfig, step_fn=None,
+                 reuse_jit: bool = True) -> ADMMResult:
+    """The reference's per-iteration host driver: one step and one host
+    read of the residual an iteration, from ``state0`` (an iterate without
+    the batch axis). History (it, res, λ̃) at ``it == 1`` and every
+    ``check_every``; it stops below ``eps`` or, with ``abort_nonfinite``, on
+    a non-finite residual. ``step_fn`` (``state → (state, res)``, default
+    :func:`step` with ``cfg.solver``) carries the host-side ILU step.
+    ``reuse_jit`` is accepted for the reference's signature and means
+    nothing here: eager PyTorch compiles nothing per solve."""
+    del reuse_jit
+    check_solver(cfg)
+    if step_fn is None:
+        step_fn = partial(step, spec, backend=cfg.solver)
+    state, history, res = state0, [], math.inf
+    it = 0
+    for it in range(1, cfg.max_iters + 1):
+        state, res_t = step_fn(state)
+        if it % cfg.check_every == 0 or it == 1:
+            res, lam = torch.stack([res_t, state.X[0][-1].to(torch.float64)]).tolist()
+            history.append((it, res, lam))
+            if cfg.verbose:
+                tag = "admm-het" if spec.hetero else "admm-homo"
+                print(f"[{tag}] it={it} res={res:.3e} lam~={lam:.4f}")
+        else:
+            res = float(res_t)
+        if res < cfg.eps:
+            break
+        if cfg.abort_nonfinite and not math.isfinite(res):
+            break  # a poisoned state never recovers (core.guard classifies it)
+    return _result_from(spec, state, it, res, history)
+
+
+# =========================================================================
+# The host-side ILU backend (the paper's §V-C) — homogeneous problem
+# =========================================================================
+
+def build_sparse_A(n: int, m: int, edges):
+    """The homogeneous constraint operator A (Nc × Nx) as a scipy CSC
+    matrix for the ILU-preconditioned KKT backend; the matrix blocks are
+    vectorized column-major, as in the reference."""
+    import scipy.sparse as sp
+
+    rows, cols, vals = [], [], []
+
+    def vecidx(i, j):  # column-major vec
+        return i + j * n
+
+    # B̃⁻ / B̃⁺ blocks (n² rows each) acting on x = [g; λ̃]
+    for l, (i, j) in enumerate(edges):
+        for (a, b2, v) in ((i, i, 1.0), (j, j, 1.0), (i, j, -1.0), (j, i, -1.0)):
+            rows.append(vecidx(a, b2))
+            cols.append(l)
+            vals.append(v)
+            rows.append(n * n + vecidx(a, b2))
+            cols.append(l)
+            vals.append(v)
+    for i in range(n):
+        rows.append(vecidx(i, i))
+        cols.append(m)
+        vals.append(-1.0)
+        rows.append(n * n + vecidx(i, i))
+        cols.append(m)
+        vals.append(1.0)
+    # the D block: the rows of diag(L)
+    for l, (i, j) in enumerate(edges):
+        rows.append(2 * n * n + i)
+        cols.append(l)
+        vals.append(1.0)
+        rows.append(2 * n * n + j)
+        cols.append(l)
+        vals.append(1.0)
+    Nx = m + 1 + n * n + n + n * n
+    Nc = 2 * n * n + n
+    Ax = sp.csr_matrix(sp.coo_matrix((vals, (rows, cols)), shape=(Nc, m + 1)))
+    nn = n * n
+    A = sp.bmat([
+        [Ax[:nn, :], sp.eye(nn), sp.coo_matrix((nn, n)), sp.coo_matrix((nn, nn))],
+        [Ax[nn:2 * nn, :], sp.coo_matrix((nn, nn)), sp.coo_matrix((nn, n)), sp.eye(nn)],
+        [Ax[2 * nn:, :], sp.coo_matrix((n, nn)), sp.eye(n), sp.coo_matrix((n, nn))],
+    ], format="csc")
+    assert A.shape == (Nc, Nx)
+    return A
+
+
+def _pack_homo(X: tuple) -> torch.Tensor:
+    """(x, S, y, T) as one flat vector, S and T column-major, on X's device."""
+    x, S, y, T = X
+    return torch.cat([x, S.t().reshape(-1), y, T.t().reshape(-1)])
+
+
+def _unpack_homo(n: int, m: int, v: torch.Tensor) -> tuple:
+    """Inverse of :func:`_pack_homo`."""
+    x, S, y, T = torch.split(v, (m + 1, n * n, n, n * n))
+    return (x, S.view(n, n).t().contiguous(), y, T.view(n, n).t().contiguous())
+
+
+def make_ilu_step(spec: ProblemSpec, ilu: ILUKKTSolver | None = None):
+    """The host-side ILU step behind the ``(state) → (state, res)``
+    interface of :func:`step`, for an iterate without the batch axis. The
+    Y-projection and the X-step target run on the spec's device; the
+    packed target V makes one copy to the host for scipy's solve and the
+    solution one copy back. Homogeneous problem in float64 only. The
+    solver (``step.ilu``) counts its direct-solve fallbacks."""
+    if spec.hetero:
+        raise ValueError("the ILU backend supports the homogeneous problem only")
+    if spec.dtype != "float64":
+        raise ValueError("the scipy-ILU backend requires dtype='float64'")
+    if ilu is None:
+        ilu = ILUKKTSolver(build_sparse_A(spec.n, spec.m, all_edges(spec.n)))
+    n, m = spec.n, spec.m
+    ones = torch.ones(n, dtype=spec.B0.dtype, device=spec.B0.device)
+    bp = torch.cat([(-spec.B0).t().reshape(-1), (2.0 * spec.I).t().reshape(-1),
+                    ones]).cpu().numpy()
+    rho = spec.rho
+
+    def step_ilu(state: ADMMState):
+        U = tuple(x + d / rho for x, d in zip(state.X, state.D))
+        Y = _project_blocks(spec, U)
+        V = _xstep_target(spec, Y, state.D)
+        Xv, _ = ilu.solve(_pack_homo(V).cpu().numpy(), bp, tol=spec.cg_tol)
+        Xn = _unpack_homo(n, m, torch.tensor(Xv, device=spec.I.device))
+        D = tuple(d + rho * (xn - y1) for d, xn, y1 in zip(state.D, Xn, Y))
+        res = sum(torch.sum((xn - y1).to(torch.float64) ** 2) for xn, y1 in zip(Xn, Y))
+        return ADMMState(X=Xn, Y=Y, D=D, lam=state.lam, res=res, cg=state.cg), res
+
+    step_ilu.ilu = ilu
+    return step_ilu

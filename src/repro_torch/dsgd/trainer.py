@@ -76,6 +76,9 @@ def _consensus_error(params) -> torch.Tensor:
 
 
 def _make_step(cfg, opt_update: Callable, mix: Callable):
+    """The train step around ``mix(params, step)``, which gossips the
+    updated parameters; ``step`` is the state's step count, a tensor on the
+    device (the dynamic step selects its matching from it)."""
     grad_fn = torch.func.vmap(torch.func.grad_and_value(_loss_fn(cfg)))
     opt_fn = torch.func.vmap(opt_update)
 
@@ -84,7 +87,7 @@ def _make_step(cfg, opt_update: Callable, mix: Callable):
         with torch.no_grad():
             updates, opt = opt_fn(grads, state.opt, state.params)
             del grads
-            params = mix(apply_updates(state.params, updates))
+            params = mix(apply_updates(state.params, updates), state.step)
             metrics = {"loss": losses.mean(), "loss_max": losses.max(),
                        "consensus_err": _consensus_error(params)}
         return DSGDState(params, opt, state.step + 1), metrics
@@ -102,7 +105,7 @@ def dsgd_train_step(cfg, topo: Topology, opt_update: Callable, *, use_kernel: bo
                      dtype=torch.float32, device=dev)
     nbr = padded_neighbors(W) if use_kernel else None
     return _make_step(cfg, opt_update,
-                      lambda p: gossip_sim_tree(p, W, use_kernel=use_kernel, nbr=nbr))
+                      lambda p, _: gossip_sim_tree(p, W, use_kernel=use_kernel, nbr=nbr))
 
 
 def allreduce_train_step(cfg, n_workers: int, opt_update: Callable, *,
@@ -111,4 +114,4 @@ def allreduce_train_step(cfg, n_workers: int, opt_update: Callable, *,
     by the dense W matmul as in the reference."""
     W = torch.full((n_workers, n_workers), 1.0 / n_workers, dtype=torch.float32,
                    device=resolve_device(device))
-    return _make_step(cfg, opt_update, lambda p: gossip_sim_tree(p, W, use_kernel=False))
+    return _make_step(cfg, opt_update, lambda p, _: gossip_sim_tree(p, W, use_kernel=False))

@@ -21,8 +21,13 @@ bitwise the plain trainer.
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --reduced --workers 4 --steps 10 --elastic --drift-step 4 \\
       --churn-events 1 --ckpt-dir build/ck --device cpu [--resume]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --reduced --workers 4 --steps 6 --sync dynamic --device cpu
 
-``--sync dynamic`` is not offered yet.
+``--sync dynamic`` gossips over one matching of the topology a step,
+cycling round-robin (:mod:`repro_torch.dsgd.dynamic`): step t mixes by
+W_{t mod R}, the slot read on the device from the state's step count, so a
+resumed run takes up the cycle where its checkpoint left it.
 """
 from __future__ import annotations
 
@@ -44,7 +49,9 @@ from ..data.pipeline import TABLE_STATS
 from ..device import resolve_device
 from ..dsgd import (ElasticRuntime, ElasticSpec, allreduce_train_step, drift_profile,
                     dsgd_train_step, init_dsgd_state, make_chaos, no_chaos,
-                    random_churn_windows)
+                    random_churn_windows, trainer)
+from ..dsgd.dynamic import cycle_weight_matrices, round_robin_schedules
+from ..dsgd.gossip import padded_neighbors
 from ..models import param_count
 from ..optim import make_optimizer, warmup_cosine
 from .steps import topology_for
@@ -71,7 +78,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--topo-cache", default=None,
                     help="JSON file of solved BA topologies "
                          "(default benchmarks/artifacts/topo_cache_torch.json)")
-    ap.add_argument("--sync", default="gossip", choices=["gossip", "allreduce"])
+    ap.add_argument("--sync", default="gossip", choices=["gossip", "allreduce", "dynamic"])
     ap.add_argument("--optimizer", default="sgd", choices=["sgd", "adamw"])
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--use-kernel", action=argparse.BooleanOptionalAction, default=True,
@@ -131,6 +138,40 @@ def _build_chaos(args, n: int):
                       straggler_mult=args.straggler_mult, bandwidth=bw)
 
 
+def _dynamic_step(cfg, topo, opt_update: Callable, *, use_kernel: bool = True,
+                  device: str | torch.device = "cuda"):
+    """``--sync dynamic``: the train step that mixes by one matching of the
+    topology a step, ``W_{step mod R}`` over the R round-robin matchings.
+    Returns ``(step, R)``.
+
+    With ``use_kernel`` every step mixes all leaves by one
+    ``gossip_mix_batched`` launch a dtype over the padded neighbour table of
+    its slot (deg ≤ 1: each W_c is a matching). The R tables are built once
+    and stacked on the device, and the slot is selected there from
+    ``state.step``: no host counter and no read of the step. The mix goes
+    through ``trainer.gossip_sim_tree`` as the static step's does.
+    ``use_kernel=False`` mixes by the dense ``gossip_sim`` with W_c, the
+    reference's form."""
+    dev = resolve_device(device)
+    Wc = torch.tensor(np.stack(cycle_weight_matrices(round_robin_schedules(topo))),
+                      dtype=torch.float32, device=dev)
+    rounds = int(Wc.shape[0])
+    if use_kernel:
+        tables = [padded_neighbors(W) for W in Wc]
+        nbr_idx = torch.stack([idx for idx, _ in tables])
+        weights = torch.stack([w for _, w in tables])
+
+    def mix(params, t):
+        slot = torch.remainder(t, rounds).long().reshape(1)
+        W = Wc.index_select(0, slot)[0]
+        if not use_kernel:
+            return trainer.gossip_sim_tree(params, W, use_kernel=False)
+        nbr = (nbr_idx.index_select(0, slot)[0], weights.index_select(0, slot)[0])
+        return trainer.gossip_sim_tree(params, W, nbr=nbr)
+
+    return trainer._make_step(cfg, opt_update, mix), rounds
+
+
 def main(argv=None, *, on_step: Callable | None = None) -> dict:
     """Run the training loop; returns what ``--json-out`` writes. ``on_step``
     (for callers in Python) is called as ``on_step(step, state, metrics)``
@@ -150,7 +191,7 @@ def main(argv=None, *, on_step: Callable | None = None) -> dict:
     topo = topology_for(n, kind=args.topo, r=args.r, seed=args.seed, node_bw=node_bw,
                         device=dev, cache_path=args.topo_cache)
     topo_s = time.perf_counter() - t0
-    runtime = es = step = None
+    runtime = es = step = rounds = None
     if args.elastic:
         chaos = _build_chaos(args, n)
         spec = ElasticSpec(chaos=chaos, deadline_factor=args.deadline_factor,
@@ -164,6 +205,10 @@ def main(argv=None, *, on_step: Callable | None = None) -> dict:
     elif args.sync == "allreduce":
         step = allreduce_train_step(cfg, n, opt_update, device=dev)
         sync_desc = "allreduce"
+    elif args.sync == "dynamic":
+        step, rounds = _dynamic_step(cfg, topo, opt_update, use_kernel=args.use_kernel,
+                                     device=dev)
+        sync_desc = f"dynamic[{topo.name}] rounds={rounds}"
     else:
         step = dsgd_train_step(cfg, topo, opt_update, use_kernel=args.use_kernel, device=dev)
         sync_desc = f"gossip[{topo.name}] r_asym={topo.r_asym():.3f}"
@@ -235,7 +280,8 @@ def main(argv=None, *, on_step: Callable | None = None) -> dict:
            "param_count_per_worker": param_count(state.params) // n,
            "topology": topo.name, "edges": len(topo.edges),
            "r_asym": topo.r_asym() if len(topo.edges) else None,
-           "topology_s": topo_s, "bigram_table": TABLE_STATS.get((cfg.vocab_size, args.seed)),
+           "topology_s": topo_s, "rounds": rounds,
+           "bigram_table": TABLE_STATS.get((cfg.vocab_size, args.seed)),
            "step_ms": step_ms, "history": history}
     if args.elastic:
         out["elastic"] = {"events": es.events, "log": elastic_log, "reopts": es.reopts,

@@ -208,9 +208,9 @@ def test_solve_batched_runs_one_step_for_the_batch(monkeypatch):
     calls = []
     step = te.step
 
-    def counted(spec, state):
+    def counted(spec, state, *backend):
         calls.append(tuple(state.X[0].shape))
-        return step(spec, state)
+        return step(spec, state, *backend)
 
     monkeypatch.setattr(te, "step", counted)
     cfg = te.ADMMConfig(max_iters=60, device="cpu")

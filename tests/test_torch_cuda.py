@@ -50,7 +50,12 @@ launch for four workers with gradients equal to a loop over them (within
 family card vs CPU within 1e-4 relative in the losses; the elastic mix over ``deg_cap = n − 1`` tables with
 weights gathered from a degraded W within the gossip tolerance, and with no
 faults bitwise the max-degree table's mix; a bfloat16 checkpoint restored
-bit for bit onto the card.
+bit for bit onto the card; the ``kkt_bicgstab`` X-step, card vs CPU within
+1e-8 (two ``edge_laplacian_blocks`` and two ``edge_adjoint`` launches an
+iteration, no ``edge_schur_matvec``), and the per-iteration driver with it
+and with the scipy ILU within 1e-8 in λ̃; the ``--sync dynamic`` step's mix
+over each matching's deg-1 table within the gossip tolerance and bitwise
+the witness kernel's.
 """
 import numpy as np
 import pytest
@@ -624,6 +629,126 @@ def test_gossip_tiled_kernel_traps_an_index_out_of_range(cuda):
     r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode != 0 and "no trap" not in r.stdout, (r.stdout, r.stderr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hetero", [False, True])
+def test_kkt_bicgstab_step_card_matches_cpu(cuda, hetero):
+    """Three float64 ADMM steps by ``kkt_bicgstab``: two
+    ``edge_laplacian_blocks`` and two ``edge_adjoint`` launches a Bi-CGSTAB
+    iteration and one more of each for its first residual, no
+    ``edge_schur_matvec``; every block within 1e-8 of the CPU's (each solve
+    stops at the relative tolerance 1e-11, the CPU's dots in another order)."""
+    from repro_torch.core.constraints import bcube_constraints
+
+    n, r = (16, 48) if hetero else (12, 24)
+    rng = np.random.default_rng(n)
+    g0 = rng.random(n * (n - 1) // 2) * 0.3
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg = te.ADMMConfig(device=dev)
+        if hetero:
+            cs = bcube_constraints(p=4, k=2)
+            spec = te.make_hetero_spec(n, r, cs.M, cs.e_cap, cfg, equality=False,
+                                       edge_ok=cs.edge_ok)
+        else:
+            spec = te.make_homo_spec(n, r, cfg)
+        st = te.init_state(spec, g0, 0.5)
+        kernels.reset_launch_counts()
+        for _ in range(3):
+            st, res = te.step(spec, st, "kkt_bicgstab")
+        out[dev] = (st, float(res), kernels.launch_counts())
+    (cpu, cpu_res, _), (gpu, gpu_res, counts) = out["cpu"], out["cuda"]
+    assert counts["edge_schur_matvec"] == 0 and counts["edge_quadform"] == 0, counts
+    assert counts["edge_laplacian_blocks"] == counts["edge_adjoint"] >= 9, counts
+    assert counts["edge_laplacian_blocks"] % 2 == 1, counts        # 3 starts + 2 an iteration
+    assert int(gpu.cg) == 0
+    for a, b in zip(gpu.X + gpu.Y + gpu.D, cpu.X + cpu.Y + cpu.D):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0, atol=1e-8)
+    assert abs(gpu_res - cpu_res) <= 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["kkt_bicgstab", "kkt_bicgstab_ilu"])
+def test_python_driver_card_matches_cpu(cuda, solver):
+    """60 float64 iterations by the per-iteration driver (``kkt_bicgstab``,
+    or the scipy ILU with the projections on the device): the same history
+    cadence and support, λ̃ within 1e-8 of the CPU's."""
+    from repro_torch.core.admm import HomogeneousADMM
+
+    g0 = np.random.default_rng(8).random(28) * 0.3
+    res = {dev: HomogeneousADMM(8, 12, te.ADMMConfig(max_iters=60, driver="python",
+                                                     solver=solver, device=dev)
+                                ).solve(g0=g0, lam0=0.4) for dev in ("cpu", "cuda")}
+    a, b = res["cuda"], res["cpu"]
+    assert [h[0] for h in a.history] == [h[0] for h in b.history]
+    assert abs(a.lam_tilde - b.lam_tilde) <= 1e-8
+    assert np.array_equal(a.g > 1e-6, b.g > 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dynamic_step_mix_on_card(cuda, dtype, monkeypatch):
+    """Three ``--sync dynamic`` steps of reduced smollm over the 5-ring's
+    three matchings: each step's mix one ``gossip_mix_batched`` launch a
+    dtype over the deg-1 table of slot ``step mod 3``, within the gossip
+    tolerance of the plain version and bitwise the witness kernel's; the
+    losses within 1e-4 relative of the CPU's (float32)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced_for_smoke
+    from repro_torch.core.topologies import make_baseline
+    from repro_torch.data import DataConfig, lm_batch_numpy
+    from repro_torch.dsgd import init_dsgd_state, trainer
+    from repro_torch.dsgd.dynamic import cycle_weight_matrices, round_robin_schedules
+    from repro_torch.dsgd.gossip import padded_neighbors
+    from repro_torch.launch import train
+    from repro_torch.optim import make_optimizer, warmup_cosine
+
+    cfg = dataclasses.replace(reduced_for_smoke(get_arch("smollm-135m")), dtype=dtype)
+    n, topo = 5, make_baseline("ring", 5)
+    Wc = cycle_weight_matrices(round_robin_schedules(topo))
+    init, upd = make_optimizer("sgd", warmup_cosine(0.05, 1, 3))
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, batch_size=2, seed=0)
+    mix = trainer.gossip_sim_tree
+    seen = []
+
+    def checked(tree, W, *, use_kernel=True, nbr=None):
+        out = mix(tree, W, use_kernel=use_kernel, nbr=nbr)
+        if W.is_cuda:
+            seen.append((tree, out, nbr))
+        return out
+
+    monkeypatch.setattr(trainer, "gossip_sim_tree", checked)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        state = init_dsgd_state(0, cfg, n, init, device=dev)
+        step, rounds = train._dynamic_step(cfg, topo, upd, device=dev)
+        assert rounds == 3
+        kernels.reset_launch_counts()
+        losses[dev] = []
+        for s in range(3):
+            per = [lm_batch_numpy(dc, s, node=i) for i in range(n)]
+            batch = {k: torch.from_numpy(np.stack([b[k] for b in per])).to(dev) for k in per[0]}
+            state, m = step(state, batch)
+            losses[dev].append(float(m["loss"]))
+        if dev == "cuda":
+            dtypes = {x.dtype for x in torch.utils._pytree.tree_leaves(state.params)}
+            assert kernels.launch_counts()["gossip_mix_batched"] == 3 * len(dtypes)
+    for t, (tree, out, (idx, w)) in enumerate(seen):
+        want_idx, want_w = padded_neighbors(Wc[t % 3].astype(np.float32))
+        assert torch.equal(idx.cpu(), want_idx) and torch.equal(w.cpu(), want_w)
+        for x, got in zip(torch.utils._pytree.tree_leaves(tree),
+                          torch.utils._pytree.tree_leaves(out)):
+            want = tgm.gossip_mix_batched_plain(x, idx, w)
+            terms = tgm.gossip_mix_batched_plain(x.double().abs(), idx, w.abs()).float()
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= _gossip_tol(got.float(), want.float(), terms, 1,
+                                            x.dtype)).all())
+            assert torch.equal(got, tgm.gossip_mix_batched_witness(x, idx, w))
+    if dtype == "float32":
+        for a, b in zip(losses["cuda"], losses["cpu"]):
+            assert abs(a - b) <= 1e-4 * abs(b)
 
 
 @pytest.mark.cuda

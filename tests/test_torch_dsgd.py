@@ -12,9 +12,14 @@
   through their gossip kernels (``use_kernel=True``; the port's plain
   version on the CPU, the Pallas kernel in interpret mode in JAX), from the
   same weights and batches: losses and consensus error within 1e-5
-  relative, parameters within 1e-4.
+  relative, parameters within 1e-4. The same for three ``--sync dynamic``
+  steps on the ring (``launch.train._dynamic_step``: the port mixes each
+  step's matching through its kernel's plain version, the reference by the
+  dense W_c).
 - The launcher's ``main()`` end to end on the CPU, writing ``--json-out``,
-  and its BA solves (homogeneous and ``--node-bw``) into its own cache.
+  and its BA solves (homogeneous and ``--node-bw``) into its own cache;
+  ``--sync dynamic`` through it, and a dynamic run stopped after two steps
+  and resumed from its checkpoint, bitwise the uninterrupted run.
 """
 import json
 
@@ -24,6 +29,8 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
+
+from torch.utils._pytree import tree_leaves  # noqa: E402
 
 from repro.configs import get_arch as jget_arch  # noqa: E402
 from repro.configs import reduced_for_smoke as jreduced  # noqa: E402
@@ -41,6 +48,17 @@ from repro_torch.kernels import WRAPPERS  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.optim import optimizers as topt  # noqa: E402
 from repro_torch.optim import schedules as tsched  # noqa: E402
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test: the suite's parallel workers share
+    the host's cores, and the reduced model's small ops only lose to
+    oversubscribed thread pools; restored on the way out."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture
@@ -147,18 +165,27 @@ def test_schedules_match_jax():
         assert np.abs(got - want).max() <= 1e-6 * 0.3
 
 
-@pytest.mark.parametrize("kind", ["ring", "exponential"])
-def test_three_dsgd_steps_match_jax(kind, table_dir):
+@pytest.mark.parametrize("kind", ["ring", "exponential", "dynamic"])
+def test_three_dsgd_steps_match_jax(kind, table_dir, one_thread):
+    """``dynamic``: the ring's two matchings, one a step, through
+    ``repro.launch.train._dynamic_step`` and the port's."""
     n, steps = 4, 3
     jcfg = jreduced(jget_arch("smollm-135m"))
     tcfg = reduced_for_smoke(get_arch("smollm-135m"))
-    topo = make_baseline(kind, n)
+    topo = make_baseline("ring" if kind == "dynamic" else kind, n)
     j_init, j_upd = jopt.make_optimizer("sgd", jsched.warmup_cosine(0.05, 1, steps))
     t_init, t_upd = topt.make_optimizer("sgd", tsched.warmup_cosine(0.05, 1, steps))
     jstate = jtrainer.init_dsgd_state(jax.random.PRNGKey(7), jcfg, n, j_init)
     tstate = convert.dsgd_state_from_numpy(jax.tree.map(np.asarray, jstate), "cpu")
-    jstep = jtrainer.dsgd_train_step(jcfg, topo, j_upd, use_kernel=True)
-    tstep = ttrainer.dsgd_train_step(tcfg, topo, t_upd, use_kernel=True, device="cpu")
+    if kind == "dynamic":
+        from repro.launch import train as jtrain
+
+        jstep, jrounds = jtrain._dynamic_step(jcfg, topo, j_upd)
+        tstep, trounds = ttrain._dynamic_step(tcfg, topo, t_upd, device="cpu")
+        assert trounds == jrounds == 2
+    else:
+        jstep = jtrainer.dsgd_train_step(jcfg, topo, j_upd, use_kernel=True)
+        tstep = ttrainer.dsgd_train_step(tcfg, topo, t_upd, use_kernel=True, device="cpu")
     dc = tdata.DataConfig(vocab_size=tcfg.vocab_size, seq_len=32, batch_size=2, seed=0)
     for s in range(steps):
         per = [tdata.lm_batch_numpy(dc, s, node=i) for i in range(n)]
@@ -199,6 +226,52 @@ def test_launcher_main_on_cpu(tmp_path, table_dir):
                for h in data["history"])
     assert abs(data["history"][0]["loss"] - np.log(512)) < 0.5
     assert data["param_count_per_worker"] == 344_704 and len(data["step_ms"]) == 3
+
+
+def test_launcher_sync_dynamic_on_cpu(tmp_path, table_dir, capsys, one_thread):
+    res = ttrain.main(["--arch", "smollm-135m", "--reduced", "--workers", "5", "--steps", "3",
+                       "--device", "cpu", "--topo", "ring", "--seq", "16",
+                       "--log-every", "1", "--sync", "dynamic"])
+    assert "sync=dynamic[ring" in capsys.readouterr().out
+    assert res["rounds"] == 3 and len(res["history"]) == 3     # an odd ring: three matchings
+    assert all(np.isfinite(h["loss"]) for h in res["history"])
+    with pytest.raises(SystemExit):
+        ttrain.parse_args(["--arch", "smollm-135m", "--sync", "dynamic", "--elastic"])
+
+
+class _Stop(Exception):
+    pass
+
+
+def test_dynamic_resume_is_bitwise_the_uninterrupted_run(tmp_path, table_dir, one_thread):
+    """Four dynamic steps over the 5-ring's three matchings against two
+    steps, a stop, and ``--resume`` for the last two: the slot of step 2 is
+    2 mod 3, read from the restored step (a counter restarted at 0 would mix
+    by slot 0)."""
+    argv = ["--arch", "smollm-135m", "--reduced", "--workers", "5", "--steps", "4",
+            "--device", "cpu", "--topo", "ring", "--seq", "16", "--log-every", "1",
+            "--sync", "dynamic"]
+    states = {}
+
+    def keep(tag):
+        return lambda s, state, m: states.__setitem__(tag, state)
+
+    whole = ttrain.main(argv, on_step=keep("whole"))
+
+    def stop_after_two(s, state, m):
+        if s == 2:
+            raise _Stop
+
+    ck = ["--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "1"]
+    with pytest.raises(_Stop):
+        ttrain.main(argv + ck, on_step=stop_after_two)
+    resumed = ttrain.main(argv + ck + ["--resume"], on_step=keep("resumed"))
+    assert [h["step"] for h in resumed["history"]] == [2, 3]
+    for a, b in zip(resumed["history"], whole["history"][2:]):
+        assert all(a[k] == b[k] for k in ("loss", "loss_max", "consensus_err"))
+    assert int(states["resumed"].step) == int(states["whole"].step) == 4
+    for a, b in zip(tree_leaves(states["resumed"].params), tree_leaves(states["whole"].params)):
+        assert torch.equal(a, b)
 
 
 def test_launcher_solves_ba_on_cpu_into_its_own_cache(tmp_path, table_dir):

@@ -288,13 +288,19 @@ def test_abort_nonfinite_stops_after_one_chunk():
 
 
 def test_selectors_not_ported_raise_naming_the_roadmap_item():
+    """Item 7's partitions still raise; item 2's driver and backends (ported)
+    run: a short solve by each on the CPU."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         te.resolve_partition("edges", 8)
     assert te.resolve_partition("auto", 4096) == "none"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        te.check_solver(te.ADMMConfig(solver="kkt_bicgstab"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        te.check_solver(te.ADMMConfig(driver="python"))
+    for kw in (dict(solver="kkt_bicgstab"), dict(driver="python"),
+               dict(solver="kkt_bicgstab_ilu")):
+        cfg = te.ADMMConfig(max_iters=5, check_every=5, device="cpu", **kw)
+        te.check_solver(cfg)
+        res = HomogeneousADMM(4, 3, cfg).solve()
+        assert res.iters == 5 and np.isfinite(res.lam_tilde), kw
+    with pytest.raises(ValueError, match="unknown driver"):
+        te.check_solver(te.ADMMConfig(driver="scan2"))
     with pytest.raises(ValueError, match="unknown precond"):
         te.make_homo_spec(4, 3, te.ADMMConfig(precond="Jacobi", device="cpu"))
 

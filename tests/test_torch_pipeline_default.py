@@ -103,11 +103,15 @@ def test_consensus_matches_reference_on_shared_initial_values():
 
 
 def test_entry_points_not_ported_raise_naming_the_roadmap_item():
+    """Item 7's partitions still raise; a ``driver="python"`` request
+    (item 2, ported) runs through the barrier engine, one restart at a time,
+    to a release-valid topology."""
     from repro_torch.core.engine import ADMMConfig, resolve_partition
 
-    cfg = BATopoConfig(device="cpu", admm=ADMMConfig(driver="python"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        solve_topology(TopologyRequest(n=8, r=12), cfg=cfg, engine="barrier")
+    cfg = BATopoConfig(device="cpu", sa_iters=60, polish_iters=50, restarts=2,
+                       admm=ADMMConfig(driver="python", max_iters=40))
+    res = solve_topology(TopologyRequest(n=8, r=12), cfg=cfg, engine="barrier")
+    assert res.complete and check_invariants(res.topology) is None
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         resolve_partition("edges", 8)
 
