@@ -1154,7 +1154,7 @@ def phase_main_restarts(restarts: list) -> dict:
     assert all(np.isfinite(row["lam_batched"]) for row in rows)
     assert launches_b["edge_laplacian"] == 1 and launches_s["edge_laplacian"] == R, \
         f"main_restarts: init_state launches {launches_b} / {launches_s}"
-    return out
+    return dict(out, batched=batched, g0s=g0s, lam0s=lam0s, cfg=solver.cfg)
 
 
 def phase_main_restarts_f64() -> dict:
@@ -1184,6 +1184,376 @@ def phase_main_restarts_f64() -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the sharded ADMM (core/shard.py) on torch.distributed: two ranks on the card
+# ---------------------------------------------------------------------------
+
+#: bench_scalability.py's partition compare (run_partition_compare): n = 1024,
+#: r = 2n, the greedy balanced-degree warm start with Metropolis weights
+#: (seed 0), the fp32 inexact-CG Newton–Schulz stack at 20 iterations, eps 0
+SHARD_N, SHARD_R, SHARD_SEED = 1024, 2048, 0
+SHARD_WORLD = 2
+SHARD_ADMM = dict(dtype="float32", cg_inexact=True, psd_backend="newton_schulz", psd_iters=16,
+                  max_iters=20, check_every=10, eps=0.0)
+SHARD_F64 = dict(SHARD_ADMM, dtype="float64", max_iters=5)
+#: float64 sharded against unsharded λ̃ (the reassociation of the cross-rank sums)
+SHARD_F64_TOL = 1e-9
+#: float32 sharded against unsharded: each inexact X-step is solved to a
+#: relative CG tolerance of at most INEXACT_CAP = 1e-3, and a CG stop moved
+#: by one iteration by the reassociation moves the iterate by up to that, so
+#: |Δλ̃| ≤ 1e-3; the rounded candidates' r_asym within 0.01 (a few of the
+#: 2,048 edges flipping at the top-r threshold; PERF.md §4)
+SHARD_LAM_BOUND = 1e-3
+SHARD_RASYM_BOUND = 1e-2
+SHARD_TIMEOUT_S = 300
+SHARD_DIR = ROOT / "build" / "chip_smoke" / "main_sharded"
+
+
+def _shard_rank(rank: int, world: int, init: str, jobs, out_dir: str) -> None:
+    """One rank of main_sharded, in a process of its own (the spawn start
+    method; the port puts every rank on ``cuda:<rank % device_count>``, so
+    both share the one card, over gloo). Solves main_sharded's problem
+    edge-partitioned in float32 and in float64 and main_n64's restarts
+    instance-partitioned; writes its results, launches and per-step CG
+    counts to ``out_dir``."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    from repro_torch import kernels
+    from repro_torch.core import engine as te
+    from repro_torch.core import shard
+    from repro_torch.device import resolve_device
+
+    job = jobs[rank].get()
+    out = {"device": str(resolve_device("cuda"))}
+    orig = shard.pcg_solve
+    for label, kw in (("float32", SHARD_ADMM), ("float64", SHARD_F64)):
+        cfg = te.ADMMConfig(**kw)
+        spec = te.make_homo_spec(SHARD_N, SHARD_R, cfg)
+        # only rank 0 holds the warm start: the entry broadcast hands it over
+        g0 = job["g0"] if rank == 0 else np.zeros(spec.m)
+        st = te.init_state(spec, g0, job["lam0"])
+        shard.solve_spec_sharded(spec, st, dataclasses.replace(cfg, max_iters=2))  # warm-up
+        ks = []
+
+        def spy(*a, **kw):
+            X, lam, k = orig(*a, **kw)
+            ks.append(k)
+            return X, lam, k
+
+        shard.pcg_solve = spy
+        torch.cuda.synchronize()
+        dist.barrier()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = shard.solve_spec_sharded(spec, st, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        shard.pcg_solve = orig
+        out[label] = dict(result=res, wall_s=wall, launches=kernels.launch_counts(),
+                          cg_steps=[int(k) for k in ks])
+    out["collectives_ms"] = _collective_ms(world)
+    cfg = job["restart_cfg"]
+    spec = te.make_homo_spec(64, 128, cfg)
+    states = te.init_state(spec, job["g0s"], job["lam0s"])
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    results = shard.solve_batched_spec_sharded(spec, states, cfg)
+    torch.cuda.synchronize()
+    out["instances"] = dict(results=results, wall_s=time.perf_counter() - t0)
+    with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _collective_ms(world: int, reps: int = 20) -> dict:
+    """Mean time of the edge path's two large collectives on this group, at
+    main_sharded's float32 shapes, host clock around a synchronized loop:
+    the all-reduce of the (n, n) window Laplacian (one a CG matvec) and the
+    all-gather of both Newton–Schulz row blocks (one a sign iteration)."""
+    import torch.distributed as dist
+
+    rows = -(-SHARD_N // world)
+    cases = {"all_reduce_L": torch.ones(SHARD_N, SHARD_N, device="cuda"),
+             "all_gather_ns": torch.ones(2 * rows * SHARD_N, device="cuda")}
+    out = {}
+    for name, t in cases.items():
+        buf = t.new_empty(world * t.numel()) if name == "all_gather_ns" else None
+
+        def call():
+            if buf is None:
+                dist.all_reduce(t)
+            else:
+                dist.all_gather_into_tensor(buf, t)
+
+        call()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+        out[name] = 1e3 * (time.perf_counter() - t0) / reps
+    return out
+
+
+def _candidate_r_asym(n: int, res, r: int) -> float:
+    """bench_scalability's ``_candidate_r_asym``: the top-r support of g +
+    g_raw, Metropolis weights, the spectral gap (no polish)."""
+    from repro_torch.core.api import extract_support
+    from repro_torch.core.graph import Topology, all_edges, is_connected
+    from repro_torch.core.weights import metropolis_weights
+
+    sel = extract_support(n, np.asarray(res.g) + np.asarray(res.g_raw), r, tol=1e-6)
+    edges_full = all_edges(n)
+    edges = [edges_full[k] for k in np.nonzero(sel)[0]]
+    if not edges or not is_connected(n, edges):
+        return 1.0
+    return float(Topology(n, edges, metropolis_weights(n, edges)).r_asym())
+
+
+def _shard_launches(cg_steps: list, iters: int) -> int:
+    """The windowed ``edge_laplacian`` (and ``edge_adjoint``) launches a
+    sharded solve makes: per ADMM step, A of the right-hand side and A·Aᵀ
+    of the start (two), then one A·Aᵀ per CG loop pass; the loop runs until
+    the first multiple of CG_CHECK_EVERY at or after its count k."""
+    from repro_torch.core.linalg import CG_CHECK_EVERY
+
+    assert len(cg_steps) == iters, (len(cg_steps), iters)
+    return sum(2 + CG_CHECK_EVERY * -(-k // CG_CHECK_EVERY) for k in cg_steps)
+
+
+def _window_cases(n: int, dtype) -> dict:
+    """The windowed forms at main_sharded's shape against their plain
+    versions, for each rank's window: ``edge_laplacian``'s within L's
+    tolerance, ``edge_adjoint``'s entries bitwise the plain form's and the
+    trace entry within :func:`_trace_tol`; timed on rank 0's window.
+    Bounds: the window's g read and L written (n² + count); P and Q at
+    (i, j) and (j, i) of each edge, both diagonals, w, and the count + 1
+    outputs."""
+    from repro_torch.kernels.edge_laplacian import ops
+
+    rng = np.random.default_rng(n)
+    m = n * (n - 1) // 2
+    m_loc = -(-m // SHARD_WORLD)
+    g = torch.from_numpy(rng.random(m)).to(device="cuda", dtype=dtype)
+    P, Q, w, _ = _adjoint_operands(n, dtype, rng)
+    lidx = ops.packed_edge_index(n, "cuda")
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    lap, adj = [], []
+    for rank in range(SHARD_WORLD):
+        first, count = rank * m_loc, min(m_loc, m - rank * m_loc)
+        gw = g[first:first + count]
+        L = ops.edge_laplacian(gw, n, first)
+        want = ops.edge_laplacian_window_plain(gw, lidx, first)
+        err = float((L - want).abs().max())
+        tol = 1e-12 if dtype == torch.float64 else 1e-5 * float(want.diagonal().abs().max())
+        assert err <= tol, f"edge_laplacian window {rank}: err {err} > {tol}"
+        x = ops.edge_adjoint(P, Q, w, None, first, count)
+        xp = ops.edge_adjoint_plain(P, Q, w, None, first, count)
+        assert torch.equal(x[:count].view(bits), xp[:count].view(bits)), \
+            f"edge_adjoint window {rank}: edge entries not bitwise the plain form's"
+        terr, ttol = abs(float(x[count] - xp[count])), _trace_tol(P, Q)
+        assert terr <= ttol, f"edge_adjoint window {rank}: trace err {terr} > {ttol}"
+        lap.append(dict(first=first, count=count, err=err, tol=tol))
+        adj.append(dict(first=first, count=count, trace_err=terr, tol=ttol))
+    size = g.element_size()
+    first, count = 0, m_loc
+    gw = g[:count]
+    return {
+        "edge_laplacian_window": dict(
+            n=n, windows=lap, max_abs_err=max(c["err"] for c in lap),
+            **timings(lambda: ops.edge_laplacian(gw, n, first),
+                      lambda: ops.edge_laplacian_window_plain(gw, lidx, first)),
+            bound_ms=1e3 * size * (count + n * n) / HBM_BYTES_PER_S, bound_by="bytes"),
+        "edge_adjoint_window": dict(
+            n=n, windows=adj, max_abs_err=max(c["trace_err"] for c in adj),
+            **timings(lambda: ops.edge_adjoint(P, Q, w, None, first, count),
+                      lambda: ops.edge_adjoint_plain(P, Q, w, None, first, count)),
+            bound_ms=1e3 * size * (5 * count + 3 * n + 1) / HBM_BYTES_PER_S,
+            bound_by="bytes")}
+
+
+def _greedy_warm_start(n: int, r: int):
+    """bench_scalability's ``_partition_warm_start``: (g0, z0, λ̃0) of the
+    greedy balanced-degree graph with Metropolis weights, seed SHARD_SEED."""
+    from repro_torch.core.anneal import greedy_degree_graph
+    from repro_torch.core.api import _homo_degree_targets, _pack_warm
+
+    edges0 = greedy_degree_graph(n, _homo_degree_targets(n, r),
+                                 np.random.default_rng(SHARD_SEED), None)
+    return _pack_warm(n, edges0)
+
+
+def _nccl_one_rank() -> dict:
+    """The edge path once through a process group of one rank on NCCL (every
+    collective runs, with nothing to exchange), n = 64, float64, eigh, exact
+    CG, against ``solve_spec``: one window is the whole list and its kernels
+    are the full launches, so g, λ̃ and the counts are the same bits."""
+    import torch.distributed as dist
+
+    from repro_torch.core import engine as te
+    from repro_torch.core import shard
+
+    init = SHARD_DIR / "nccl_rendezvous"
+    init.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0, world_size=1)
+    try:
+        cfg = te.ADMMConfig(dtype="float64", max_iters=20, check_every=10)
+        spec = te.make_homo_spec(64, 128, cfg)
+        g0, _, lam0 = _greedy_warm_start(64, 128)
+        st = te.init_state(spec, g0, lam0)
+        want = te.solve_spec(spec, st, cfg)
+        got = shard.solve_spec_sharded(spec, st, cfg)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    row = dict(backend="nccl", world=1, n=64, lam_sharded=got.lam_tilde, lam=want.lam_tilde,
+               g_bitwise=got.g.tobytes() == want.g.tobytes(),
+               iters=[got.iters, want.iters], cg_iters=[got.cg_iters, want.cg_iters])
+    assert row["g_bitwise"] and got.lam_tilde == want.lam_tilde, f"main_sharded NCCL: {row}"
+    assert got.iters == want.iters and got.cg_iters == want.cg_iters, f"main_sharded NCCL: {row}"
+    return row
+
+
+def phase_main_sharded(restarts: list, main_restarts: dict) -> dict:
+    """The sharded ADMM on the card. bench_scalability's partition compare
+    (n = 1024, r = 2048, m = 523,776) edge-partitioned over two gloo ranks
+    spawned on the one card, against the unsharded ``solve_spec`` of the same
+    spec in this process: ms per iteration of both, |Δλ̃| and the rounded
+    candidates' r_asym drift within the stated float32 bounds, each rank's
+    windowed ``edge_laplacian``/``edge_adjoint`` launches pinned exactly to
+    its CG counts (and no other edge form), the two ranks' results the same
+    bits; the same in float64 at 5 iterations, λ̃ within SHARD_F64_TOL.
+    main_n64's four restarts instance-partitioned over the two ranks against
+    main_restarts' batched solve (``tests/test_torch_batched.py``'s
+    tolerances); the edge path through a one-rank NCCL group; the windowed
+    forms at this shape against their plain versions, timed."""
+    import pickle
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import engine as te
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+    spawn = mp.get_context("spawn")
+    jobs = [spawn.SimpleQueue() for _ in range(SHARD_WORLD)]
+    ranks = mp.start_processes(_shard_rank, nprocs=SHARD_WORLD, join=False, start_method="spawn",
+                               args=(SHARD_WORLD, f"file://{SHARD_DIR / 'rendezvous'}", jobs,
+                                     str(SHARD_DIR)))
+    try:
+        # the ranks start while this process builds the warm start
+        n, r = SHARD_N, SHARD_R
+        t0 = time.perf_counter()
+        g0, _, lam0 = _greedy_warm_start(n, r)
+        warm_s = time.perf_counter() - t0
+        unsharded = {}
+        for label, kw in (("float32", SHARD_ADMM), ("float64", SHARD_F64)):
+            cfg = te.ADMMConfig(**kw)
+            spec = te.make_homo_spec(n, r, cfg)
+            st = te.init_state(spec, g0, lam0)
+            te.solve_spec(spec, st, dataclasses.replace(cfg, max_iters=2))        # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = te.solve_spec(spec, st, cfg)
+            torch.cuda.synchronize()
+            unsharded[label] = dict(result=res, wall_s=time.perf_counter() - t0)
+            del spec, st
+        for rank in range(SHARD_WORLD):
+            jobs[rank].put(dict(g0=g0 if rank == 0 else None, lam0=lam0,
+                                restart_cfg=main_restarts["cfg"], g0s=main_restarts["g0s"],
+                                lam0s=main_restarts["lam0s"]))
+        r_asym = {"unsharded": _candidate_r_asym(n, unsharded["float32"]["result"], r)}
+        while not ranks.join(timeout=1.0):
+            pass
+    finally:
+        for proc in ranks.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    outs = [pickle.loads((SHARD_DIR / f"rank{k}.pkl").read_bytes()) for k in range(SHARD_WORLD)]
+    sharded = {label: outs[0][label] for label in ("float32", "float64")}
+    r_asym["sharded"] = _candidate_r_asym(n, sharded["float32"]["result"], r)
+    rows = {}
+    for label in ("float32", "float64"):
+        a, b = sharded[label]["result"], unsharded[label]["result"]
+        for k in range(1, SHARD_WORLD):
+            o = outs[k][label]["result"]
+            assert o.g.tobytes() == a.g.tobytes() and o.lam_tilde == a.lam_tilde \
+                and o.cg_iters == a.cg_iters, f"main_sharded {label}: rank {k} differs from rank 0"
+        pins = []
+        for k in range(SHARD_WORLD):
+            counts, steps = outs[k][label]["launches"], outs[k][label]["cg_steps"]
+            want = _shard_launches(steps, a.iters)
+            assert counts["edge_laplacian"] == counts["edge_adjoint"] == want, \
+                f"main_sharded {label} rank {k}: launches {counts}, {want} expected"
+            assert sum(steps) == a.cg_iters, (label, k, sum(steps), a.cg_iters)
+            others = {f: counts[f] for f in ("edge_laplacian_blocks", "edge_schur_matvec",
+                                             "edge_quadform")}
+            assert not any(others.values()), f"main_sharded {label} rank {k}: {others}"
+            pins.append(dict(rank=k, edge_laplacian=counts["edge_laplacian"],
+                             edge_adjoint=counts["edge_adjoint"], expected=want))
+        coll = outs[0]["collectives_ms"]
+        passes = pins[0]["edge_laplacian"] - 2 * a.iters    # CG loop passes
+        per_iter = (2 + passes / a.iters) * coll["all_reduce_L"] + \
+            (SHARD_ADMM["psd_iters"] + 1) * coll["all_gather_ns"]
+        rows[label] = dict(
+            iters=[a.iters, b.iters], cg_iters=[a.cg_iters, b.cg_iters],
+            collective_ms_per_iter_est=per_iter if label == "float32" else None,
+            lam_sharded=a.lam_tilde, lam_unsharded=b.lam_tilde,
+            abs_d_lam=abs(a.lam_tilde - b.lam_tilde),
+            ms_per_iter=dict(sharded=1e3 * sharded[label]["wall_s"] / a.iters,
+                             unsharded=1e3 * unsharded[label]["wall_s"] / b.iters),
+            launches=pins)
+    inst = outs[0]["instances"]
+    inst_rows = []
+    for k, (got, want) in enumerate(zip(inst["results"], main_restarts["batched"])):
+        sa = tuple(np.nonzero(got.g > 1e-6)[0].tolist())
+        sb = tuple(np.nonzero(want.g > 1e-6)[0].tolist())
+        inst_rows.append(dict(restart=k, support_equal=sa == sb,
+                              abs_d_lam=abs(got.lam_tilde - want.lam_tilde),
+                              iters=[got.iters, want.iters], cg_iters=[got.cg_iters, want.cg_iters],
+                              history_its_equal=[h[0] for h in got.history]
+                              == [h[0] for h in want.history]))
+    windows = _window_cases(n, torch.float32)
+    nccl = _nccl_one_rank()
+    cards = [f"cuda:{k % torch.cuda.device_count()}" for k in range(SHARD_WORLD)]
+    assert [o["device"] for o in outs] == cards, ([o["device"] for o in outs], cards)
+    out = dict(n=n, r=r, m=n * (n - 1) // 2, world=SHARD_WORLD, backend="gloo",
+               rank_devices=[o["device"] for o in outs],
+               config=SHARD_ADMM, float64_config=SHARD_F64, warm_start_s=warm_s,
+               float32=rows["float32"], float64=rows["float64"],
+               r_asym=dict(r_asym, drift=abs(r_asym["sharded"] - r_asym["unsharded"])),
+               bounds=dict(float32_lam=SHARD_LAM_BOUND, float32_r_asym=SHARD_RASYM_BOUND,
+                           float64_lam=SHARD_F64_TOL),
+               collectives_ms=outs[0]["collectives_ms"],
+               instances=dict(wall_s=[o["instances"]["wall_s"] for o in outs], rows=inst_rows),
+               nccl=nccl, windows={k: {f: v for f, v in c.items() if f != "windows"}
+                                   for k, c in windows.items()},
+               phase_s=time.perf_counter() - t_phase)
+    emit("main_sharded", **out)
+    assert rows["float64"]["abs_d_lam"] <= SHARD_F64_TOL, rows["float64"]
+    assert rows["float32"]["abs_d_lam"] <= SHARD_LAM_BOUND, rows["float32"]
+    assert out["r_asym"]["drift"] <= SHARD_RASYM_BOUND, out["r_asym"]
+    assert all(np.isfinite(v) for v in r_asym.values()), r_asym
+    for row in inst_rows:
+        assert row["support_equal"] and row["abs_d_lam"] <= 1e-6 and \
+            row["iters"][0] == row["iters"][1] and row["history_its_equal"] and \
+            abs(row["cg_iters"][0] - row["cg_iters"][1]) <= 0.01 * row["cg_iters"][1], \
+            f"main_sharded instances: {row}"
+    for name in ("edge_laplacian_window", "edge_adjoint_window"):
+        windows[name]["path_launches"] = rows["float32"]["launches"][0][name.rsplit("_", 1)[0]]
+    return windows
+
+
 def _overlap(a, b) -> float:
     sa, sb = set(np.nonzero(a.g > 1e-6)[0].tolist()), set(np.nonzero(b.g > 1e-6)[0].tolist())
     return len(sa & sb) / max(len(sa | sb), 1)
@@ -1192,6 +1562,9 @@ def _overlap(a, b) -> float:
 #: helper processes of the phases, stopped when the script ends
 _CHILDREN: list = []
 XSTEP_FORMS = ("edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec")
+#: the depth of main_xstep_backends' whole solves from main_n64's start, cut
+#: from the pipeline's 600 to pay for main_sharded (PERF.md §4)
+XSTEP_SOLVE_ITERS = 150
 #: card against CPU at card_vs_cpu's request, per backend: |Δλ̃| (float64)
 XSTEP_CARD_CPU_BAND = 1e-7
 XSTEP_CARD_CPU_BACKENDS = {"scan/kkt_bicgstab": dict(solver="kkt_bicgstab"),
@@ -1229,11 +1602,12 @@ def phase_main_xstep_backends(restarts: list) -> dict:
       and ⟨t, s⟩ = 0): JAX's bicgstab does the same there (ROADMAP.md Queue
       3), so its X-step is held to the CPU's, within 1e-9, and its distance
       from schur_cg's and its constraint residual ‖A X − b‖∞ are reported;
-    - whole solves from the warm start: scan/kkt_bicgstab, python/schur_cg
-      and python/kkt_bicgstab at the pipeline default (fp32, inexact CG),
-      beside main_n64's own scan/schur_cg solve of the same start (not run
-      again), and the ILU (float64, exact tolerance) beside a float64 scan
-      solve at the same tolerance: wall, iterations, λ̃, support overlap,
+    - whole solves from the warm start, cut to ``XSTEP_SOLVE_ITERS``
+      iterations: scan/kkt_bicgstab, python/schur_cg and python/kkt_bicgstab
+      at the pipeline default (fp32, inexact CG), beside main_n64's own
+      600-iteration scan/schur_cg solve of the same start (not run again),
+      and the ILU (float64, exact tolerance) beside a float64 scan solve at
+      the same tolerance: wall, iterations, λ̃, support overlap,
       edge-form launches (no ``edge_schur_matvec`` on the kkt route) and the
       ILU's ``spsolve`` fallbacks;
     - card_vs_cpu's request (n = 16, r = 32, float64) by each backend on the
@@ -1285,17 +1659,18 @@ def phase_main_xstep_backends(restarts: list) -> dict:
                          ilu_fallbacks=fallbacks)
 
     ref = rec["result"]
-    solves = {"scan/schur_cg": dict(wall_s=rec["wall_s"], iters=ref.iters,
+    solves = {"scan/schur_cg (600 iterations)": dict(wall_s=rec["wall_s"], iters=ref.iters,
                                     lam_tilde=ref.lam_tilde, cg_iters=ref.cg_iters,
                                     residual=ref.residual, launches=rec["launches"],
                                     support_overlap=1.0, from_main_n64=True)}
+    cut = dict(max_iters=XSTEP_SOLVE_ITERS)
     for label, kw in (("scan/kkt_bicgstab", dict(solver="kkt_bicgstab")),
                       ("python/schur_cg", dict(driver="python")),
                       ("python/kkt_bicgstab", dict(driver="python", solver="kkt_bicgstab"))):
-        res, row = solve(dataclasses.replace(cfg, **kw))
+        res, row = solve(dataclasses.replace(cfg, **kw, **cut))
         solves[label] = dict(row, support_overlap=_overlap(res, ref))
-    scan64, row64 = solve(exact64)
-    ilu, row_ilu = solve(dataclasses.replace(exact64, solver="kkt_bicgstab_ilu"))
+    scan64, row64 = solve(dataclasses.replace(exact64, **cut))
+    ilu, row_ilu = solve(dataclasses.replace(exact64, solver="kkt_bicgstab_ilu", **cut))
     solves["scan/schur_cg float64"] = dict(row64, support_overlap=_overlap(scan64, ref))
     solves["python/kkt_bicgstab_ilu float64"] = dict(
         row_ilu, support_overlap=_overlap(ilu, scan64),
@@ -1467,9 +1842,10 @@ def phase_main_service() -> dict:
     ``solve_sweep_spec``); r=128 again (a cache hit, the same object); a
     node-scenario n=16, r=32 request (the full tier, the barrier engine),
     then ``observe`` of the drifted profile (the four fast NICs at 1 GB/s)
-    invalidates it; n=64, r=112 under a 3 s deadline (the anytime route),
-    then n=64, r=120 under a 3 s deadline, which has to answer within it:
-    the first deadlined solve taught the service its stage estimates.
+    invalidates it; n=64, r=112 under a 3 s deadline (the anytime route,
+    seeded by the bucket's stage times per instance), then n=64, r=120
+    under a 3 s deadline (seeded by what the first deadlined solve
+    learned): both have to answer within it.
     A second service whose full-tier hook answers n=16, r=24 with the real
     barrier answer and r=32 with a NaN topology: the warm tier runs the
     guarded ADMM on the card from the cached r=24 support. A third with
@@ -1509,14 +1885,17 @@ def phase_main_service() -> dict:
     drifted[:4] = 1.0
     evicted = svc.observe(drifted)
     assert evicted == 1 and svc.stats["invalidations"] == 1, (evicted, svc.stats)
+    seeded = dict(svc._seed_profiles[64].phases)
     svc.submit(TopoRequest(n=64, r=112, deadline_ms=3000.0))
     timed = svc.drain()[0]
-    rows.append(_answer("n=64,r=112 deadline 3000 ms", timed))
+    rows.append(_answer("n=64,r=112 deadline 3000 ms (seeded by the bucket)", timed))
     learned = dict(svc._seed_profiles[64].phases)
     svc.submit(TopoRequest(n=64, r=120, deadline_ms=3000.0))
     again = svc.drain()[0]
     rows.append(_answer("n=64,r=120 deadline 3000 ms (learned estimates)", again))
     assert "admm" in learned, f"main_service: no ADMM estimate learned at n=64: {learned}"
+    assert timed.latency_ms <= 3000.0, \
+        f"main_service: the first deadlined request took {timed.latency_ms:.1f} ms ({timed.reason})"
     assert again.latency_ms <= 3000.0, \
         f"main_service: the second deadlined request took {again.latency_ms:.1f} ms ({again.reason})"
     torch.cuda.synchronize()
@@ -1550,7 +1929,7 @@ def phase_main_service() -> dict:
     rows += [_answer(f"max_queue=2 n=16,r={r}", resp) for r, resp in zip((24, 32), small.drain())]
     out = dict(cut=cut, wall_s=wall_s, launches=launches, rows=rows, stats=svc.stats,
                deadline_latency_ms=[timed.latency_ms, again.latency_ms],
-               learned_stage_s=learned,
+               bucket_seeded_stage_s=seeded, learned_stage_s=learned,
                stub_stats=stub.stats, overload=dict(reason=outs[2].reason, stats=small.stats))
     emit("main_service", **out)
     return out
@@ -3746,6 +4125,12 @@ KERNEL_INFO = {
                          replaces="src/repro/kernels/edge_laplacian/kernel.py:87"),
     "edge_schur_matvec": dict(route="cuda", source="src/repro_torch/csrc/edge_laplacian.cu",
                               replaces="src/repro/kernels/edge_laplacian/kernel.py:87"),
+    # the windowed forms of the edge-partitioned ADMM (core/shard.py); the
+    # reference's sharded layer windows with a jnp gather (ref.py:21)
+    "edge_laplacian_window": dict(route="cuda", source="src/repro_torch/csrc/edge_laplacian.cu",
+                                  replaces="src/repro/kernels/edge_laplacian/kernel.py:62"),
+    "edge_adjoint_window": dict(route="cuda", source="src/repro_torch/csrc/edge_laplacian.cu",
+                                replaces="src/repro/kernels/edge_laplacian/kernel.py:87"),
     "hop_step": dict(route="cuda", source="src/repro_torch/csrc/hop_bfs.cu",
                      replaces="src/repro/kernels/hop_bfs/kernel.py:54"),
     "gossip_mix_batched": dict(route="cuda", source="src/repro_torch/csrc/gossip_mix.cu",
@@ -3788,8 +4173,9 @@ def _main() -> int:
     phase_card_vs_cpu()
     phase_consensus(res64.topology)
     phase_profile()
-    phase_main_restarts(restarts)
+    main_restarts = phase_main_restarts(restarts)
     phase_main_restarts_f64()
+    timing.update(phase_main_sharded(restarts, main_restarts))
     kkt_solve = phase_main_xstep_backends(restarts)["solves"]["scan/kkt_bicgstab"]["launches"]
     for name in ("edge_laplacian_blocks", "edge_adjoint"):
         timing[name]["kkt_route"] = dict(path="main_xstep_backends, scan/kkt_bicgstab",
@@ -3859,7 +4245,8 @@ def _main() -> int:
     for name, info in KERNEL_INFO.items():
         t = timing[name]
         rows.append(dict(
-            name=name, **info, launches=path_launches.get(name, launches[name]),
+            name=name, **info,
+            launches=t.get("path_launches", path_launches.get(name, launches.get(name))),
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], call_ms=t["call_ms"],

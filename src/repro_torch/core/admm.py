@@ -6,6 +6,11 @@ through ``engine.solve_spec`` and batched restarts (``solve_batched``)
 through ``engine.solve_batched_spec``: every step of the batch serves all
 restarts at once.
 
+``ADMMConfig.partition`` dispatches as the reference does: ``"edges"``
+solves through ``shard.solve_spec_sharded`` (a batch one instance at a
+time), ``"instances"`` a batch through ``shard.solve_batched_spec_sharded``,
+``"auto"`` by ``shard.resolve_partition`` (``"none"`` on one process).
+
 Drivers (``ADMMConfig.driver``), as in the reference: ``"scan"`` (default,
 the chunked driver) and ``"python"`` (``engine.solve_python``, one host
 read an iteration), which also carries the scipy-ILU backend
@@ -30,11 +35,11 @@ from .engine import (
     make_hetero_spec,
     make_homo_spec,
     make_ilu_step,
-    resolve_partition,
     solve_batched_spec,
     solve_python,
     solve_spec,
 )
+from . import shard
 
 __all__ = ["ADMMConfig", "ADMMResult", "HomogeneousADMM", "HeterogeneousADMM"]
 
@@ -69,7 +74,9 @@ class _ADMMBase:
             return solve_python(self.spec, state, cfg, step_fn=self._ilu_step())
         if cfg.driver == "python":
             return solve_python(self.spec, state, cfg)
-        resolve_partition(cfg.partition, self.spec.n)
+        # a single solve has no instance batch: "instances" degenerates
+        if shard.resolve_partition(cfg.partition, self.spec.n) == "edges":
+            return shard.solve_spec_sharded(self.spec, state, cfg)
         return solve_spec(self.spec, state, cfg)
 
     def _batched_cfg(self) -> ADMMConfig:
@@ -82,7 +89,13 @@ class _ADMMBase:
 
     def _solve_states_batched(self, states: ADMMState) -> list[ADMMResult]:
         cfg = self._batched_cfg()
-        resolve_partition(cfg.partition, self.spec.n)
+        batch = int(states.X[0].shape[0])
+        part = shard.resolve_partition(cfg.partition, self.spec.n, batch=batch)
+        if part == "instances":
+            return shard.solve_batched_spec_sharded(self.spec, states, cfg)
+        if part == "edges":
+            return [shard.solve_spec_sharded(self.spec, states.map(lambda a, b=b: a[b]), cfg)
+                    for b in range(batch)]
         return solve_batched_spec(self.spec, states, cfg)
 
     def _ilu_step(self):

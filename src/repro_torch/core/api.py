@@ -272,18 +272,20 @@ def _sweep_one_n(n: int, rs_req: list[int], cfg: BATopoConfig) -> dict:
     """Every budget in ``rs_req`` for one node count, homogeneous: one warm
     start per (n, r) (``_init_graph``, the SA of ``_anneal_edges``,
     ``_pack_warm``; instance k plays restart k), ONE batched ADMM solve of
-    all budgets (``solve_sweep_spec`` on the spec of the largest), then per
+    all budgets (``solve_sweep_spec`` on the spec of the largest; split
+    over the ranks by ``ADMMConfig.partition`` as the reference does), then per
     budget the candidates (ADMM, warm start, feasible classics), one polish
     call and the pick. Returns ``{(n, r): Topology}`` keyed by the
     requested r (budgets above the candidate-edge count are clamped for the
     solve). Raises ``TopologyInvariantError`` when no candidate of a budget
     passes release validation."""
-    from .engine import check_solver, init_state, make_homo_spec, resolve_partition
-    from .engine import solve_sweep_spec
+    import torch
+
+    from .engine import check_solver, init_state, make_homo_spec, solve_sweep_spec
+    from .shard import resolve_partition, solve_spec_sharded, solve_sweep_spec_sharded
 
     admm = replace(cfg.admm, device=cfg.device)
     check_solver(admm)
-    resolve_partition(admm.partition, n)
     m = len(all_edges(n))
     rs_n = [min(r, m) for r in rs_req]
     spec = make_homo_spec(n, max(rs_n), admm)
@@ -295,7 +297,16 @@ def _sweep_one_n(n: int, rs_req: list[int], cfg: BATopoConfig) -> dict:
     warms = [_pack_warm(n, e) for e in _anneal_edges(n, inits, seeds, None, cfg)]
     states = init_state(spec, np.stack([g0 for g0, _, _ in warms]),
                         np.array([lam0 for _, _, lam0 in warms]))
-    results = solve_sweep_spec(spec, rs_n, states, admm)
+    part = resolve_partition(admm.partition, n, batch=len(rs_n))
+    if part == "instances":
+        results = solve_sweep_spec_sharded(spec, rs_n, states, admm)
+    elif part == "edges":
+        results = [solve_spec_sharded(
+            spec.replace(r=torch.tensor(rn, dtype=torch.int64, device=spec.I.device)),
+            states.map(lambda a, k=k: a[k]), admm, r_cap=max(rs_n))
+            for k, rn in enumerate(rs_n)]
+    else:
+        results = solve_sweep_spec(spec, rs_n, states, admm)
     out: dict = {}
     for r_req, r, warm, res in zip(rs_req, rs_n, warms, results):
         meta = {"scenario": "homo", "r": r}

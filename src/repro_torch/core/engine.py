@@ -89,8 +89,6 @@ FP32_TOL_FLOOR = 1e-6
 # "default" of 256 until a later slice measures it (PERF.md, Open questions).
 NS_MIN_N = {"cpu": None, "cuda": 256, "default": 256}
 
-_NOT_PORTED = "not ported to repro_torch yet (ROADMAP.md Queue 1 item {})"
-
 
 def resolve_psd_backend(psd_backend: str, n: int, platform: str = "cuda") -> str:
     """Resolve ``psd_backend="auto"`` to a concrete backend for size n on
@@ -121,7 +119,7 @@ class ADMMConfig:
     # Deviation from the reference (which defaults to False): the CUDA pair
     # is the default; False selects the plain PyTorch form explicitly.
     edge_kernel: bool = True
-    partition: str = "none"    # none | auto (→ none); edges/instances: item 7
+    partition: str = "none"    # none | edges | instances | auto (core.shard)
     abort_nonfinite: bool = True
     device: str = "cuda"
 
@@ -227,17 +225,13 @@ def _validate_cfg(cfg: ADMMConfig) -> None:
                          "'none', 'edges', 'instances' or 'auto'")
 
 
-def resolve_partition(partition: str, n: int) -> str:
-    """The port drives one device: ``"auto"`` resolves to ``"none"`` at any
-    ``n``. The edge- and instance-partitioned layouts wait for ROADMAP.md
-    Queue 1 item 7 (the reference's rule is ``repro/core/shard.py:78-99``)."""
-    if partition not in ("none", "edges", "instances", "auto"):
-        raise ValueError(f"unknown partition {partition!r}; expected "
-                         "'none', 'edges', 'instances' or 'auto'")
-    if partition in ("edges", "instances"):
-        raise NotImplementedError(
-            f"partition={partition!r}: " + _NOT_PORTED.format(7))
-    return "none"
+def resolve_partition(partition: str, n: int, batch: int | None = None,
+                      ndev: int | None = None) -> str:
+    """``core.shard.resolve_partition``: ``"auto"`` resolves by the world
+    size of the default process group, to ``"none"`` on one process."""
+    from .shard import resolve_partition as resolve
+
+    return resolve(partition, n, batch, ndev)
 
 
 def _make_spec(n: int, r: int, cfg: ADMMConfig, edge_ok, M=None, e_cap=None,

@@ -98,6 +98,8 @@ def pcg_solve(
     tol=1e-10,
     maxiter: int = 2000,
     matvec: Callable | None = None,
+    dot: Callable | None = None,
+    any_active: Callable | None = None,
 ):
     """Solve X = V − Aᵀλ with (A Aᵀ)λ = A V − b via preconditioned CG.
 
@@ -108,7 +110,11 @@ def pcg_solve(
     flat diag(A Aᵀ) for Jacobi preconditioning, or None. ``tol`` is a
     relative residual tolerance (a float or a float64 tensor, one per
     instance). Each instance stops when ‖r‖ ≤ tol·‖rhs‖ or after
-    ``maxiter`` iterations.
+    ``maxiter`` iterations. ``dot`` (default the float64 ``_tdot``) and
+    ``any_active`` (the host read of "some instance still iterates" from
+    the device flags, default a local read) are the edge-partitioned
+    solver's hooks: its dots span the ranks, and every rank has to leave
+    the loop at the same iteration.
 
     Returns ``(X, λ, iters)`` with ``iters`` int32, one per instance.
     """
@@ -119,12 +125,18 @@ def pcg_solve(
     def precond(r):
         return r if jd is None else r / jd
 
+    if dot is None:
+        dot = _tdot
+    if any_active is None:
+        def any_active(active):
+            return bool(active if active.numel() == 1 else active.any())
+
     rhs = A_op(V) - b
-    bb = _tdot(rhs)
+    bb = dot(rhs)
     r = rhs - matvec(lam0)
     z = precond(r)
-    rz = _tdot(r, z)
-    rr = _tdot(r)
+    rz = dot(r, z)
+    rr = dot(r)
     lead = lam0.shape[:-1]
     tol = torch.as_tensor(tol, dtype=torch.float64, device=bb.device)
     tol2bb = tol.reshape(tol.shape + (1,) * (tol.dim() > 0)) ** 2 * bb
@@ -135,17 +147,16 @@ def pcg_solve(
     it = 0
     while True:
         active = (rr > tol2bb) & (k < maxiter)
-        if it % CG_CHECK_EVERY == 0 and not bool(active if active.numel() == 1
-                                                  else active.any()):
+        if it % CG_CHECK_EVERY == 0 and not any_active(active):
             break
         Ap = matvec(p)
-        alpha = rz / _tdot(p, Ap)
+        alpha = rz / dot(p, Ap)
         x_n = _axpy(alpha, x, p)
         r_n = _axpy(-alpha, r, Ap)
         z_n = precond(r_n)
-        rz_n = _tdot(r_n, z_n)
+        rz_n = dot(r_n, z_n)
         p_n = _axpy(rz_n / rz, z_n, p)  # p ← z + beta·p
-        rr_n = _tdot(r_n)
+        rr_n = dot(r_n)
         x = torch.where(active, x_n, x)
         r = torch.where(active, r_n, r)
         z = r if jd is None else torch.where(active, z_n, z)

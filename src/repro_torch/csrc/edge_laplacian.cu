@@ -22,6 +22,20 @@
 // endpoints); edge_laplacian runs in engine._L_of_g and init_state. All in
 // float32 (the pipeline default) and float64.
 //
+// Windows. edge_laplacian and edge_adjoint also take one contiguous window
+// [first, first + count) of the lexicographic list: one rank's share in the
+// edge-partitioned ADMM (core/shard.py). edge_laplacian then writes the
+// window's additive contribution to L (the rank all-reduces it), the port
+// of src/repro/kernels/edge_laplacian/ref.py:21 (edge_laplacian_window, a
+// plain gather: the reference refuses its Pallas pair on a window);
+// edge_adjoint writes the window's x entries, then xl at x[count]. The
+// complete list is the window first = 0, count = m, and runs exactly the
+// operations it ran before windows existed. Their bounds, in bytes:
+//   edge_laplacian window: 4 or 8 x (count + n^2);
+//   edge_adjoint window: 4 or 8 x (4 count + 3n + count + 1) (+ count for
+//     v): P and Q at (i, j) and (j, i) of each edge, both diagonals, w, the
+//     output. n = 1,024, two windows, fp32: 5.2 MB and 5.2 MB, ~1.6 us each.
+//
 // What bounds them on the H100: bytes. Each reads its inputs once and
 // writes its output once, with no arithmetic worth counting.
 //   edge_laplacian: 4 or 8 bytes x (m + n^2).
@@ -109,9 +123,13 @@ __device__ T block_sum(T v) {
   return v;
 }
 
+// L(g) of the packed window [first, first + count) of the edge list: g holds
+// the window's weights (g[l - first] is edge l's), every edge outside it
+// counts as weight 0 (its entry is written as 0 - 0 = +0). The complete list
+// is first = 0, count = m, the same operations as before windows existed.
 template <typename T>
 __global__ void edge_laplacian_kernel(const T* __restrict__ g, long long gs, T* __restrict__ L,
-                                      long long Ls, int n) {
+                                      long long Ls, int n, long long first, long long count) {
   const int a = blockIdx.x;
   const long long inst = blockIdx.y;
   g += inst * gs;
@@ -121,8 +139,8 @@ __global__ void edge_laplacian_kernel(const T* __restrict__ g, long long gs, T* 
     if (b == a) continue;
     const long long lo = a < b ? a : b;
     const long long hi = a < b ? b : a;
-    const long long l = lo * n - lo * (lo + 1) / 2 + (hi - lo - 1);
-    const T v = g[l];
+    const long long l = lo * n - lo * (lo + 1) / 2 + (hi - lo - 1) - first;
+    const T v = (l >= 0 && l < count) ? g[l] : T(0);
     row[b] = sub_rn(T(0), v);
     deg += v;
   }
@@ -213,8 +231,8 @@ __device__ T trace_diff(const T* __restrict__ P, const T* __restrict__ Q, int n)
   return xl_shared;
 }
 
-// AT_op's edge entry for i < j: quadform(P + Q)_l + (w_i + w_j) (+ v_l), one
-// rounding at a time in the composition's order.
+// AT_op's edge entry for i < j: quadform(P + Q)_l + (w_i + w_j) (+ v[l]), one
+// rounding at a time in the composition's order (l: the edge's slot in v).
 template <typename T>
 __device__ __forceinline__ T edge_xg(const T* __restrict__ P, const T* __restrict__ Q,
                                      const T* __restrict__ w, const T* __restrict__ v,
@@ -234,14 +252,19 @@ __device__ __forceinline__ long long packed_index(long long lo, long long hi, lo
   return lo * n - lo * (lo + 1) / 2 + (hi - lo - 1);
 }
 
-// x[l] for the edges {a, b}, b > a, of row a (block a), and x[m] = xl
-// (block 0).
+// x[l - first] for the edges {a, b}, b > a, of row a (block a) whose packed
+// index l lies in the window [first, first + count), and x[count] = xl
+// (block 0). v, when given, holds the window's entries (v[l - first]). Row
+// a's edges are the contiguous indices packed_index(a, a+1) + (b - a - 1),
+// so the window is a range of b; a row outside it writes nothing. The
+// complete list is first = 0, count = m: every b in (a, n), as before.
 template <typename T>
 __global__ void edge_adjoint_kernel(const T* __restrict__ P, long long Ps,
                                     const T* __restrict__ Q, long long Qs,
                                     const T* __restrict__ w, long long ws,
                                     const T* __restrict__ v, long long vs,
-                                    T* __restrict__ x, long long xs, int n) {
+                                    T* __restrict__ x, long long xs, int n, long long first,
+                                    long long count) {
   const int a = blockIdx.x;
   const long long inst = blockIdx.y;
   P += inst * Ps;
@@ -251,11 +274,16 @@ __global__ void edge_adjoint_kernel(const T* __restrict__ P, long long Ps,
   x += inst * xs;
   if (a == 0) {
     const T xl = trace_diff(P, Q, n);
-    if (threadIdx.x == 0) x[static_cast<long long>(n) * (n - 1) / 2] = xl;
+    if (threadIdx.x == 0) x[count] = xl;
   }
-  for (int b = a + 1 + threadIdx.x; b < n; b += blockDim.x) {
-    const long long l = packed_index(a, b, n);
-    x[l] = edge_xg(P, Q, w, v, a, b, l, n);
+  // edge {a, b} has packed index base + b; its slot in the window is
+  // base + b - first
+  const long long base = packed_index(a, a + 1, n) - (a + 1);
+  const long long b_lo = first - base > a + 1 ? first - base : a + 1;
+  const long long b_hi = first + count - base < n ? first + count - base : n;
+  for (long long b = b_lo + threadIdx.x; b < b_hi; b += blockDim.x) {
+    const long long k = base + b - first;
+    x[k] = edge_xg(P, Q, w, v, a, static_cast<int>(b), k, n);
   }
 }
 
@@ -317,11 +345,11 @@ dim3 row_grid(int n, int batch) { return dim3(static_cast<unsigned>(n), static_c
 
 template <typename T>
 int launch_edge_laplacian(const void* g, long long gs, void* L, long long Ls, int n, int batch,
-                          void* stream) {
+                          long long first, long long count, void* stream) {
   if (n > 0 && batch > 0) {
     edge_laplacian_kernel<T><<<row_grid(n, batch), laplacian_threads(n), 0,
                                static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(g), gs, static_cast<T*>(L), Ls, n);
+        static_cast<const T*>(g), gs, static_cast<T*>(L), Ls, n, first, count);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -358,12 +386,12 @@ int launch_edge_quadform(const void* P, const void* ei, const void* ej, void* ou
 template <typename T>
 int launch_edge_adjoint(const void* P, long long Ps, const void* Q, long long Qs, const void* w,
                         long long ws, const void* v, long long vs, void* x, long long xs, int n,
-                        int batch, void* stream) {
+                        int batch, long long first, long long count, void* stream) {
   if (n > 0 && batch > 0) {
     edge_adjoint_kernel<T><<<row_grid(n, batch), laplacian_threads(n), 0,
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(P), Ps, static_cast<const T*>(Q), Qs, static_cast<const T*>(w), ws,
-        static_cast<const T*>(v), vs, static_cast<T*>(x), xs, n);
+        static_cast<const T*>(v), vs, static_cast<T*>(x), xs, n, first, count);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -392,8 +420,8 @@ extern "C" {
 
 #define EDGE_ENTRIES(SUFFIX, T)                                                                  \
   int edge_laplacian_##SUFFIX(const void* g, long long gs, void* L, long long Ls, int n,        \
-                              int batch, void* stream) {                                        \
-    return launch_edge_laplacian<T>(g, gs, L, Ls, n, batch, stream);                            \
+                              int batch, long long first, long long count, void* stream) {      \
+    return launch_edge_laplacian<T>(g, gs, L, Ls, n, batch, first, count, stream);              \
   }                                                                                             \
   int edge_laplacian_blocks_##SUFFIX(const void* g, long long gs, const void* lam,              \
                                      long long lams, const void* S, long long Ss,               \
@@ -409,8 +437,10 @@ extern "C" {
   }                                                                                             \
   int edge_adjoint_##SUFFIX(const void* P, long long Ps, const void* Q, long long Qs,           \
                             const void* w, long long ws, const void* v, long long vs, void* x,  \
-                            long long xs, int n, int batch, void* stream) {                     \
-    return launch_edge_adjoint<T>(P, Ps, Q, Qs, w, ws, v, vs, x, xs, n, batch, stream);         \
+                            long long xs, int n, int batch, long long first, long long count,   \
+                            void* stream) {                                                     \
+    return launch_edge_adjoint<T>(P, Ps, Q, Qs, w, ws, v, vs, x, xs, n, batch, first, count,   \
+                                  stream);                                                      \
   }                                                                                             \
   int edge_schur_matvec_##SUFFIX(const void* P, long long Ps, const void* Q, long long Qs,      \
                                  const void* w, long long ws, const void* v, long long vs,      \

@@ -2,6 +2,8 @@
 exception the port raises when the card or its kernels fail."""
 from __future__ import annotations
 
+import os
+
 import torch
 
 __all__ = ["DeviceFault", "DEVICE_FAULTS", "resolve_device"]
@@ -25,10 +27,21 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """``torch.device`` for ``device``; raises :class:`DeviceFault` when a
     CUDA device is asked for and ``torch.cuda.is_available()`` is false.
     There is no silent fallback to the CPU: a caller that wants the CPU says
-    so."""
+    so. In a rank of a ``torch.distributed`` process group, ``"cuda"``
+    without an index is the rank's card, ``cuda:<local rank % device
+    count>`` (the local rank from ``LOCAL_RANK``, else the group rank), made
+    the current device, since the kernels launch on the current device;
+    several ranks on one card share it."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise DeviceFault(
             f"device {str(dev)!r} was asked for but torch.cuda.is_available() "
             "is False; pass device='cpu' to run on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+            dev = torch.device("cuda", local % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
     return dev

@@ -106,4 +106,4 @@ def gossip_shard_dynamic(tree, schedules: list[GossipSchedule], step, axis):
     ``shard_map`` over ``gossip_shard``'s collective permutes."""
     raise NotImplementedError(
         "gossip_shard_dynamic is multi-device gossip and is not ported yet "
-        "(ROADMAP.md, Queue 1, item 7: core/shard.py on torch.distributed)")
+        "(ROADMAP.md, Queue 1, item 7: the collective-permute gossip)")

@@ -11,6 +11,11 @@ wrapper counts its launches in its ``launches`` attribute.
 Every form but ``edge_quadform`` also takes one leading batch axis (the
 batched ADMM's instances) and serves the whole batch in one launch; each
 instance of it is bitwise the unbatched call on that instance.
+
+``edge_laplacian`` and ``edge_adjoint`` also take a window ``first`` (and
+``count``) of the lexicographic edge list: one rank's contiguous share in
+the edge-partitioned ADMM (``core/shard.py``). The complete list is the
+window ``first = 0, count = m``, and a call without a window is that call.
 """
 from __future__ import annotations
 
@@ -24,7 +29,8 @@ from ...device import DeviceFault
 from .. import launch_util as _lu
 
 __all__ = ["edge_laplacian", "edge_quadform", "edge_laplacian_blocks", "edge_adjoint",
-           "edge_schur_matvec", "edge_laplacian_plain", "edge_quadform_plain",
+           "edge_schur_matvec", "edge_laplacian_plain", "edge_laplacian_window_plain",
+           "edge_quadform_plain",
            "edge_laplacian_blocks_plain", "edge_adjoint_plain", "edge_schur_matvec_plain",
            "packed_edge_index", "edge_endpoints"]
 
@@ -33,10 +39,10 @@ _P = ctypes.c_void_p
 _S = ctypes.c_longlong
 _I = ctypes.c_int
 _SIGNATURES = {
-    **{f"edge_laplacian_{s}": [_P, _S, _P, _S, _I, _I, _P] for s in ("f32", "f64")},
+    **{f"edge_laplacian_{s}": [_P, _S, _P, _S, _I, _I, _S, _S, _P] for s in ("f32", "f64")},
     **{f"edge_quadform_{s}": [_P, _P, _P, _P, _S, _I, _P] for s in ("f32", "f64")},
     **{f"edge_laplacian_blocks_{s}": [_P, _S] * 6 + [_I, _I, _P] for s in ("f32", "f64")},
-    **{f"edge_adjoint_{s}": [_P, _S] * 5 + [_I, _I, _P] for s in ("f32", "f64")},
+    **{f"edge_adjoint_{s}": [_P, _S] * 5 + [_I, _I, _S, _S, _P] for s in ("f32", "f64")},
     **{f"edge_schur_matvec_{s}": [_P, _S] * 6 + [_I, _I, _P] for s in ("f32", "f64")},
 }
 
@@ -75,6 +81,24 @@ def edge_laplacian_plain(g: torch.Tensor, lidx: torch.Tensor) -> torch.Tensor:
     return torch.diag_embed(G.sum(dim=-1)) - G
 
 
+def edge_laplacian_window_plain(g: torch.Tensor, lidx: torch.Tensor,
+                                first: int) -> torch.Tensor:
+    """The additive contribution to L of the packed window ``[first, first
+    + g.shape[-1])`` whose weights ``g`` holds (padded slots included, as
+    the sharded layer hands them over): the reference's
+    ``edge_laplacian_window`` (``repro/kernels/edge_laplacian/ref.py``).
+    Out-of-window entries gather the appended zero slot; each row sums in
+    index order (a cumulative sum), the order XLA's CPU reduction takes on
+    the short rows the parity tests hold it at, so that the result is
+    bitwise the reference's there in float64. Any leading axes."""
+    m_loc = g.shape[-1]
+    idx = lidx - first
+    valid = (idx >= 0) & (idx < m_loc)
+    g_ext = torch.cat([g, g.new_zeros(g.shape[:-1] + (1,))], dim=-1)
+    G = g_ext[..., torch.where(valid, idx, m_loc)]
+    return torch.diag_embed(G.cumsum(-1)[..., -1]) - G
+
+
 def edge_laplacian_blocks_plain(g: torch.Tensor, lam: torch.Tensor, S: torch.Tensor,
                                 T: torch.Tensor, y: torch.Tensor,
                                 out: torch.Tensor) -> torch.Tensor:
@@ -99,10 +123,15 @@ def edge_quadform_plain(P: torch.Tensor, ei: torch.Tensor,
 
 
 def edge_adjoint_plain(P: torch.Tensor, Q: torch.Tensor, w: torch.Tensor,
-                       v: torch.Tensor | None = None) -> torch.Tensor:
+                       v: torch.Tensor | None = None, first: int = 0,
+                       count: int | None = None) -> torch.Tensor:
     """AT_op's x-part by the engine's composition: ``[quadform(P + Q) + (w_i
-    + w_j) (+ v), −tr P + tr Q]``, (..., m + 1), over ``all_edges(n)``."""
+    + w_j) (+ v), −tr P + tr Q]``, (..., m + 1), over ``all_edges(n)``; with
+    ``count``, over the window ``[first, first + count)`` of it, (..., count
+    + 1), ``v`` then the window's (..., count)."""
     ei, ej = edge_endpoints(P.shape[-1], str(P.device))
+    if count is not None:
+        ei, ej = ei[first:first + count], ej[first:first + count]
     xg = edge_quadform_plain(P + Q, ei, ej) + (w[..., ei] + w[..., ej])
     if v is not None:
         xg = xg + v
@@ -162,10 +191,12 @@ def _batch_of(what: str, lead: tuple) -> int:
     return int(lead[0]) if lead else 1
 
 
-def _launch(what: str, dtype: torch.dtype, operands: tuple, n: int, lead: tuple) -> None:
+def _launch(what: str, dtype: torch.dtype, operands: tuple, n: int, lead: tuple,
+            window: tuple = ()) -> None:
     """Launch ``what`` on ``(name, tensor or None)`` operands, each passed
     as its pointer and instance stride, after the device and layout checks;
-    a ``None`` operand is a null pointer."""
+    a ``None`` operand is a null pointer. ``window`` is ``(first, count)``
+    for the two forms that take one."""
     batched = len(lead) == 1
     current = torch.cuda.current_device()
     args = []
@@ -180,29 +211,41 @@ def _launch(what: str, dtype: torch.dtype, operands: tuple, n: int, lead: tuple)
     lib = _lu.library("edge_laplacian", _SIGNATURES)
     fn = getattr(lib, f"{what}_{_SUFFIX[dtype]}")
     device = next(t for _, t in operands if t is not None).device
-    _raise_on(fn(*args, n, _batch_of(what, lead), _lu.raw_stream(device.index)), what)
+    _raise_on(fn(*args, n, _batch_of(what, lead), *window, _lu.raw_stream(device.index)), what)
 
 
-def edge_laplacian(g: torch.Tensor, n: int) -> torch.Tensor:
+def edge_laplacian(g: torch.Tensor, n: int, first: int | None = None) -> torch.Tensor:
     """Laplacian L(g) (n, n) of the complete candidate-edge list, or
-    (B, n, n) for a batch.
+    (B, n, n) for a batch; with ``first``, the additive contribution of the
+    window ``[first, first + count)`` of it, count = ``g.shape[-1]``.
 
     ``g``: (m,) or (B, m) edge weights in ``all_edges(n)`` order, m =
     n(n−1)/2 — the kernel derives the packed index analytically, so the
-    edge list must be the complete lexicographic one. float32 or float64.
-    One launch for the batch.
+    edge list must be the complete lexicographic one, or a window of it
+    ((count,) or (B, count), first + count ≤ m; every edge outside it
+    counts as weight 0). float32 or float64. One launch for the batch. The
+    window ``first = 0`` over the whole list is the call without a window.
+    On the CPU a window takes :func:`edge_laplacian_window_plain`.
     """
     m = n * (n - 1) // 2
-    if g.dim() not in (1, 2) or g.shape[-1] != m:
-        raise ValueError(f"edge_laplacian needs the complete edge list: "
-                         f"g has shape {tuple(g.shape)}, n={n} needs ({m},) or (B, {m})")
+    if first is None:
+        if g.dim() not in (1, 2) or g.shape[-1] != m:
+            raise ValueError(f"edge_laplacian needs the complete edge list: "
+                             f"g has shape {tuple(g.shape)}, n={n} needs ({m},) or (B, {m})")
+        first = 0
+    count = int(g.shape[-1])
+    if g.dim() not in (1, 2) or first < 0 or first + count > m:
+        raise ValueError(f"edge_laplacian: the window [{first}, {first + count}) of g "
+                         f"{tuple(g.shape)} does not lie in the {m} edges of n={n}")
     if g.device.type == "cpu":
-        return edge_laplacian_plain(g, packed_edge_index(n, "cpu"))
+        if first == 0 and count == m:
+            return edge_laplacian_plain(g, packed_edge_index(n, "cpu"))
+        return edge_laplacian_window_plain(g, packed_edge_index(n, "cpu"), first)
     lead = tuple(g.shape[:-1])
     if g.dtype not in _SUFFIX:
         raise TypeError(f"edge_laplacian takes float32 or float64, not {g.dtype}")
     L = torch.empty(lead + (n, n), dtype=g.dtype, device=g.device)
-    _launch("edge_laplacian", g.dtype, (("g", g), ("L", L)), n, lead)
+    _launch("edge_laplacian", g.dtype, (("g", g), ("L", L)), n, lead, (first, count))
     edge_laplacian.launches += 1
     return L
 
@@ -254,15 +297,17 @@ def edge_laplacian_blocks(g: torch.Tensor, lam: torch.Tensor, S: torch.Tensor,
 edge_laplacian_blocks.launches = 0
 
 
-def _check_adjoint_operands(what: str, P, Q, w, v, extra: tuple) -> tuple:
-    """Shape and dtype checks shared by the two adjoint forms; returns
-    (n, m, the leading shape, the named tensors)."""
+def _check_adjoint_operands(what: str, P, Q, w, v, extra: tuple, count: int | None = None) -> tuple:
+    """Shape and dtype checks shared by the two adjoint forms (``count``: a
+    window's length, v's then); returns (n, m, the leading shape, the named
+    tensors)."""
     lead = tuple(P.shape[:-2]) if P.dim() >= 2 else ()
     n = int(P.shape[-1]) if P.dim() >= 2 else -1
     m = n * (n - 1) // 2
+    mv = m if count is None else count
     if (P.dim() not in (2, 3) or tuple(P.shape) != lead + (n, n)
             or tuple(Q.shape) != lead + (n, n) or tuple(w.shape) != lead + (n,)
-            or (v is not None and tuple(v.shape) != lead + (m,))):
+            or (v is not None and tuple(v.shape) != lead + (mv,))):
         raise ValueError(f"{what} needs P and Q (n, n), w (n,) and v (m,) or None, each with "
                          f"the same leading batch axis or none; got "
                          f"P {tuple(P.shape)}, Q {tuple(Q.shape)}, w {tuple(w.shape)}, "
@@ -275,9 +320,12 @@ def _check_adjoint_operands(what: str, P, Q, w, v, extra: tuple) -> tuple:
 
 
 def edge_adjoint(P: torch.Tensor, Q: torch.Tensor, w: torch.Tensor,
-                 v: torch.Tensor | None = None) -> torch.Tensor:
+                 v: torch.Tensor | None = None, first: int | None = None,
+                 count: int | None = None) -> torch.Tensor:
     """AT_op's x-part in one launch: ``[quadform(P + Q)_l + (w_i + w_j)
-    (+ v_l), −tr P + tr Q]``, (m + 1,), over ``all_edges(n)``.
+    (+ v_l), −tr P + tr Q]``, (m + 1,), over ``all_edges(n)``; with
+    ``first`` and ``count``, over the window ``[first, first + count)`` of
+    it, (count + 1,), ``v`` then the window's (count,).
 
     ``P``, ``Q``: (n, n) (the λ blocks, views of the flat constraint-space
     vector); ``w``: (n,); ``v``: (m,) or None (heterogeneous specs). A
@@ -286,14 +334,22 @@ def edge_adjoint(P: torch.Tensor, Q: torch.Tensor, w: torch.Tensor,
     for all. One dtype, float32 or float64. The edge entries are bit-equal
     to :func:`edge_adjoint_plain` on the same device; the last entry comes
     from a fixed-order sum of the diagonals, within 2n·u·(Σ|P_ii| +
-    Σ|Q_ii|) of the plain version's.
+    Σ|Q_ii|) of the plain version's. The window ``first = 0, count = m`` is
+    the call without one.
     """
-    n, m, lead, tensors = _check_adjoint_operands("edge_adjoint", P, Q, w, v, ())
+    if (first is None) != (count is None):
+        raise ValueError("edge_adjoint takes a window as both first and count, or neither")
+    n, m, lead, tensors = _check_adjoint_operands("edge_adjoint", P, Q, w, v, (), count)
+    if first is None:
+        first, count = 0, m
+    if first < 0 or count < 0 or first + count > m:
+        raise ValueError(f"edge_adjoint: the window [{first}, {first + count}) does not lie "
+                         f"in the {m} edges of n={n}")
     if all(t.device.type == "cpu" for _, t in tensors):
-        return edge_adjoint_plain(P, Q, w, v)
-    x = torch.empty(lead + (m + 1,), dtype=P.dtype, device=P.device)
+        return edge_adjoint_plain(P, Q, w, v, first, None if count == m else count)
+    x = torch.empty(lead + (count + 1,), dtype=P.dtype, device=P.device)
     _launch("edge_adjoint", P.dtype, (("P", P), ("Q", Q), ("w", w), ("v", v), ("x", x)),
-            n, lead)
+            n, lead, (first, count))
     edge_adjoint.launches += 1
     return x
 

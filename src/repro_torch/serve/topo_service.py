@@ -227,6 +227,39 @@ class TopologyService:
                 self._seed_profiles[n] = PhaseProfile(
                     {k: v / restarts for k, v in prof.phases.items()})
 
+    _PIPELINE_PHASES = ("warm_s", "admm_s", "round_s", "polish_s", "eval_s")
+
+    def _seed_from_run(self, n: int, phases: dict, instances: int) -> None:
+        """Seed the stage profile of ``n`` from a full-tier solve this
+        service ran, where none is learned yet: its measured phase times
+        (``<phase>_s``) divided by the instances it solved (restarts of one
+        request, or every restart of a bucket), as :meth:`_seed_ema` turns a
+        bench row into a :class:`PhaseProfile`, but from this service's own
+        measurements on its own device. Reads no file."""
+        if n in self._seed_profiles:
+            return
+        prof = PhaseProfile.from_dict({k: phases[k] for k in self._PIPELINE_PHASES
+                                       if k in phases})
+        if prof.phases:
+            k = max(1, int(instances))
+            self._seed_profiles[n] = PhaseProfile({p: v / k for p, v in prof.phases.items()})
+
+    def _seed_profile_for(self, n: int) -> PhaseProfile | None:
+        """The stage profile that seeds an anytime solve at ``n``: the one
+        learned at ``n``, else the nearest learned n's (the larger on a tie)
+        scaled by ``max(1, m(n) / m(n'))`` with m(k) = k(k−1)/2 candidate
+        edges — a stage's work grows with the edge count (SA moves, the
+        ADMM's edge leaves, the polish), and on the card a smaller problem is
+        launch-bound and costs no less, so an estimate never scales down.
+        None when nothing is learned."""
+        if n in self._seed_profiles:
+            return self._seed_profiles[n]
+        if not self._seed_profiles:
+            return None
+        near = min(self._seed_profiles, key=lambda k: (abs(k - n), -k))
+        scale = max(1.0, (n * (n - 1)) / (near * (near - 1)))
+        return PhaseProfile({p: v * scale for p, v in self._seed_profiles[near].phases.items()})
+
     def _learn_stages(self, n: int, estimates: dict) -> None:
         """Keep one anytime solve's per-stage-invocation cost estimates
         (seconds per SA restart, per ADMM solve, per polish, per evaluation)
@@ -509,8 +542,9 @@ class TopologyService:
             if len(group) < 2:           # nothing to amortize — go individual
                 singles.extend((req, t_sub) for req, t_sub, _ in group)
                 continue
+            phases: dict = {}
             try:
-                topos = self._solve_bucket(n, [req for req, _, _ in group])
+                topos = self._solve_bucket(n, [req for req, _, _ in group], phases)
                 self.stats["bucketed_solves"] += 1
             except DEVICE_FAULTS:
                 raise
@@ -528,7 +562,7 @@ class TopologyService:
                     req.request_id, "ok", topology=topo, quality_tier="full",
                     reason=None,
                     latency_ms=(time.perf_counter() - t_sub) * 1e3,
-                    profile={"bucketed": True, "bucket_size": len(group)})
+                    profile={"bucketed": True, "bucket_size": len(group), **phases})
 
         for req, t_sub in singles:
             responses[req.request_id] = self._process_single(req, t_sub)
@@ -554,7 +588,7 @@ class TopologyService:
         try:
             res = solve_topology(req, cfg=self.cfg,
                                  budget_ms=max(float(remaining), 0.0),
-                                 seed_profile=self._seed_profiles.get(n))
+                                 seed_profile=self._seed_profile_for(n))
             topo, tier, reason = res.topology, res.quality_tier, res.reason
             prof = {"queue_s": queue_s, **res.profile.to_dict()}
             self._learn_stages(n, res.stage_estimates)
@@ -649,6 +683,8 @@ class TopologyService:
                 reasons.append(f"{tier}: invalid topology ({bad} violated)")
                 continue
             prof["solve_s"] = time.perf_counter() - t0
+            if tier == "full":
+                self._seed_from_run(n, prof, req.restarts or self.cfg.restarts)
             self._cache_store(req, key, topo)
             return TopoResponse(
                 req.request_id, "ok", topology=topo, quality_tier=tier,
@@ -666,7 +702,7 @@ class TopologyService:
     # ------------------------------------------------------------------
 
     def _solve_bucket(self, n: int, reqs: list[TopoRequest],
-                      ) -> list[Topology | None]:
+                      phases: dict | None = None) -> list[Topology | None]:
         """Solve a bucket of same-n homogeneous misses in one batched sweep.
 
         Mirrors the one-shot pipeline request by request — same restart
@@ -675,8 +711,13 @@ class TopologyService:
         selection helpers — but runs ALL (request × restart) ADMM instances
         as ONE ``solve_sweep_spec`` call on ``cfg.device`` from one
         ``init_state`` of the (B, m) warm starts, padded to a power of two
-        only under ``policy.pad_pow2``.
+        only under ``policy.pad_pow2``. Its warm-start, ADMM, rounding,
+        polish and evaluation times go to ``phases`` (``<phase>_s``, the
+        whole bucket's) and seed the stage profile of ``n`` per instance
+        (:meth:`_seed_from_run`).
         """
+        phases = {} if phases is None else phases
+        clock = time.perf_counter
         from ..core.engine import (check_solver, init_state, make_homo_spec,
                                    resolve_partition, solve_sweep_spec)
 
@@ -686,6 +727,7 @@ class TopologyService:
         resolve_partition(admm.partition, n)
         m = len(all_edges(n))
         n_restarts = max(1, cfg.restarts)
+        t0 = clock()
         inits, seeds, rs_vec = [], [], []
         for req in reqs:
             r_eff = min(int(req.r), m)
@@ -698,7 +740,9 @@ class TopologyService:
                 rs_vec.append(r_eff)
         warms = [_pack_warm(n, e)
                  for e in _anneal_edges(n, inits, seeds, None, cfg)]
+        phases["warm_s"] = clock() - t0
 
+        t0 = clock()
         spec = make_homo_spec(n, max(rs_vec), admm)
         b = len(warms)
         pad = ((1 << (b - 1).bit_length()) - b) if self.policy.pad_pow2 else 0
@@ -707,19 +751,28 @@ class TopologyService:
                             np.array([warms[i][2] for i in rows]))
         results = solve_sweep_spec(spec, [rs_vec[i] for i in rows], states,
                                    admm)[:b]
+        phases["admm_s"] = clock() - t0
 
         out: list[Topology | None] = []
+        phases.update(round_s=0.0, polish_s=0.0, eval_s=0.0)
         for i, req in enumerate(reqs):
             sl = slice(i * n_restarts, (i + 1) * n_restarts)
             r_eff = rs_vec[i * n_restarts]
             meta = {"scenario": "homo", "r": r_eff}
+            t0 = clock()
             items, sources = _candidate_items(
                 n, r_eff, warms[sl], results[sl], None, cfg, meta,
                 use_z=False)
+            t1 = clock()
             topos = _finalize_batch(n, items, cfg, None)
+            t2 = clock()
             best, best_val, _ = _pick_best(n, items, topos, sources)
+            phases["round_s"] += t1 - t0
+            phases["polish_s"] += t2 - t1
+            phases["eval_s"] += clock() - t2
             if best is not None:
                 best.meta["r_asym"] = best_val
                 best.meta["bucketed"] = True
             out.append(best)
+        self._seed_from_run(n, phases, b)
         return out

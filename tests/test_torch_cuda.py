@@ -1447,3 +1447,81 @@ def test_bf16_checkpoint_round_trip_on_a_card_template(cuda, tmp_path):
     assert got["embed"].dtype == torch.bfloat16
     assert torch.equal(got["embed"].view(torch.int16), tree["embed"].view(torch.int16))
     assert torch.equal(got["opt"]["m"], tree["opt"]["m"]) and int(got["step"]) == 3
+
+
+def _windows(m, world):
+    """(first, count) of each rank's window, the last padded."""
+    m_loc = -(-m // world)
+    return [(min(k * m_loc, m), max(0, min(m_loc, m - k * m_loc))) for k in range(world)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 64, 257])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("world", [2, 3])
+def test_edge_window_kernels_on_card(cuda, n, dtype, world):
+    """The windowed ``edge_laplacian`` against its plain version (L's
+    tolerance) and summed over the windows against the full call; the
+    windowed ``edge_adjoint`` one launch, its entries bitwise the full
+    launch's slice and the trace entry the full launch's bits (the same
+    block reduction); with v on every second world."""
+    m = n * (n - 1) // 2
+    g = torch.rand(m, dtype=dtype, device=cuda)
+    P, Q, w, v = _adjoint_operands(n, dtype, world == 3, cuda)
+    full_L = tel.edge_laplacian(g, n)
+    full_x = tel.edge_adjoint(P, Q, w, v)
+    lidx = tel.packed_edge_index(n, "cuda")
+    total = torch.zeros_like(full_L)
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    for first, count in _windows(m, world):
+        gw = g[first:first + count]
+        before = (tel.edge_laplacian.launches, tel.edge_adjoint.launches)
+        L = tel.edge_laplacian(gw, n, first)
+        x = tel.edge_adjoint(P, Q, w, None if v is None else v[first:first + count],
+                             first, count)
+        assert (tel.edge_laplacian.launches, tel.edge_adjoint.launches) == \
+            (before[0] + 1, before[1] + 1)
+        want = tel.edge_laplacian_window_plain(gw, lidx, first)
+        torch.cuda.synchronize()
+        tol = 1e-12 if dtype == torch.float64 else 1e-5 * max(float(want.diagonal().max()), 1.0)
+        assert float((L - want).abs().max()) <= tol
+        total += L
+        assert torch.equal(x[:count].view(bits), full_x[first:first + count].view(bits))
+        assert torch.equal(x[count:].view(bits), full_x[m:].view(bits))
+    tol = 1e-12 if dtype == torch.float64 else 1e-5 * float(full_L.diagonal().max())
+    assert float((total - full_L).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_sharded_solve_is_the_unsharded_one_on_card(cuda, tmp_path):
+    """``solve_spec_sharded`` in a process group of one rank on NCCL (every
+    collective runs, with nothing to exchange) against ``solve_spec`` on the
+    card at n=64, float64, eigh, exact CG: the window is the whole list and
+    its kernels are the full launches, so g, λ̃, the counts and the
+    history's λ̃ are the same bits (the residual sums its leaves in another
+    order)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import shard
+    from repro_torch.core.api import _pack_warm
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}",
+                            rank=0, world_size=1)
+    try:
+        cfg = te.ADMMConfig(dtype="float64", max_iters=20, check_every=10)
+        spec = te.make_homo_spec(64, 128, cfg)
+        edges = greedy_degree_graph(64, np.full(64, 4), np.random.default_rng(0))
+        g0, _, lam0 = _pack_warm(64, edges)
+        st = te.init_state(spec, g0, lam0)
+        want = te.solve_spec(spec, st, cfg)
+        before = (tel.edge_laplacian.launches, tel.edge_schur_matvec.launches)
+        got = shard.solve_spec_sharded(spec, st, cfg)
+        assert tel.edge_laplacian.launches > before[0]
+        assert tel.edge_schur_matvec.launches == before[1]
+    finally:
+        dist.destroy_process_group()
+    assert want.lam_tilde > 0.0
+    assert got.g.tobytes() == want.g.tobytes() and got.lam_tilde == want.lam_tilde
+    assert (got.iters, got.cg_iters) == (want.iters, want.cg_iters)
+    assert [h[::2] for h in got.history] == [h[::2] for h in want.history]
+    assert abs(got.residual - want.residual) <= 1e-12 * abs(want.residual)

@@ -103,17 +103,21 @@ def test_consensus_matches_reference_on_shared_initial_values():
 
 
 def test_entry_points_not_ported_raise_naming_the_roadmap_item():
-    """Item 7's partitions still raise; a ``driver="python"`` request
-    (item 2, ported) runs through the barrier engine, one restart at a time,
-    to a release-valid topology."""
-    from repro_torch.core.engine import ADMMConfig, resolve_partition
+    """The multi-device gossip (item 7's later sub-items) still raises
+    naming the roadmap item; a ``driver="python"`` request (item 2, ported)
+    runs through the barrier engine, one restart at a time, to a
+    release-valid topology, and so does ``partition="edges"`` (item 7a,
+    ported: one process is a world of one rank)."""
+    from repro_torch.core.engine import ADMMConfig
+    from repro_torch.dsgd.dynamic import gossip_shard_dynamic
 
-    cfg = BATopoConfig(device="cpu", sa_iters=60, polish_iters=50, restarts=2,
-                       admm=ADMMConfig(driver="python", max_iters=40))
-    res = solve_topology(TopologyRequest(n=8, r=12), cfg=cfg, engine="barrier")
-    assert res.complete and check_invariants(res.topology) is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        resolve_partition("edges", 8)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+        gossip_shard_dynamic(None, [], 0, None)
+    for admm in (ADMMConfig(driver="python", max_iters=40),
+                 ADMMConfig(partition="edges", max_iters=40)):
+        cfg = BATopoConfig(device="cpu", sa_iters=60, polish_iters=50, restarts=2, admm=admm)
+        res = solve_topology(TopologyRequest(n=8, r=12), cfg=cfg, engine="barrier")
+        assert res.complete and check_invariants(res.topology) is None
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

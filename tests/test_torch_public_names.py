@@ -7,6 +7,10 @@
   float64 ``x0`` (the reference's own draw from its seed): the errors within
   1e-12 of the initial error (float64 matmuls summed in other orders), the
   times exactly.
+- ``repro_torch.core.shard.__all__`` is the reference's; on an edge
+  partition ``edge_kernel=True`` is a deviation: the reference refuses it,
+  the port runs its windowed kernels (their plain window forms on the CPU)
+  and matches the reference's unsharded solve within 1e-10.
 - ``kernels/gossip_mix/ops.gossip_mix_tree`` mixes a parameter pytree leaf
   by leaf as the reference's does (its Pallas kernel in interpret mode):
   float32 within 1e-6, as ``tests/test_torch_gossip.py`` holds
@@ -21,9 +25,14 @@ jnp = jax.numpy
 
 import repro.core as jcore  # noqa: E402
 from repro.core import consensus as jcons  # noqa: E402
+from repro.core import engine as jengine  # noqa: E402
+from repro.core import shard as jshard  # noqa: E402
 from repro.core.topologies import make_baseline as j_baseline  # noqa: E402
 from repro.kernels.gossip_mix import ops as jops  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
+from repro_torch.core import engine as tengine  # noqa: E402
+from repro_torch.core import shard as tshard  # noqa: E402
+from repro_torch.kernels.edge_laplacian import ops as tel  # noqa: E402
 from repro_torch.kernels.gossip_mix import ops as tops  # noqa: E402
 
 
@@ -31,6 +40,43 @@ from repro_torch.kernels.gossip_mix import ops as tops  # noqa: E402
 def test_every_reference_core_name_imports_from_the_port(name):
     assert name in tcore.__all__
     assert getattr(tcore, name) is not None
+
+
+def test_shard_names_are_the_reference_names():
+    assert tshard.__all__ == jshard.__all__
+    assert all(getattr(tshard, name) is not None for name in tshard.__all__)
+    assert tcore.resolve_partition("auto", 4096) == "none"
+
+
+def test_edge_kernel_on_an_edge_partition_is_a_deviation(monkeypatch):
+    """The reference's sharded solve refuses ``edge_kernel=True`` (its
+    Pallas pair needs the whole edge list); the port's runs the windowed
+    wrappers, here on one process (one window, the whole list, on the CPU)."""
+    cfg = dict(max_iters=20, check_every=10)
+    g0 = np.random.default_rng(9).random(28) * 0.3
+    jspec = jengine.make_homo_spec(8, 12, jengine.ADMMConfig(edge_kernel=True, **cfg))
+    jst = jengine.init_state(jspec, jnp.asarray(g0), 0.5)
+    with pytest.raises(ValueError, match="edge_kernel=True"):
+        jshard.solve_spec_sharded(jspec, jst, jengine.ADMMConfig(edge_kernel=True, **cfg),
+                                  ndev=1)
+    tcfg = tengine.ADMMConfig(device="cpu", **cfg)
+    assert tcfg.edge_kernel
+    tspec = tengine.make_homo_spec(8, 12, tcfg)
+    tst = tengine.init_state(tspec, g0, 0.5)
+    calls = []
+    for name in ("edge_laplacian", "edge_adjoint"):
+        fn = getattr(tel, name)
+
+        def spy(*a, _fn=fn, _name=name, **kw):
+            calls.append((_name, a[3:] if _name == "edge_adjoint" else a[2:]))
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(tel, name, spy)
+    got = tshard.solve_spec_sharded(tspec, tst, tcfg)
+    assert calls and {c[1] for c in calls} == {(0,), (None, 0, 28)}
+    want = jengine.solve_spec(jspec, jst, jengine.ADMMConfig(**cfg))
+    np.testing.assert_allclose(got.g, np.asarray(want.g), rtol=0, atol=1e-10)
+    assert abs(got.lam_tilde - want.lam_tilde) <= 1e-10 and got.iters == want.iters
 
 
 @pytest.mark.parametrize("kind", ["ring", "exponential"])

@@ -278,6 +278,57 @@ def test_deadlined_requests_learn_stage_estimates_and_skip_what_cannot_fit():
     assert "restart 0: skipped (admm est" in second.reason, second.reason
 
 
+def test_a_bucket_solve_seeds_the_next_deadlined_request_at_its_n():
+    """A bucket of two n=12 requests records its phase times and seeds the
+    stage profile of n=12 per instance (the bucket's restarts), where the
+    first deadlined request at n=12 used to find none; that request's
+    anytime solve is seeded with it and records the ADMM it skips."""
+    cfg = t_api.BATopoConfig(sa_iters=40, polish_iters=80, device="cpu", restarts=1,
+                             admm=t_api.large_n_admm_config(max_iters=100))
+    svc = TopologyService(cfg=cfg)
+    for r in (20, 24):
+        svc.submit(TopoRequest(n=12, r=r))
+    bucket = svc.drain()
+    assert svc.stats["bucketed_solves"] == 1 and all(b.quality_tier == "full" for b in bucket)
+    phases = bucket[0].profile
+    seeded = svc._seed_profiles[12].phases
+    assert seeded == {k: phases[f"{k}_s"] / 2 for k in ("warm", "admm", "round", "polish",
+                                                          "eval")}
+    seen = []
+
+    def spy(*a, **kw):
+        seen.append(dict(kw["seed_profile"].phases))
+        return solve_topology(*a, **kw)
+
+    t_svc.solve_topology, real = spy, t_svc.solve_topology
+    try:
+        timed = svc.request(12, 26, deadline_ms=seeded["admm"] * 1e3)
+    finally:
+        t_svc.solve_topology = real
+    assert seen == [seeded]
+    assert timed.ok and check_invariants(timed.topology) is None
+    assert "restart 0: skipped (admm est" in timed.reason, timed.reason
+
+
+def test_a_full_tier_solve_seeds_its_n_and_an_unseen_n_scales_the_nearest():
+    """The one-request full tier seeds its n per restart; an n with no
+    profile takes the nearest learned n's (the larger on a tie), scaled by
+    the ratio of candidate-edge counts and never scaled down."""
+    cfg = dataclasses.replace(SVC_CFG, restarts=2)
+    svc = TopologyService(cfg=cfg)
+    resp = svc.request(10, 16)
+    assert resp.quality_tier == "full"
+    want = {k: resp.profile[f"{k}_s"] / 2 for k in ("warm", "admm", "round", "polish", "eval")}
+    assert svc._seed_profiles[10].phases == want
+    assert svc._seed_profile_for(10).phases == want
+    assert svc._seed_profile_for(8).phases == want
+    up = svc._seed_profile_for(16).phases
+    assert up == {k: v * ((16 * 15) / (10 * 9)) for k, v in want.items()}
+    svc._seed_profiles[12] = t_svc.PhaseProfile({"admm": 1.0})
+    assert svc._seed_profile_for(11).phases == {"admm": 1.0}   # tie → 12, not scaled down
+    assert TopologyService(cfg=cfg)._seed_profile_for(10) is None
+
+
 # =========================================================================
 # device faults propagate
 # =========================================================================
