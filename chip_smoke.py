@@ -34,6 +34,14 @@ and drives the port's paths on ``cuda``:
   bytes (``tools/gossip_deg.py``); then the row-loop oracle of one-worker
   ``gossip_mix`` kernels on the trained leaves, reduced smollm card vs CPU,
   and one profiled full-width train step;
+- DSGD with one worker a rank (``make_sharded_train_step``): main_dsgd's
+  cluster as 8 gloo ranks spawned on the one card, 2 steps whose gossip is
+  the schedule's matching rounds as point-to-point sends (staged through
+  pinned host memory: gloo sends host memory only), step 1's gossip held
+  bitwise to a stacked oracle and its params to the stacked
+  ``dsgd_train_step``; the elastic rank step without faults bitwise the
+  plain one, a dead rank frozen, a dropped straggler's round bitwise its
+  oracle;
 - elastic DSGD training through the launcher (``--elastic``): main_dsgd's
   run with churn, stragglers, packet loss and a NIC collapse (a re-solve on
   the card, adopted mid-run), every round mixing leaf by leaf through
@@ -2457,6 +2465,542 @@ def phase_main_dsgd_dynamic(dsgd_run: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11a: DSGD with one worker a rank (make_sharded_train_step) on the card
+# ---------------------------------------------------------------------------
+
+SDSGD_STEPS = 2
+SDSGD_BATCH, SDSGD_SEQ = 4, 256
+SDSGD_SEED = 0
+SDSGD_LR = 0.05
+SDSGD_STRAGGLER, SDSGD_DEAD = 3, 5
+SDSGD_TIMEOUT_S = 300
+SDSGD_DIR = ROOT / "build" / "chip_smoke" / "main_sharded_dsgd"
+#: step 1 against the stacked ``dsgd_train_step`` from the same start, per
+#: leaf, in bf16 ulps at the leaf's largest magnitude: both run the same
+#: bf16 forward and backward, but with their GEMMs batched over one worker
+#: or eight, so the gradients agree to bf16 rounding noise, and a local
+#: update that lands near a rounding boundary of its parameter flips by an
+#: ulp; the gossip itself is pinned bitwise and within ``_within``'s bound
+SDSGD_ULPS = 8
+#: step 1's momentum (SGD-momentum: the first gradient plus weight decay,
+#: float32) against the stacked step's, ‖Δ‖/‖m‖ for each leaf and worker:
+#: the same bf16 noise of GEMMs batched over one worker or eight; the
+#: controls (a zero gradient, the gradient of half the batch) must lie
+#: beyond it
+SDSGD_MOMENTUM_RTOL = 0.05
+SDSGD_LOSS_RTOL = 1e-3
+
+
+def _sdsgd_batch(step: int, worker: int, n: int, vocab: int) -> dict:
+    """Worker ``worker``'s batch of ``step``: token ids drawn with numpy from
+    (seed, step), (1, b, s) int32, the labels the next tokens."""
+    tok = np.random.default_rng((SDSGD_SEED, step)).integers(
+        0, vocab, size=(n, SDSGD_BATCH, SDSGD_SEQ + 1), dtype=np.int64).astype(np.int32)
+    tok = tok[worker:worker + 1]
+    return {"tokens": torch.from_numpy(np.ascontiguousarray(tok[..., :-1])),
+            "labels": torch.from_numpy(np.ascontiguousarray(tok[..., 1:]))}
+
+
+def _flat(tree) -> torch.Tensor:
+    """Every leaf of a one-dtype tree in one flat buffer, in ``_leaves`` order."""
+    return torch.cat([x.reshape(-1) for x in _leaves(tree).values()])
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors hold the same bits (−0.0 is not 0.0)."""
+    return a.dtype == b.dtype and torch.equal(a.contiguous().view(torch.uint8),
+                                              b.contiguous().view(torch.uint8))
+
+
+def _same_bits(a, b) -> bool:
+    """Whether two trees' leaves hold the same bits."""
+    return all(_bits_equal(x, y) for x, y in zip(_leaves(a).values(), _leaves(b).values()))
+
+
+def _stacked_rounds(X: torch.Tensor, sched, mix=None) -> torch.Tensor:
+    """The rank-per-worker gossip over stacked (n, M) copies in one process:
+    the float32 per-round accumulation of ``gossip_shard`` (``mix=None``)
+    or of ``gossip_shard_elastic`` (``mix`` the (n,) flags), op for op, so
+    its bits are the ranks'."""
+    from repro_torch.dsgd.gossip import _peers, schedule_weight_arrays
+
+    ws, wr = schedule_weight_arrays(sched)
+    n = X.shape[0]
+    dev = X.device
+    if mix is None:
+        acc = X.float() * torch.from_numpy(ws).to(dev)[:, None]
+        for r, perm in enumerate(sched.perms):
+            for i in range(n):
+                src = _peers(perm, i)[1]
+                if src is not None:
+                    acc[i] += X[src].float() * float(wr[r, i])
+        return acc.to(X.dtype)
+    a = torch.as_tensor(mix, dtype=torch.float32, device=dev)
+    w_self = torch.from_numpy(ws).to(dev)
+    w_recv = torch.from_numpy(wr).to(dev)
+    acc = torch.stack([X[i].float() * w_self[i] for i in range(n)])
+    lost = [torch.zeros((), dtype=torch.float32, device=dev) for _ in range(n)]
+    for r, perm in enumerate(sched.perms):
+        for i in range(n):
+            src, w = _peers(perm, i)[1], w_recv[r, i]
+            if src is None:
+                lost[i] = lost[i] + w
+                continue
+            acc[i] += X[src].float() * (w * a[src])
+            lost[i] = lost[i] + w * (1.0 - a[src])
+    for i in range(n):
+        acc[i] += X[i].float() * lost[i]
+    return acc.to(X.dtype)
+
+
+def _timed(owner, attr: str, log: list, dev):
+    """Wrap ``owner.attr`` so each call's time, synchronized on ``dev``, is
+    appended to ``log``; returns the original."""
+    orig = getattr(owner, attr)
+
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize(dev)
+        log.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    setattr(owner, attr, wrapped)
+    return orig
+
+
+def _rel_rows(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max_i ‖a_i − b_i‖ / ‖b_i‖ over the rows (workers) of two (n, ...)
+    tensors, in float32."""
+    a, b = a.reshape(a.shape[0], -1).float(), b.reshape(b.shape[0], -1).float()
+    return float(((a - b).norm(dim=1) / b.norm(dim=1)).max())
+
+
+def _mix_rows(X: torch.Tensor, W: torch.Tensor, row: int, f) -> torch.Tensor:
+    """Σ_j W[row, j] · f(X_j) in float32 over the row's nonzero j, one
+    worker's copy at a time (a whole (n, M) float32 temporary of the
+    full-width model is 4.3 GB)."""
+    out = torch.zeros(X.shape[1:], dtype=torch.float32, device=X.device)
+    for j in torch.nonzero(W[row]).flatten().tolist():
+        out += f(X[j]) * W[row, j]
+    return out
+
+
+def _expandable_segments(on: bool) -> None:
+    """Switch the caching allocator's expandable segments for the segments
+    this process creates from now on."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        torch.cuda.memory._set_allocator_settings(f"expandable_segments:{on}")
+
+
+def _sdsgd_rank(rank: int, world: int, init: str, jobs, share, out_dir: str) -> None:
+    """One worker of main_sharded_dsgd, in a process of its own (spawned;
+    ``resolve_device("cuda")`` puts every rank on ``cuda:<rank % count>``,
+    so all share the one card, over gloo). Builds the seed's start and
+    warms the model up on a small batch while the parent runs the stacked
+    step, then trains SDSGD_STEPS steps of ``make_sharded_train_step``,
+    timing each step, its gossip and gloo's staging copies; runs the
+    elastic step three times from the same start (no faults, a dropped
+    straggler, a dead rank); hands step 1's pre- and post-gossip leaves, its
+    momentum (on the host while the steps run: 8 ranks fill the card) and
+    the straggler run's params to the parent (CUDA IPC) and keeps them
+    alive until the parent has checked them. Trains in expandable
+    segments: with fixed-size segments a rank reserved 8.1–9.5 GB at a
+    peak of 5.3–6.4 GB allocated, and 8 ranks filled the card. Writes its
+    results and the times it reached each stage to ``out_dir``."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    t_start = time.perf_counter()
+    marks = {}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_start
+
+    torch.set_num_threads(1)
+    _expandable_segments(True)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=SDSGD_TIMEOUT_S))
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.core.graph import Topology
+    from repro_torch.device import resolve_device
+    from repro_torch.dsgd import (gossip, init_dsgd_state, make_elastic_sharded_train_step,
+                                  make_sharded_train_step, schedule_from_topology,
+                                  schedule_weight_arrays, trainer)
+    from repro_torch.optim import sgd_momentum
+
+    mark("ready")
+    dev = resolve_device("cuda")
+    cfg = get_arch("smollm-135m")
+    opt_init, opt_update = sgd_momentum(SDSGD_LR)
+    state0 = init_dsgd_state(SDSGD_SEED, cfg, 1, opt_init, device=dev)
+    batches = [{k: v.to(dev) for k, v in _sdsgd_batch(s, rank, world, cfg.vocab_size).items()}
+               for s in range(SDSGD_STEPS)]
+    mark("state")
+    # the process's first forward and backward (library handles, kernel
+    # modules) on one short sequence, before the timed steps
+    warm = {k: v[:, :1, :16] for k, v in batches[0].items()}
+    grad_fn = torch.func.vmap(torch.func.grad_and_value(trainer._loss_fn(cfg)))
+    grad_fn(state0.params, warm)
+    torch.cuda.synchronize(dev)
+    mark("warm")
+    job = jobs[rank].get()
+    mark("job")
+    topo = Topology(world, [tuple(e) for e in job["edges"]], np.asarray(job["g"]), "ba")
+    sched = schedule_from_topology(topo)
+    mesh = DeviceMesh("cuda", torch.arange(world), mesh_dim_names=("data",))
+    step_fn = make_sharded_train_step(cfg, sched, opt_update, mesh)
+    gossip_ms, to_host_ms, to_device_ms, captured = [], [], [], []
+    orig_shard = trainer.gossip_shard
+
+    def spy(tree, sched_, axis):
+        # step 1's leaves wait on the host while the steps run
+        if not captured:
+            captured.append(_flat(tree).cpu())
+        out = orig_shard(tree, sched_, axis)
+        if len(captured) == 1:
+            captured.append(_flat(out).cpu())
+        return out
+
+    trainer.gossip_shard = spy
+    origs = [_timed(trainer, "gossip_shard", gossip_ms, dev),
+             _timed(gossip, "_to_host", to_host_ms, dev),
+             _timed(gossip, "_to_device", to_device_ms, dev)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    # the start waits on the host while the steps run (8 ranks share the card)
+    host0 = tree_map(lambda t: t.to("cpu"), state0)
+    state, state0, step_ms, losses, at = state0, None, [], [], []
+    torch.cuda.synchronize(dev)
+    dist.barrier()
+    mark("train")
+    for s in range(SDSGD_STEPS):
+        at.append((len(gossip_ms), len(to_host_ms), len(to_device_ms)))
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[s])
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize(dev)
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        if s == 0:     # step 1's params are captured[1]
+            momentum1 = tree_map(lambda t: t.to("cpu"), state.opt.momentum)
+    mark("trained")
+    at.append((len(gossip_ms), len(to_host_ms), len(to_device_ms)))
+    launches = kernels.launch_counts()
+    peak = (torch.cuda.max_memory_allocated(dev), torch.cuda.max_memory_reserved(dev))
+    for (owner, attr), orig in zip(((trainer, "gossip_shard"), (gossip, "_to_host"),
+                                    (gossip, "_to_device")), origs):
+        setattr(owner, attr, orig)
+    trainer.gossip_shard = orig_shard
+    per_step = [dict(step_ms=step_ms[s], gossip_ms=sum(gossip_ms[a[0]:b[0]]),
+                     to_host_ms=sum(to_host_ms[a[1]:b[1]]),
+                     to_device_ms=sum(to_device_ms[a[2]:b[2]]),
+                     to_device_copies=b[2] - a[2])
+                for s, (a, b) in enumerate(zip(at, at[1:]))]
+
+    # the elastic step from the same start: no faults, a dropped straggler,
+    # a dead rank
+    del state
+    state0 = tree_map(lambda t: t.to(dev), host0)
+    elastic = make_elastic_sharded_train_step(cfg, sched, opt_update, mesh)
+    ws, wr = (torch.from_numpy(a).to(dev) for a in schedule_weight_arrays(sched))
+    ones = torch.ones(world, device=dev)
+    drop, dead = ones.clone(), ones.clone()
+    drop[SDSGD_STRAGGLER] = 0.0
+    dead[SDSGD_DEAD] = 0.0
+    e_free, mf = elastic(state0, batches[0], ones, ones, ws, wr)
+    free_bitwise = (_bits_equal(_flat(e_free.params).cpu(), captured[1])
+                    and _same_bits(tree_map(lambda t: t.cpu(), e_free.opt.momentum), momentum1)
+                    and float(mf["loss"]) == losses[0])
+    del e_free
+    e_drop, md = elastic(state0, batches[0], ones, drop, ws, wr)
+    straggler = _flat(e_drop.params).cpu()
+    del e_drop
+    e_dead, mdead = elastic(state0, batches[0], dead, dead, ws, wr)
+    frozen = _same_bits(e_dead.params, state0.params) and _same_bits(e_dead.opt.momentum,
+                                                                     state0.opt.momentum)
+    del e_dead
+    mark("elastic")
+    param_bytes = sum(x.numel() * x.element_size() for x in _leaves(state0.params).values())
+    del state0, batches
+    torch.cuda.empty_cache()
+    # CUDA IPC shares fixed-size segments: the hand-over's buffers get their own
+    _expandable_segments(False)
+    pre, post, momentum, straggler = (x.to(dev) for x in (captured[0], captured[1],
+                                                          _flat(momentum1), straggler))
+    del captured, momentum1
+    # the parent collects step 1's pre- and post-gossip leaves, its momentum
+    # and the straggler run's params through a torch.multiprocessing queue:
+    # they travel as CUDA IPC handles (no copy), so each rank keeps its own
+    # alive until the parent has checked them
+    share.put((rank, dict(pre=pre, post=post, momentum=momentum, straggler=straggler)))
+    jobs[rank].get()
+    mark("released")
+    del pre, post, momentum, straggler
+    out = dict(rank=rank, device=str(dev), losses=losses, per_step=per_step, peak_bytes=peak,
+               launches=launches, param_bytes=param_bytes,
+               bytes_sent_per_step=int(sched.degrees[rank]) * param_bytes,
+               rounds_active=sum(gossip._peers(p, rank)[0] is not None for p in sched.perms),
+               elastic=dict(faultfree_bitwise=free_bitwise, dead_frozen=frozen,
+                            losses=dict(faultfree=float(mf["loss"]), straggler=float(md["loss"]),
+                                        dead=float(mdead["loss"]))),
+               marks=marks)
+    with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _sdsgd_checks(gathered: dict, stacked: dict, leaf_slices: dict, topo, sched, drop,
+                  world: int, dev) -> dict:
+    """The parent's checks of main_sharded_dsgd on the collected (n, M) leaves:
+    step 1's gossip and the straggler run's participants bitwise the
+    stacked oracle (:func:`_stacked_rounds`), the straggler's row its local
+    update; step 1's gossip within ``_batched_check``'s bound of the plain
+    padded-table mix of the stacked step's kernel route on the same
+    pre-gossip leaves, and the straggler's participants within ``_within``'s
+    bound of the degraded W's dense mix; then step 1 against the parent's
+    stacked ``dsgd_train_step``, leaf by leaf, before the gossip and after
+    it (max |Δ| in bf16 ulps at the leaf's largest magnitude, ‖Δ‖/‖p‖ and
+    the share of equal bits), and step 1's momentum against the stacked
+    step's (:func:`_rel_rows`, leaf by leaf: the bf16 params' update lies
+    below one ulp of most elements, the float32 momentum does not)."""
+    from repro_torch.dsgd.chaos import degrade_matrix
+    from repro_torch.dsgd.gossip import padded_neighbors
+
+    t0 = time.perf_counter()
+    X = gathered["pre"].to(dev)
+    want = _stacked_rounds(X, sched)
+    post = gathered["post"].to(dev)
+    rows_equal = [_bits_equal(want[i], post[i]) for i in range(world)]
+    out = dict(step1_bitwise=all(rows_equal), step1_rows_bitwise=rows_equal)
+    del want
+    W = torch.tensor(topo.W, dtype=torch.float32, device=dev)
+    e, ok = _batched_check(post, X, *padded_neighbors(W))
+    out["step1_vs_plain_mix"] = dict(max_abs_err=e, within=ok)
+    got = gathered["straggler"].to(dev)
+    want = _stacked_rounds(X, sched, mix=drop)
+    rows = [i for i in range(world) if i != SDSGD_STRAGGLER]
+    out["straggler_participants_bitwise"] = all(_bits_equal(want[i], got[i]) for i in rows)
+    out["straggler_keeps_its_update"] = _bits_equal(got[SDSGD_STRAGGLER], X[SDSGD_STRAGGLER])
+    del want
+    # the degraded W's dense mix in float32: the reference's own check
+    Wd = degrade_matrix(W, drop, torch.ones_like(W))
+    deg = int(max(sched.degrees))
+    errs, ok = [], True
+    for i in rows:
+        dense = _mix_rows(X, Wd, i, lambda x: x.float())
+        terms = _mix_rows(X, Wd.abs(), i, lambda x: x.float().abs())
+        e, o = _within(got[i], dense.to(got.dtype), terms, deg)
+        errs.append(e)
+        ok = ok and o
+    out.update(straggler_vs_dense_max_abs_err=max(errs), straggler_vs_dense_within=ok)
+    del got
+    mom = gathered["momentum"]
+    theirs = stacked["momentum"]
+    out["momentum_rel"] = {
+        name: _rel_rows(mom[:, off:off + size], theirs[:, off:off + size].to(dev))
+        for name, (off, size) in leaf_slices.items()}
+    del mom, theirs
+    out["vs_stacked"] = {}
+    for what, mine_all in (("pre_gossip", X), ("params", post)):
+        theirs_all = stacked[what].to(dev)
+        leaves = {}
+        for name, (off, size) in leaf_slices.items():
+            a = mine_all[:, off:off + size].float()
+            b = theirs_all[:, off:off + size].float()
+            err = (a - b).abs()
+            _, ex = torch.frexp(b.abs().max())
+            ulp = float(torch.ldexp(torch.ones(()), ex.cpu() - 8))
+            leaves[name] = dict(max_abs_err=float(err.max()), ulps=float(err.max()) / ulp,
+                                rel_diff=float((a - b).norm() / b.norm()),
+                                share_bitwise=float((err == 0).float().mean()))
+            del a, b, err
+        out["vs_stacked"][what] = dict(leaves=leaves,
+                                       max_ulps=max(r["ulps"] for r in leaves.values()))
+        del theirs_all
+    out["checks_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_main_sharded_dsgd() -> dict:
+    """DSGD with one worker a rank: main_dsgd's cluster (smollm-135m at full
+    width, BA n = 8, r = 16 from main_dsgd's cache, 4 × 256 random tokens a
+    worker) as 8 gloo ranks spawned on the one card, SDSGD_STEPS steps of
+    ``make_sharded_train_step`` (the schedule's matching rounds as
+    point-to-point sends, staged through pinned host memory by gloo). While
+    the ranks start, this process runs the stacked ``dsgd_train_step``
+    (kernel route) from the same start and batch, and two controls of step
+    1's momentum from that start: the optimizer's momentum from a zero
+    gradient and from the gradient of half of each worker's batch. Pins:
+    step 1's gossip on every rank bitwise the stacked oracle's
+    (:func:`_stacked_rounds` on the collected pre-gossip leaves) and within
+    ``_batched_check``'s bound of the kernel route's plain mix; step 1's
+    pre-gossip leaves and params within SDSGD_ULPS of the stacked step's,
+    its momentum (with SGD-momentum the first gradient, float32) within
+    SDSGD_MOMENTUM_RTOL of the stacked step's by relative norm, leaf by leaf
+    and row by row, with both controls beyond it; the loss near log(vocab)
+    and within SDSGD_LOSS_RTOL of the stacked step's; the elastic step
+    without faults bitwise the plain step, a dead rank frozen bitwise, a
+    dropped straggler's participants bitwise the elastic oracle and within
+    ``_within``'s bound of the degraded W's dense mix; no kernel launched in
+    the ranks (their gossip is torch ops); gloo's staging ran."""
+    import pickle
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dsgd import dsgd_train_step, init_dsgd_state, schedule_from_topology, trainer
+    from repro_torch.dsgd.schedule import bytes_per_sync
+    from repro_torch.launch import steps
+    from repro_torch.optim import sgd_momentum
+
+    t_phase = time.perf_counter()
+    n = DSGD_WORKERS
+    # 8 ranks of a full-width step fill the card: the parent keeps no cache
+    torch.cuda.empty_cache()
+    parent_bytes = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    shutil.rmtree(SDSGD_DIR, ignore_errors=True)
+    SDSGD_DIR.mkdir(parents=True)
+    spawn = mp.get_context("spawn")
+    jobs, share = [spawn.SimpleQueue() for _ in range(n)], spawn.SimpleQueue()
+    ranks = mp.start_processes(_sdsgd_rank, nprocs=n, join=False, start_method="spawn",
+                               args=(n, f"file://{SDSGD_DIR / 'rendezvous'}", jobs, share,
+                                     str(SDSGD_DIR)))
+    try:
+        # the stacked step from the same start, while the ranks start
+        dev = torch.device("cuda")
+        topo = steps.topology_for(n, "ba", 16, 0, device="cuda", cache_path=TOPO_CACHE)
+        cfg = get_arch("smollm-135m")
+        opt_init, opt_update = sgd_momentum(SDSGD_LR)
+        t0 = time.perf_counter()
+        start = init_dsgd_state(SDSGD_SEED, cfg, n, opt_init, device=dev)
+        per = [_sdsgd_batch(0, i, n, cfg.vocab_size) for i in range(n)]
+        batch = {k: torch.cat([b[k] for b in per]).to(dev) for k in per[0]}
+        mix, pre = trainer.gossip_sim_tree, []
+        trainer.gossip_sim_tree = lambda tree, *a, **kw: pre.append(
+            {k: v.clone() for k, v in _leaves(tree).items()}) or mix(tree, *a, **kw)
+        try:
+            state, m = dsgd_train_step(cfg, topo, opt_update, device=dev)(start, batch)
+        finally:
+            trainer.gossip_sim_tree = mix
+        stacked_loss = float(m["loss"])
+        # the controls' momentum against the stacked step's, on the card
+        momentum = _leaves(state.opt.momentum)
+        grad_fn = torch.func.vmap(torch.func.grad_and_value(trainer._loss_fn(cfg)))
+        opt_fn = torch.func.vmap(opt_update)
+        g_half, _ = grad_fn(start.params, {k: v[:, :SDSGD_BATCH // 2] for k, v in batch.items()})
+        controls = {}
+        with torch.no_grad():
+            for what, g in (("half_batch", g_half), ("zero", tree_map(torch.zeros_like, g_half))):
+                got = _leaves(opt_fn(g, start.opt, start.params)[1].momentum)
+                controls[what] = {k: _rel_rows(got[k], momentum[k]) for k in momentum}
+                del got
+        del g_half, start
+        # on the host while the ranks train: 8 ranks share the card
+        stacked = {what: torch.cat([x.reshape(n, -1) for x in tree.values()], dim=1).cpu()
+                   for what, tree in (("pre_gossip", pre[0]), ("params", _leaves(state.params)),
+                                      ("momentum", momentum))}
+        leaf_slices, off = {}, 0
+        for name, x in _leaves(state.params).items():
+            leaf_slices[name] = (off, x[0].numel())
+            off += x[0].numel()
+        stacked_s = time.perf_counter() - t0
+        del state, m, batch, pre, momentum
+        torch.cuda.empty_cache()
+        for q in jobs:
+            q.put(dict(edges=[list(e) for e in topo.edges], g=np.asarray(topo.g)))
+        # the card's least free memory while the ranks train, sampled here
+        parts, card_free = {}, torch.cuda.mem_get_info()[0]
+        while len(parts) < n:
+            card_free = min(card_free, torch.cuda.mem_get_info()[0])
+            if not ranks.join(timeout=0) and not share.empty():
+                r, t = share.get()
+                parts[r] = t
+            elif time.perf_counter() - t_phase > SDSGD_TIMEOUT_S:
+                raise TimeoutError(f"main_sharded_dsgd: {len(parts)} of {n} ranks reported "
+                                   f"after {SDSGD_TIMEOUT_S} s")
+            else:
+                time.sleep(0.05)
+        t_collected = time.perf_counter() - t_phase
+        gathered = {k: torch.stack([parts[r][k] for r in range(n)]) for k in parts[0]}
+        del parts
+        drop = torch.ones(n, device=dev)
+        drop[SDSGD_STRAGGLER] = 0.0
+        checks = _sdsgd_checks(gathered, stacked, leaf_slices, topo,
+                               schedule_from_topology(topo), drop, n, dev)
+        del gathered, stacked
+        torch.cuda.empty_cache()
+        for q in jobs:
+            q.put("checked")
+        while not ranks.join(timeout=1.0):
+            if time.perf_counter() - t_phase > SDSGD_TIMEOUT_S:
+                raise TimeoutError(f"main_sharded_dsgd: ranks still running after "
+                                   f"{SDSGD_TIMEOUT_S} s")
+    finally:
+        for proc in ranks.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    outs = [pickle.loads((SDSGD_DIR / f"rank{k}.pkl").read_bytes()) for k in range(n)]
+    shutil.rmtree(SDSGD_DIR, ignore_errors=True)
+    sched = schedule_from_topology(topo)
+    o0 = outs[0]
+    mean_ms = {k: [float(np.mean([o["per_step"][s][k] for o in outs])) for s in range(SDSGD_STEPS)]
+               for k in ("step_ms", "gossip_ms", "to_host_ms", "to_device_ms")}
+    momentum_check = dict(
+        rtol=SDSGD_MOMENTUM_RTOL, leaves=checks.pop("momentum_rel"),
+        controls={what: dict(leaves=c, min=min(c.values())) for what, c in controls.items()})
+    momentum_check["max"] = max(momentum_check["leaves"].values())
+    out = dict(
+        arch="smollm-135m", workers=n, world=n, backend="gloo",
+        rank_devices=[o["device"] for o in outs], batch=SDSGD_BATCH, seq=SDSGD_SEQ,
+        steps=SDSGD_STEPS, topology=topo.name, edges=len(topo.edges), rounds=sched.rounds,
+        degrees=[int(d) for d in sched.degrees], param_bytes=o0["param_bytes"],
+        bytes_per_sync=dict(bytes_per_sync(sched, o0["param_bytes"]),
+                            per_rank=[o["bytes_sent_per_step"] for o in outs]),
+        losses=o0["losses"], stacked_step1_loss=stacked_loss, stacked_s=stacked_s,
+        mean_ms=mean_ms, peak_bytes=[o["peak_bytes"] for o in outs],
+        parent_bytes=parent_bytes, card_min_free_bytes=card_free,
+        card_total_bytes=torch.cuda.mem_get_info()[1], collected_s=t_collected,
+        marks_s={k: max(o["marks"].get(k, 0.0) for o in outs) for k in o0["marks"]},
+        per_rank=[dict(rank=o["rank"], per_step=o["per_step"], rounds_active=o["rounds_active"])
+                  for o in outs],
+        elastic=[o["elastic"] for o in outs], checks=checks, momentum=momentum_check,
+        launches=o0["launches"], wall_s=time.perf_counter() - t_phase)
+    emit("main_sharded_dsgd", **out)
+    assert all(np.isfinite(o["losses"]).all() and o["losses"] == o0["losses"] for o in outs), \
+        "main_sharded_dsgd: ranks disagree on the loss"
+    assert abs(o0["losses"][0] - np.log(cfg.vocab_size)) <= 0.5, o0["losses"]
+    assert abs(o0["losses"][0] - stacked_loss) <= SDSGD_LOSS_RTOL * abs(stacked_loss), \
+        (o0["losses"][0], stacked_loss)
+    assert checks["step1_bitwise"], checks
+    assert checks["straggler_participants_bitwise"] and checks["straggler_keeps_its_update"] \
+        and checks["straggler_vs_dense_within"], checks
+    assert checks["step1_vs_plain_mix"]["within"], checks["step1_vs_plain_mix"]
+    for what in ("pre_gossip", "params"):
+        assert checks["vs_stacked"][what]["max_ulps"] <= SDSGD_ULPS, checks["vs_stacked"][what]
+    assert momentum_check["max"] <= SDSGD_MOMENTUM_RTOL, momentum_check
+    assert all(c["min"] > SDSGD_MOMENTUM_RTOL for c in momentum_check["controls"].values()), \
+        momentum_check
+    assert all(o["elastic"]["faultfree_bitwise"] for o in outs), [o["elastic"] for o in outs]
+    assert outs[SDSGD_DEAD]["elastic"]["dead_frozen"], outs[SDSGD_DEAD]["elastic"]
+    assert not any(any(o["launches"].values()) for o in outs), [o["launches"] for o in outs]
+    assert all(s["to_device_copies"] > 0 for o in outs for s in o["per_step"]
+               if o["rounds_active"]), "gloo staging never ran"
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 11b: elastic DSGD training at full width, through the launcher
 # ---------------------------------------------------------------------------
 
@@ -4198,6 +4742,8 @@ def _main() -> int:
     torch.cuda.empty_cache()
     phase_dsgd_card_vs_cpu()
     timing["gossip_mix_batched"]["dynamic"] = phase_main_dsgd_dynamic(dsgd_run)
+    torch.cuda.empty_cache()
+    phase_main_sharded_dsgd()
     timing["gossip_mix_batched"]["elastic"] = phase_main_elastic(dsgd_run)
     phase_elastic_resume()
 

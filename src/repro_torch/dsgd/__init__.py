@@ -1,12 +1,14 @@
-"""Decentralized SGD of the port on one device: gossip over stacked workers,
-the DSGD train steps, the elastic runtime (churn, stragglers, packet loss,
-live re-optimization and crash-safe resume around the real model's step),
-and the §VI-B evaluation engines (``sim``) with their schedules, round-robin
-cycles, CHOCO compressors and fault injection.
+"""Decentralized SGD of the port: gossip over stacked workers on one device
+and over the ranks of a ``torch.distributed`` process group (one worker a
+rank: the collective-permute gossip and the sharded train steps, plain and
+elastic), the DSGD train steps, the elastic runtime (churn, stragglers,
+packet loss, live re-optimization and crash-safe resume around the real
+model's step), and the §VI-B evaluation engines (``sim``) with their
+schedules, round-robin cycles, CHOCO compressors and fault injection.
 
-Not ported yet: the collective-permute gossip (``gossip_shard``,
-``gossip_shard_elastic``, ``gossip_shard_dynamic``) and the multi-device
-train steps, the elastic one among them (ROADMAP.md, Queue 1, item 7).
+Not ported yet: ``make_matmul_gossip_train_step`` and ``make_tp_train_step``
+(tensor parallelism inside a worker; ROADMAP.md, Queue 1, item 7c), which
+raise.
 """
 from .schedule import (
     GossipSchedule,
@@ -49,6 +51,7 @@ from .elastic import (
 from .dynamic import (
     cycle_contraction,
     cycle_tensor,
+    gossip_shard_dynamic,
     round_robin_schedules,
     stack_cycles,
     static_cycle,
@@ -56,10 +59,13 @@ from .dynamic import (
 from .gossip import (
     elastic_neighbor_tables,
     gather_neighbor_weights,
+    gossip_shard,
+    gossip_shard_elastic,
     gossip_sim,
     gossip_sim_tree,
     gossip_sim_tree_rowloop,
     padded_neighbors,
+    schedule_weight_arrays,
     select_cycle_matrix,
 )
 from .sim import (
@@ -82,15 +88,18 @@ from .trainer import (
     allreduce_train_step,
     dsgd_train_step,
     init_dsgd_state,
+    make_matmul_gossip_train_step,
+    make_sharded_train_step,
+    make_tp_train_step,
     stack_workers,
 )
 
 __all__ = [
     "GossipSchedule", "bytes_per_sync", "edge_color",
     "reconstruct_weight_matrix", "schedule_from_topology",
-    "gossip_sim", "gossip_sim_tree",
+    "gossip_shard", "gossip_shard_elastic", "gossip_sim", "gossip_sim_tree",
     "gossip_sim_tree_rowloop", "padded_neighbors", "elastic_neighbor_tables",
-    "gather_neighbor_weights", "select_cycle_matrix",
+    "gather_neighbor_weights", "schedule_weight_arrays", "select_cycle_matrix",
     "ElasticSpec", "ElasticState", "ElasticHooks", "ElasticRuntime",
     "RoundReport", "make_elastic_train_step",
     "make_elastic_sharded_train_step", "node_step_latency_ms",
@@ -107,7 +116,8 @@ __all__ = [
     "choco_mix", "compress_top_k", "compress_random_k",
     "identity_compressor", "random_k_compressor", "top_k_compressor",
     "cycle_contraction", "cycle_tensor", "round_robin_schedules",
-    "stack_cycles", "static_cycle",
+    "stack_cycles", "static_cycle", "gossip_shard_dynamic",
     "DSGDState", "allreduce_train_step", "dsgd_train_step", "init_dsgd_state",
+    "make_matmul_gossip_train_step", "make_sharded_train_step", "make_tp_train_step",
     "stack_workers",
 ]

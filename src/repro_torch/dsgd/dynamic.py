@@ -10,14 +10,17 @@ Each W_c is symmetric doubly stochastic (a matching step). The cycle
 tensors built here are bit-identical to the reference's: the sim engines
 of :mod:`repro_torch.dsgd.sim` select ``Wc[t % R]`` from them.
 
-``gossip_shard_dynamic`` (the round selected inside ``shard_map``) is
-multi-device work and is not ported yet (ROADMAP.md, Queue 1, item 7).
+``gossip_shard_dynamic`` applies one matching per step over the ranks of
+a process group (:func:`repro_torch.dsgd.gossip.gossip_shard`).
 """
 from __future__ import annotations
 
 import numpy as np
 
+import torch
+
 from ..core.graph import Topology
+from .gossip import gossip_shard
 from .schedule import GossipSchedule, edge_color, reconstruct_weight_matrix
 
 __all__ = ["round_robin_schedules", "cycle_weight_matrices", "cycle_contraction",
@@ -101,9 +104,15 @@ def stack_cycles(cycles) -> tuple[np.ndarray, np.ndarray]:
     return out, lens
 
 
-def gossip_shard_dynamic(tree, schedules: list[GossipSchedule], step, axis):
-    """Not ported: the reference applies round ``step % R`` inside
-    ``shard_map`` over ``gossip_shard``'s collective permutes."""
-    raise NotImplementedError(
-        "gossip_shard_dynamic is multi-device gossip and is not ported yet "
-        "(ROADMAP.md, Queue 1, item 7: the collective-permute gossip)")
+def gossip_shard_dynamic(tree, schedules: list[GossipSchedule], step, axis=None):
+    """Apply round ``step % R`` of the round-robin cycle over the ranks of
+    ``axis`` (a process group, ``None`` the default one).
+
+    Which ranks exchange depends on the round, so the host has to know it:
+    a Python int is taken as it is, a tensor ``step`` is read once a call
+    (the reference selects the round on the device with ``lax.switch``;
+    ROADMAP.md, Queue 3). Every rank must pass the same step.
+    """
+    if isinstance(step, torch.Tensor):
+        step = int(step.item())
+    return gossip_shard(tree, schedules[int(step) % len(schedules)], axis)

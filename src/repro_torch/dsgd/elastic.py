@@ -37,8 +37,8 @@ with one ``gossip_mix_batched`` launch, its weights gathered on the device
 from the degraded matrix over ``deg_cap = n − 1`` tables (padded slots
 weigh 0). ``ElasticState.key`` is an int64 ``(seed, rounds)`` pair where the
 reference folds a JAX PRNG key once per round; nothing consumes either.
-The ppermute path (``make_elastic_sharded_train_step``) is multi-device
-work and is not ported yet (ROADMAP.md, Queue 1, item 7).
+``make_elastic_sharded_train_step`` is the same step with one worker a
+rank of a process group, mixing by ``gossip_shard_elastic``'s rounds.
 """
 from __future__ import annotations
 
@@ -47,6 +47,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 from ..core.api import BATopoConfig
@@ -58,8 +59,10 @@ from ..device import resolve_device
 from ..kernels.gossip_mix.ops import gossip_mix_batched
 from ..optim import apply_updates
 from .chaos import ChaosSpec, degrade_matrix
-from .gossip import elastic_neighbor_tables, gather_neighbor_weights, gossip_sim
-from .trainer import DSGDState, _loss_fn
+from .gossip import (elastic_neighbor_tables, gather_neighbor_weights, gossip_shard_elastic,
+                     gossip_sim)
+from .schedule import GossipSchedule
+from .trainer import DSGDState, _gossip_group, _group_mean, _loss_fn
 
 __all__ = ["ElasticSpec", "ElasticState", "ElasticHooks", "RoundReport",
            "ElasticRuntime", "make_elastic_train_step",
@@ -273,12 +276,47 @@ def make_elastic_train_step(cfg, opt_update: Callable, *, use_kernel: bool = Tru
     return step
 
 
-def make_elastic_sharded_train_step(*args, **kwargs):
-    """The elastic ppermute step of the reference (``gossip_shard_elastic``
-    over a device mesh) is multi-device work, not ported yet."""
-    raise NotImplementedError(
-        "make_elastic_sharded_train_step: the collective-permute elastic step is not "
-        "ported yet (ROADMAP.md, Queue 1, item 7)")
+def make_elastic_sharded_train_step(cfg, sched: GossipSchedule, opt_update: Callable, mesh, *,
+                                    gossip_axes=("data",)):
+    """Elastic variant of ``make_sharded_train_step`` (one worker a rank):
+    schedule weights and membership are data,
+
+      step(state, batch, alive, mix_mask, w_self, w_recv) -> (state, metrics)
+
+    ``w_self (n,)`` / ``w_recv (rounds, n)`` from
+    ``gossip.schedule_weight_arrays`` (a re-polished weight set swaps in as
+    new tensors; a support change needs a new schedule and step),
+    ``alive``/``mix_mask (n,)`` as in the stacked step, the same on every
+    rank. A dead worker keeps its parameters and optimizer state bitwise
+    (``torch.where``) but still takes part in every round, so the exchange
+    pattern stays the schedule's; a dropped straggler keeps its local
+    update, and the others renormalize inside ``gossip_shard_elastic``. The
+    loss is ``Σ loss·alive / Σ alive`` over the workers.
+    """
+    group = _gossip_group(mesh, tuple(gossip_axes))
+    grad_fn = torch.func.vmap(torch.func.grad_and_value(_loss_fn(cfg)))
+    opt_fn = torch.func.vmap(opt_update)
+
+    def step(state: DSGDState, batch, alive, mix_mask, w_self, w_recv):
+        grads, losses = grad_fn(state.params, batch)
+        with torch.no_grad():
+            updates, opt = opt_fn(grads, state.opt, state.params)
+            del grads
+            local = apply_updates(state.params, updates)
+            del updates
+            mixed = gossip_shard_elastic(local, sched, group, mix_mask, w_self, w_recv)
+            i = dist.get_rank(group)
+            dev = losses.device
+            a_i = torch.as_tensor(alive).to(dev)[i]
+            m_i = torch.as_tensor(mix_mask).to(dev)[i] > 0
+            lives = a_i > 0
+            params = tree_map(lambda mx, lc, od: torch.where(m_i, mx, torch.where(lives, lc, od)),
+                              mixed, local, state.params)
+            opt = tree_map(lambda nw, od: torch.where(lives, nw, od), opt, state.opt)
+            loss = _group_mean(losses[0], a_i.float(), group)
+        return DSGDState(params, opt, state.step + 1), {"loss": loss}
+
+    return step
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,8 @@ numpy arrays, handed to both packages.
   and support (float64 ADMM, host SA: the settings of
   ``tests/test_torch_reopt.py``).
 - ``to_extras``/``from_extras`` round-trips; a ``DeviceFault`` from the step
-  or the re-solve leaves ``round()``; the sharded step raises naming item 7.
+  or the re-solve leaves ``round()``; the sharded step refuses a tensor-parallel
+  mesh dim naming item 7c.
 """
 import dataclasses
 
@@ -410,5 +411,18 @@ def test_runtime_refuses_cuda_without_a_card(setup):
 
 
 def test_sharded_step_is_not_ported_and_names_item_7():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        t_el.make_elastic_sharded_train_step()
+    """The rank-per-worker elastic step is ported; what it cannot take yet,
+    a mesh dim outside ``gossip_axes`` larger than 1 (tensor parallelism
+    inside a worker), raises naming item 7c before it needs a process group
+    (a stand-in mesh), as do the pjit steps still unported."""
+    from types import SimpleNamespace
+
+    from repro_torch.dsgd import schedule_from_topology, trainer
+
+    mesh = SimpleNamespace(mesh_dim_names=("data", "model"), mesh=torch.arange(N * 2).reshape(N, 2))
+    sched = schedule_from_topology(make_baseline("ring", N))
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7c"):
+        t_el.make_elastic_sharded_train_step(None, sched, None, mesh)
+    for fn in (trainer.make_matmul_gossip_train_step, trainer.make_tp_train_step):
+        with pytest.raises(NotImplementedError, match="Queue 1, item 7c"):
+            fn()

@@ -2,6 +2,10 @@
 
 - Every name in ``repro.core.__all__`` imports from ``repro_torch.core``
   and stands in its ``__all__``.
+- Every name in ``repro.dsgd.__all__`` imports from ``repro_torch.dsgd``
+  and stands in its ``__all__``, in the reference's order; the two pjit
+  steps not ported yet raise naming item 7c, and ``gossip_shard_dynamic``
+  (not in the reference's ``__all__``) is exported too.
 - ``repro_torch.core.simulate_consensus``, the one-topology call of
   ``simulate_consensus_batched``, gives the reference's trace on a shared
   float64 ``x0`` (the reference's own draw from its seed): the errors within
@@ -24,12 +28,14 @@ jax = pytest.importorskip("jax")
 jnp = jax.numpy
 
 import repro.core as jcore  # noqa: E402
+import repro.dsgd as jdsgd  # noqa: E402
 from repro.core import consensus as jcons  # noqa: E402
 from repro.core import engine as jengine  # noqa: E402
 from repro.core import shard as jshard  # noqa: E402
 from repro.core.topologies import make_baseline as j_baseline  # noqa: E402
 from repro.kernels.gossip_mix import ops as jops  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
+import repro_torch.dsgd as tdsgd  # noqa: E402
 from repro_torch.core import engine as tengine  # noqa: E402
 from repro_torch.core import shard as tshard  # noqa: E402
 from repro_torch.kernels.edge_laplacian import ops as tel  # noqa: E402
@@ -40,6 +46,27 @@ from repro_torch.kernels.gossip_mix import ops as tops  # noqa: E402
 def test_every_reference_core_name_imports_from_the_port(name):
     assert name in tcore.__all__
     assert getattr(tcore, name) is not None
+
+
+#: reference names that the port exports but does not run yet (ROADMAP.md,
+#: Queue 1, item 7c: tensor parallelism inside a worker)
+UNPORTED_DSGD = ("make_matmul_gossip_train_step", "make_tp_train_step")
+
+
+@pytest.mark.parametrize("name", jdsgd.__all__)
+def test_every_reference_dsgd_name_imports_from_the_port(name):
+    assert name in tdsgd.__all__
+    assert getattr(tdsgd, name) is not None
+    if name in UNPORTED_DSGD:
+        with pytest.raises(NotImplementedError, match="item 7c"):
+            getattr(tdsgd, name)()
+
+
+def test_dsgd_names_keep_the_reference_order():
+    assert [n for n in tdsgd.__all__ if n in jdsgd.__all__] == list(jdsgd.__all__)
+    from repro.dsgd.dynamic import gossip_shard_dynamic as jdyn
+
+    assert "gossip_shard_dynamic" in tdsgd.__all__ and jdyn.__name__ == "gossip_shard_dynamic"
 
 
 def test_shard_names_are_the_reference_names():

@@ -122,11 +122,21 @@ def test_stack_cycles_bitwise(cycles):
     assert list(R) == [1, 2, 1, 3]
 
 
-def test_directed_and_shard_rules():
+def test_directed_and_shard_rules(monkeypatch):
     with pytest.raises(ValueError, match="asymmetric"):
         tdyn.round_robin_schedules(make_baseline("exponential", 8))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tdyn.gossip_shard_dynamic({}, [], 0, "workers")
+    # the dynamic shard gossip applies round ``step % R`` (a tensor step read
+    # on the host) over a process group, and needs one
+    scheds = tdyn.round_robin_schedules(make_baseline("ring", 8))
+    picked = []
+    with monkeypatch.context() as m:
+        m.setattr(tdyn, "gossip_shard", lambda tree, sched, axis: picked.append(sched) or tree)
+        for step in (0, 1, 2, torch.tensor(5), 7):
+            tdyn.gossip_shard_dynamic({}, scheds, step, None)
+    R = len(scheds)
+    assert picked == [scheds[s % R] for s in (0, 1, 2, 5, 7)]
+    with pytest.raises(RuntimeError, match="process group"):
+        tdyn.gossip_shard_dynamic({"x": torch.zeros(2)}, scheds, 0, None)
 
 
 # --- compressors ----------------------------------------------------------------
