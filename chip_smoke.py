@@ -42,6 +42,14 @@ and drives the port's paths on ``cuda``:
   ``dsgd_train_step``; the elastic rank step without faults bitwise the
   plain one, a dead rank frozen, a dropped straggler's round bitwise its
   oracle;
+- tensor parallelism inside a worker on DTensor: qwen1.5-0.5b at full
+  width on 4 gloo ranks spawned on the one card: ``build_step`` on a data=2
+  × model=2 mesh (the rank-per-worker schedule step, each worker's leaves
+  DTensors over its two "model" ranks, the gossip on local shards; 2
+  steps), ``make_tp_train_step`` of one pod-sized worker over both dims
+  (2 microbatches) and ``make_matmul_gossip_train_step`` on a pod=2 ×
+  data=1 × model=2 mesh, each held against its comparison in this
+  process (the stacked ``dsgd_train_step``, the same steps unsharded);
 - elastic DSGD training through the launcher (``--elastic``): main_dsgd's
   run with churn, stragglers, packet loss and a NIC collapse (a re-solve on
   the card, adopted mid-run), every round mixing leaf by leaf through
@@ -1571,8 +1579,9 @@ def _overlap(a, b) -> float:
 _CHILDREN: list = []
 XSTEP_FORMS = ("edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec")
 #: the depth of main_xstep_backends' whole solves from main_n64's start, cut
-#: from the pipeline's 600 to pay for main_sharded (PERF.md §4)
-XSTEP_SOLVE_ITERS = 150
+#: from the pipeline's 600 to pay for main_sharded, and from 150 for
+#: main_tp_dsgd (PERF.md §4)
+XSTEP_SOLVE_ITERS = 60
 #: card against CPU at card_vs_cpu's request, per backend: |Δλ̃| (float64)
 XSTEP_CARD_CPU_BAND = 1e-7
 XSTEP_CARD_CPU_BACKENDS = {"scan/kkt_bicgstab": dict(solver="kkt_bicgstab"),
@@ -3001,6 +3010,434 @@ def phase_main_sharded_dsgd() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11a′: tensor parallelism inside a worker, on DTensor
+# ---------------------------------------------------------------------------
+
+TPD_ARCH = "qwen1.5-0.5b"
+TPD_WORLD = 4                   # data = 2 × model = 2
+TPD_BATCH, TPD_SEQ = 4, 256     # cut from train_4k's 128 × 4,096 a worker
+TPD_STEPS = 2
+TPD_ACCUM = 2
+TPD_SEED = 0
+TPD_TIMEOUT_S = 400
+TPD_DIR = ROOT / "build" / "chip_smoke" / "main_tp_dsgd"
+#: each step against its comparison from the same start: params in bf16
+#: ulps at the leaf's largest magnitude, momentum by ‖Δ‖/‖m‖ a leaf and
+#: worker (SDSGD_ULPS, SDSGD_MOMENTUM_RTOL: the same bf16 noise, here of
+#: the partial sums that the row-parallel products all-reduce in bf16)
+TPD_ULPS = SDSGD_ULPS
+TPD_MOMENTUM_RTOL = SDSGD_MOMENTUM_RTOL
+TPD_LOSS_RTOL = 1e-3
+
+
+def _tpd_batch(step: int, n: int, vocab: int, batch: int = TPD_BATCH) -> dict:
+    """(n, batch, seq) random tokens of ``step`` (numpy, from the seed), the
+    labels the next tokens."""
+    tok = np.random.default_rng((TPD_SEED, 28, step)).integers(
+        0, vocab, size=(n, batch, TPD_SEQ + 1), dtype=np.int64).astype(np.int32)
+    return {"tokens": torch.from_numpy(np.ascontiguousarray(tok[..., :-1])),
+            "labels": torch.from_numpy(np.ascontiguousarray(tok[..., 1:]))}
+
+
+def _tpd_shard(x):
+    """(local shard, its slice of the global tensor) of a DTensor on this
+    rank, or None where a rank of lower coordinate on a replicated mesh dim
+    holds the same shard. Even shards, the first mesh dim outermost."""
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    if any(c and not p.is_shard() for c, p in zip(coord, x.placements)):
+        return None
+    size, off = list(x.shape), [0] * x.dim()
+    for i, p in enumerate(x.placements):
+        if p.is_shard():
+            size[p.dim] //= mesh.size(i)
+            off[p.dim] += coord[i] * size[p.dim]
+    return x.to_local(), tuple(slice(o, o + k) for o, k in zip(off, size))
+
+
+def _tpd_rank(rank: int, world: int, init: str, jobs, share, out_dir: str) -> None:
+    """One rank of main_tp_dsgd (spawned; all four share ``cuda:0`` over
+    gloo). Three steps on the mesh, each timed with its DTensor collectives
+    counted (``CommDebugMode``): ``build_step`` on a data × model mesh (the
+    standard plan, two steps from ``init_dsgd_state``), the TP step of one
+    pod-sized worker on the same mesh (accumulating), and the W-matmul step
+    on a pod × data × model mesh. After each, rank 0 gathers the full
+    params and momentum (``full_tensor``) and hands them to the parent (CUDA
+    IPC), keeping them alive until the parent has checked them. The ranks
+    build their step while the parent runs the comparisons, and allocate
+    their states once it has left the card."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    t_start = time.perf_counter()
+    marks = {}
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_start
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=TPD_TIMEOUT_S))
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.device import resolve_device
+    from repro_torch.dsgd import (gossip, init_dsgd_state, make_matmul_gossip_train_step,
+                                  make_tp_train_step, stack_workers, trainer)
+    from repro_torch.dsgd.tensor_parallel import place_tree
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import DistPlan, batch_specs, tree_param_specs
+    from repro_torch.optim import sgd_momentum
+
+    mark("ready")
+    dev = resolve_device("cuda")
+    cfg = get_arch(TPD_ARCH)
+    opt_init, opt_update = sgd_momentum(0.05)     # build_step's optimizer
+    mesh = make_host_mesh(2, 2)
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gossip_ms, to_host_ms, to_device_ms = [], [], []
+    origs = [_timed(trainer, "gossip_shard", gossip_ms, dev),
+             _timed(gossip, "_to_host", to_host_ms, dev),
+             _timed(gossip, "_to_device", to_device_ms, dev)]
+    out = dict(rank=rank, device=str(dev), runs={})
+
+    def timed(label, fn, *args):
+        at = (len(gossip_ms), len(to_host_ms), len(to_device_ms))
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with CommDebugMode() as comm:
+            res = fn(*args)
+        loss = float(res[1]["loss"])
+        torch.cuda.synchronize(dev)
+        out["runs"][label] = dict(
+            step_ms=1e3 * (time.perf_counter() - t0), loss=loss,
+            dtensor_collectives={str(k): v for k, v in comm.get_comm_counts().items()},
+            gossip_ms=sum(gossip_ms[at[0]:]), to_host_ms=sum(to_host_ms[at[1]:]),
+            to_device_ms=sum(to_device_ms[at[2]:]), to_device_copies=len(to_device_ms) - at[2])
+        return res
+
+    def hand_over(label, state, stacked: bool):
+        """This rank's shards of the params and momentum, each with its
+        slice of the full (n, ...) leaf, to the parent (CUDA IPC, no copy),
+        kept alive until the parent has checked them; a shard that other
+        ranks hold too goes from one of them."""
+        shards = {}
+        for what, tree in (("params", state.params), ("momentum", state.opt.momentum)):
+            for name, x in _leaves(tree).items():
+                got = _tpd_shard(x)
+                if got is not None:
+                    local, sl = got
+                    shards[(what, name)] = ((local, sl) if stacked else
+                                            (local.unsqueeze(0), (slice(0, 1),) + sl))
+        share.put((label, rank, shards))
+        jobs[rank].get()
+        del shards
+        mark(f"{label}_checked")
+
+    # 1. build_step on data × model: the standard plan
+    t0 = time.perf_counter()
+    built = steps.build_step(TPD_ARCH, "train_4k", mesh)
+    out["build_step_s"] = time.perf_counter() - t0
+    out["meta"] = dict(built.meta)
+    out["plan"] = dataclasses.asdict(built.plan)
+    n = built.meta["n_workers"]
+    # one worker's start, drawn on the host while the parent runs the
+    # comparisons, and kept there for the later steps
+    host1 = init_dsgd_state(TPD_SEED, cfg, 1, opt_init, device="cpu")
+    mark("host_state")
+    jobs[rank].get()           # the parent's comparisons have left the card
+    mark("go")
+
+    def start_of(k: int):
+        return trainer.DSGDState(*(stack_workers(tree_map(lambda t: t[0].to(dev), tree), k)
+                                   for tree in (host1.params, host1.opt)),
+                                 host1.step.to(dev))
+
+    state = start_of(n)
+    batches = [{k: v.to(dev) for k, v in _tpd_batch(s, n, cfg.vocab_size).items()}
+               for s in range(TPD_STEPS)]
+    mark("state")
+    state, _ = timed("build_step/1", built.fn, state, batches[0])
+    mark("step1")
+    hand_over("build_step", state, True)
+    state, _ = timed("build_step/2", built.fn, state, batches[1])
+    mark("step2")
+    del state, batches
+    torch.cuda.empty_cache()
+
+    # 2. one pod-sized worker, TP over data × model, accumulating
+    plan = DistPlan(gossip_axes=(), tensor_axes=("data", "model"), batch_axes=("data",),
+                    n_workers=1)
+    one = trainer.DSGDState(*(tree_map(lambda t: t[0].to(dev), tree)
+                              for tree in (host1.params, host1.opt)), host1.step.to(dev))
+    b = {k: v[0].to(dev) for k, v in _tpd_batch(0, 1, cfg.vocab_size).items()}
+    placed = trainer.DSGDState(
+        place_tree(one.params, mesh, tree_param_specs(one.params, plan, mesh)),
+        place_tree(one.opt, mesh, tree_param_specs(one.opt, plan, mesh)), one.step)
+    bp = place_tree(b, mesh, batch_specs(cfg, plan, mesh,
+                                         {k: tuple(v.shape) for k, v in b.items()}))
+    del one, b
+    st, _ = timed("tp", make_tp_train_step(cfg, opt_update, accum_steps=TPD_ACCUM), placed, bp)
+    del placed, bp
+    mark("tp")
+    hand_over("tp", st, False)
+    del st
+    torch.cuda.empty_cache()
+
+    # 3. the W-matmul step on pod × data × model
+    mesh3 = DeviceMesh("cuda", torch.arange(world).reshape(2, 1, 2),
+                       mesh_dim_names=("pod", "data", "model"))
+    plan3 = DistPlan(gossip_axes=("pod",), tensor_axes=("data", "model"), batch_axes=("data",),
+                     n_workers=2)
+    topo = steps.topology_for(2, device=dev)
+    start = start_of(2)
+    b3 = {k: v.to(dev) for k, v in _tpd_batch(0, 2, cfg.vocab_size).items()}
+    placed = trainer.DSGDState(
+        place_tree(start.params, mesh3, tree_param_specs(start.params, plan3, mesh3, stacked=True)),
+        place_tree(start.opt, mesh3, tree_param_specs(start.opt, plan3, mesh3, stacked=True)),
+        start.step)
+    bp = place_tree(b3, mesh3, batch_specs(cfg, plan3, mesh3,
+                                           {k: tuple(v.shape) for k, v in b3.items()},
+                                           stacked=True))
+    del start, b3
+    st, _ = timed("matmul", make_matmul_gossip_train_step(cfg, topo, opt_update), placed, bp)
+    del placed, bp
+    mark("matmul")
+    hand_over("matmul", st, True)
+    del st
+    for (owner, attr), orig in zip(((trainer, "gossip_shard"), (gossip, "_to_host"),
+                                    (gossip, "_to_device")), origs):
+        setattr(owner, attr, orig)
+    # the kernels registered for the functional all-gather on CUDA once the
+    # TP regions have closed: torch's own, not the gloo reroute's
+    dump = torch._C._dispatch_dump("_c10d_functional::all_gather_into_tensor")
+    out.update(launches=kernels.launch_counts(),
+               peak_bytes=(torch.cuda.max_memory_allocated(dev),
+                           torch.cuda.max_memory_reserved(dev)), marks=marks,
+               all_gather_cuda_after=[ln for ln in dump.splitlines() if ln.startswith("CUDA")])
+    with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _tpd_compare(parts: list, ref: dict, zero_start: set) -> dict:
+    """A step's shards (one dict a rank of (what, leaf) → (shard, slice))
+    against its comparison's full (n, ...) leaves on the host, leaf by
+    leaf: params in bf16 ulps at the leaf's largest magnitude, ‖Δ‖/‖p‖ and
+    the share of equal bits; momentum by ‖Δ‖/‖m‖ a worker (the row sums
+    of squares added over the shards). Leaves that start at zero (norm
+    scales, biases) are −lr·m after one step: their params are held by
+    ‖Δ‖/‖p‖ as the momentum is, the others by ulps. The sums stay on the
+    card until every shard is in (one copy to the host a leaf)."""
+    acc: dict = {}
+    dev = next(iter(parts[0].values()))[0].device
+    for shards in parts:
+        for (what, name), (a, sl) in shards.items():
+            r = acc.get((what, name))
+            if r is None:                        # each leaf to the card once, whole
+                full = ref[what][name].to(dev)
+                n = full.shape[0]
+                r = acc[(what, name)] = dict(
+                    full=full, amax=full.abs().max().float(), count=0,
+                    err=torch.zeros((), device=dev), eq=torch.zeros((), dtype=torch.int64,
+                                                                    device=dev),
+                    dd=torch.zeros(n, device=dev), bb=torch.zeros(n, device=dev))
+            b = r["full"][sl]
+            a, b = a.float(), b.float()
+            d = (a - b).reshape(a.shape[0], -1)
+            r["err"] = torch.maximum(r["err"], d.abs().max())
+            r["eq"] += (d == 0).sum()
+            r["count"] += d.numel()
+            r["dd"][sl[0]] += d.square().sum(dim=1)
+            r["bb"][sl[0]] += b.reshape(b.shape[0], -1).square().sum(dim=1)
+            del a, b, d
+    out = {"params": {}, "momentum": {}}
+    for (what, name), r in acc.items():
+        del r["full"]
+        err, eq, amax, dd, bb = (r[k].cpu() for k in ("err", "eq", "amax", "dd", "bb"))
+        if what == "momentum":
+            out["momentum"][name] = float((dd / bb).sqrt().max())
+            continue
+        _, ex = torch.frexp(amax)
+        ulp = float(torch.ldexp(torch.ones(()), ex - 8))
+        out["params"][name] = dict(ulps=float(err) / ulp, zero_start=name in zero_start,
+                                   rel_diff=float((dd.sum() / bb.sum()).sqrt()),
+                                   share_bitwise=int(eq) / r["count"])
+    p = out["params"]
+    out["max_ulps"] = max(v["ulps"] for v in p.values() if not v["zero_start"])
+    out["max_zero_start_rel"] = max(v["rel_diff"] for v in p.values() if v["zero_start"])
+    out["max_momentum_rel"] = max(out["momentum"].values())
+    return out
+
+
+def phase_main_tp_dsgd() -> dict:
+    """Tensor parallelism inside a worker, on DTensor: qwen1.5-0.5b at full
+    width (24 layers, d 1,024, 16/16 heads, d_ff 2,816, vocab 151,936,
+    bf16) on 4 gloo ranks spawned on the one card, one spawn (NCCL refuses
+    two ranks on one card). The ranks run (1) ``build_step(qwen1.5-0.5b,
+    train_4k, data=2 × model=2)``: the standard plan (gossip over "data",
+    TP over "model", n = 2, topology pair, 1 round), 2 steps of its ``fn``
+    from ``init_dsgd_state``, the batch cut from train_4k's 128 × 4,096 a
+    worker to TPD_BATCH × TPD_SEQ random tokens (no bigram table); (2)
+    ``make_tp_train_step`` of one pod-sized worker on the same ranks
+    (tensor dims ("data", "model"), TPD_ACCUM microbatches), one step; (3)
+    ``make_matmul_gossip_train_step`` on a pod=2 × data=1 × model=2 mesh,
+    one step. Meanwhile this process runs their comparisons from the same
+    starts and batches: the stacked ``dsgd_train_step`` (n = 2, kernel
+    route) with main_sharded_dsgd's two controls of step 1's momentum (a zero gradient,
+    half of each worker's batch), the TP step unsharded (plain tensors,
+    accumulation included) and the W-matmul step unsharded. Pins: each
+    step's params within TPD_ULPS bf16 ulps and its momentum within
+    TPD_MOMENTUM_RTOL of its comparison's, the controls beyond it; the
+    losses finite, equal on every rank, near log(vocab) and within
+    TPD_LOSS_RTOL of the comparison's; gloo's staging ran in the gossip; no
+    kernel launched in the ranks."""
+    import pickle
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dsgd import (dsgd_train_step, init_dsgd_state, make_matmul_gossip_train_step,
+                                  make_tp_train_step, trainer)
+    from repro_torch.launch import steps
+    from repro_torch.optim import sgd_momentum
+
+    t_phase = time.perf_counter()
+    world = TPD_WORLD
+    torch.cuda.empty_cache()
+    shutil.rmtree(TPD_DIR, ignore_errors=True)
+    TPD_DIR.mkdir(parents=True)
+    spawn = mp.get_context("spawn")
+    jobs, share = [spawn.SimpleQueue() for _ in range(world)], spawn.SimpleQueue()
+    ranks = mp.start_processes(_tpd_rank, nprocs=world, join=False, start_method="spawn",
+                               args=(world, f"file://{TPD_DIR / 'rendezvous'}", jobs, share,
+                                     str(TPD_DIR)))
+    try:
+        dev = torch.device("cuda")
+        cfg = get_arch(TPD_ARCH)
+        opt_init, opt_update = sgd_momentum(0.05)
+        topo = steps.topology_for(2, device="cuda")
+        t0 = time.perf_counter()
+        refs, losses = {}, {}
+        host = lambda t: {k: v.cpu() for k, v in _leaves(t).items()}
+        # (1) the stacked dsgd_train_step and its controls
+        start = init_dsgd_state(TPD_SEED, cfg, 2, opt_init, device=dev)
+        zero_start = {k for k, v in _leaves(start.params).items() if not bool(v.any())}
+        batch = {k: v.to(dev) for k, v in _tpd_batch(0, 2, cfg.vocab_size).items()}
+        st, m = dsgd_train_step(cfg, topo, opt_update, device=dev)(start, batch)
+        losses["build_step"] = float(m["loss"])
+        momentum = _leaves(st.opt.momentum)
+        grad_fn = torch.func.vmap(torch.func.grad_and_value(trainer._loss_fn(cfg)))
+        opt_fn = torch.func.vmap(opt_update)
+        g_half, _ = grad_fn(start.params, {k: v[:, :TPD_BATCH // 2] for k, v in batch.items()})
+        controls = {}
+        with torch.no_grad():
+            for what, g in (("half_batch", g_half), ("zero", tree_map(torch.zeros_like, g_half))):
+                got = _leaves(opt_fn(g, start.opt, start.params)[1].momentum)
+                controls[what] = {k: _rel_rows(got[k], momentum[k]) for k in momentum}
+                del got
+        del g_half
+        refs["build_step"] = dict(params=host(st.params), momentum=host(st.opt.momentum))
+        del st, momentum
+        # (3) the W-matmul step unsharded, from the same start and batch
+        st, m = make_matmul_gossip_train_step(cfg, topo, opt_update)(start, batch)
+        losses["matmul"] = float(m["loss"])
+        refs["matmul"] = dict(params=host(st.params), momentum=host(st.opt.momentum))
+        del st, start, batch
+        # (2) the TP step unsharded: one worker, accumulating
+        one = init_dsgd_state(TPD_SEED, cfg, 1, opt_init, device=dev)
+        one = trainer.DSGDState(tree_map(lambda x: x[0], one.params),
+                                tree_map(lambda x: x[0], one.opt), one.step)
+        b = {k: v[0].to(dev) for k, v in _tpd_batch(0, 1, cfg.vocab_size).items()}
+        st, m = make_tp_train_step(cfg, opt_update, accum_steps=TPD_ACCUM)(one, b)
+        losses["tp"] = float(m["loss"])
+        refs["tp"] = dict(params={k: v.unsqueeze(0) for k, v in host(st.params).items()},
+                          momentum={k: v.unsqueeze(0) for k, v in host(st.opt.momentum).items()})
+        del st, one, b
+        refs_s, refs_at = time.perf_counter() - t0, time.perf_counter() - t_phase
+        torch.cuda.empty_cache()
+        for q in jobs:
+            q.put("go")
+        checks, parts, card_free, check_s = {}, {}, torch.cuda.mem_get_info()[0], {}
+        while len(checks) < 3:
+            card_free = min(card_free, torch.cuda.mem_get_info()[0])
+            if not ranks.join(timeout=0) and not share.empty():
+                label, _, shards = share.get()
+                parts.setdefault(label, []).append(shards)
+                del shards
+                if len(parts[label]) == world:
+                    t_in = time.perf_counter() - t_phase
+                    checks[label] = _tpd_compare(parts.pop(label), refs.pop(label), zero_start)
+                    check_s[label] = (t_in, time.perf_counter() - t_phase)
+                    torch.cuda.ipc_collect()       # the ranks' shared blocks, released
+                    torch.cuda.empty_cache()
+                    for q in jobs:
+                        q.put("checked")
+            elif time.perf_counter() - t_phase > TPD_TIMEOUT_S:
+                raise TimeoutError(f"main_tp_dsgd: {len(checks)} of 3 hand-overs after "
+                                   f"{TPD_TIMEOUT_S} s")
+            else:
+                time.sleep(0.05)
+        while not ranks.join(timeout=1.0):
+            if time.perf_counter() - t_phase > TPD_TIMEOUT_S:
+                raise TimeoutError(f"main_tp_dsgd: ranks still running after {TPD_TIMEOUT_S} s")
+        joined_s = time.perf_counter() - t_phase
+    finally:
+        for proc in ranks.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    outs = [pickle.loads((TPD_DIR / f"rank{k}.pkl").read_bytes()) for k in range(world)]
+    shutil.rmtree(TPD_DIR, ignore_errors=True)
+    o0 = outs[0]
+    controls = {what: dict(min=min(c.values()), leaves=c) for what, c in controls.items()}
+    out = dict(
+        arch=TPD_ARCH, world=world, backend="gloo", rank_devices=[o["device"] for o in outs],
+        batch=TPD_BATCH, seq=TPD_SEQ, steps=TPD_STEPS, accum_steps=TPD_ACCUM,
+        meta=o0["meta"], plan=o0["plan"], build_step_s=o0["build_step_s"],
+        comparison_losses=losses, comparisons_s=refs_s, checks=checks,
+        momentum_controls=controls, momentum_rtol=TPD_MOMENTUM_RTOL, ulps=TPD_ULPS,
+        per_rank=[dict(rank=o["rank"], runs=o["runs"], peak_bytes=o["peak_bytes"])
+                  for o in outs],
+        card_min_free_bytes=card_free, card_total_bytes=torch.cuda.mem_get_info()[1],
+        marks_s={k: max(o["marks"].get(k, 0.0) for o in outs) for k in o0["marks"]},
+        launches=[o["launches"] for o in outs],
+        all_gather_cuda_after=o0["all_gather_cuda_after"],
+        check_s={k: dict(in_at=a, done_at=b) for k, (a, b) in check_s.items()},
+        refs_done_at_s=refs_at, ranks_joined_at_s=joined_s, wall_s=time.perf_counter() - t_phase)
+    emit("main_tp_dsgd", **out)
+    meta = o0["meta"]
+    assert (meta["n_workers"], meta["topology"], meta["rounds"], meta["gossip_impl"]) == \
+        (2, "pair", 1, "ppermute-schedule"), meta
+    assert o0["plan"]["gossip_axes"] == ("data",) and o0["plan"]["tensor_axes"] == ("model",), \
+        o0["plan"]
+    for label, run in o0["runs"].items():
+        ls = [o["runs"][label]["loss"] for o in outs]
+        assert np.isfinite(ls).all() and len(set(ls)) == 1, (label, ls)
+        assert abs(ls[0] - np.log(cfg.vocab_size)) <= 0.5, (label, ls)
+    for label, key in (("build_step/1", "build_step"), ("tp", "tp"), ("matmul", "matmul")):
+        got, want = o0["runs"][label]["loss"], losses[key]
+        assert abs(got - want) <= TPD_LOSS_RTOL * abs(want), (label, got, want)
+    for label, c in checks.items():
+        assert c["max_ulps"] <= TPD_ULPS, (label, c)
+        assert c["max_zero_start_rel"] <= TPD_MOMENTUM_RTOL, (label, c)
+        assert c["max_momentum_rel"] <= TPD_MOMENTUM_RTOL, (label, c)
+    assert all(c["min"] > TPD_MOMENTUM_RTOL for c in controls.values()), controls
+    assert not any(any(o["launches"].values()) for o in outs), [o["launches"] for o in outs]
+    assert not any("tensor_parallel.py" in ln for o in outs
+                   for ln in o["all_gather_cuda_after"]), o0["all_gather_cuda_after"]
+    assert all(o["runs"][s]["to_device_copies"] > 0 for o in outs
+               for s in ("build_step/1", "build_step/2")), "gloo staging never ran"
+    return out
+
+# ---------------------------------------------------------------------------
 # phase 11b: elastic DSGD training at full width, through the launcher
 # ---------------------------------------------------------------------------
 
@@ -3191,8 +3628,12 @@ def phase_elastic_resume() -> dict:
     an uninterrupted elastic
     run with the NICs collapsing at step 4 (a re-solve on the card, adopted
     at step 5) and, beside it on the same card, the same run SIGKILLed
-    before step 5 (``--kill-at-step``); then that run continued with
-    ``--resume`` from its step-4 checkpoint.
+    before step 4 (``--kill-at-step``), before its re-solve; then that run
+    continued with ``--resume`` from its step-4 checkpoint (the re-solve
+    and the adoption in the resumed run), started as soon as the killed
+    run has died, while the uninterrupted one still runs (cut for time:
+    the killed run used to run the re-solve too, and the resumed run to
+    wait for the uninterrupted one).
     Every logged step of the resumed run has the uninterrupted run's loss
     and consensus error bitwise (the history's floats are shortest
     round-trip reprs)."""
@@ -3229,14 +3670,16 @@ def phase_elastic_resume() -> dict:
 
     try:
         free = shutil.disk_usage(RESUME_DIR).free
-        # the uninterrupted and the killed run share the card, side by side
+        # the uninterrupted and the killed run share the card, side by side;
+        # the resumed run starts as soon as the killed one has died, beside
+        # the uninterrupted one
         first = start(["--json-out", str(RESUME_DIR / "full.json")])
-        second = start(["--ckpt-dir", str(ck), "--kill-at-step", "5"])
-        full, killed = finish("uninterrupted", first), finish("killed", second)
-        assert full.returncode == 0, full.stdout[-3000:] + full.stderr[-3000:]
+        killed = finish("killed", start(["--ckpt-dir", str(ck), "--kill-at-step", "4"]))
         survived = {f.name: f.stat().st_size for f in sorted(ck.iterdir())}
-        resumed = finish("resumed", start(["--ckpt-dir", str(ck), "--resume",
-                                           "--json-out", str(RESUME_DIR / "resumed.json")]))
+        third = start(["--ckpt-dir", str(ck), "--resume",
+                       "--json-out", str(RESUME_DIR / "resumed.json")])
+        full, resumed = finish("uninterrupted", first), finish("resumed", third)
+        assert full.returncode == 0, full.stdout[-3000:] + full.stderr[-3000:]
         assert resumed.returncode == 0, resumed.stdout[-3000:] + resumed.stderr[-3000:]
         written = {f.name: f.stat().st_size for f in sorted(ck.iterdir())}
         ref, got = history(RESUME_DIR / "full.json"), history(RESUME_DIR / "resumed.json")
@@ -4242,13 +4685,29 @@ def _ba_topo(n: int, r: int, sa_iters: int, **request):
     return t
 
 
+def _ba_topos(n: int, rs, sa_iters: int) -> list:
+    """BA-Topo at each budget on the card with benchmarks/common.py's
+    config, the budgets as ONE batched ``solve_topologies`` call (one
+    warm start a budget, one ADMM solve for all)."""
+    from repro_torch.core import BATopoConfig, TopologyRequest
+    from repro_torch.core.anytime import solve_topologies
+
+    cfg = BATopoConfig(seed=0, sa_iters=sa_iters, restarts=1)
+    topos = [res.topology for res in
+             solve_topologies([TopologyRequest(n=n, r=r) for r in rs], cfg=cfg)]
+    for t in topos:
+        t.meta["label"] = f"ba-topo(r={len(t.edges)})"
+    return topos
+
+
 def _label(t) -> str:
     return t.meta.get("label", t.name)
 
 
 def phase_main_sim():
     """bench_training_time's homo setup at n=16 on the card: the paper's
-    baselines and BA-Topo at r ∈ {16, 24, 32} (solved on the card), all
+    baselines and BA-Topo at r ∈ {16, 24, 32} (solved on the card in one
+    batched call: cut for time from three solves in turn), all
     trained by one ``accuracy_curves`` call (30 epochs, batch 32, lr 0.05,
     momentum 0.9, hidden 128), every step's gossip one
     ``gossip_mix_batched`` launch for all four leaves and all topologies;
@@ -4265,7 +4724,7 @@ def phase_main_sim():
     n = SIM_N
     data = _sim_data(n)
     t0 = time.perf_counter()
-    topos = _paper_baselines(n) + [_ba_topo(n, r, 600) for r in SIM_BUDGETS]
+    topos = _paper_baselines(n) + _ba_topos(n, SIM_BUDGETS, 600)
     topo_s = time.perf_counter() - t0
     Ws = np.stack([t.W for t in topos]).astype(np.float32)
     cfg = DSGDSimConfig(epochs=30, batch=32, lr=0.05, momentum=0.9, hidden=128, seed=0)
@@ -4744,6 +5203,7 @@ def _main() -> int:
     timing["gossip_mix_batched"]["dynamic"] = phase_main_dsgd_dynamic(dsgd_run)
     torch.cuda.empty_cache()
     phase_main_sharded_dsgd()
+    phase_main_tp_dsgd()
     timing["gossip_mix_batched"]["elastic"] = phase_main_elastic(dsgd_run)
     phase_elastic_resume()
 

@@ -1,14 +1,13 @@
 """Decentralized SGD of the port: gossip over stacked workers on one device
 and over the ranks of a ``torch.distributed`` process group (one worker a
 rank: the collective-permute gossip and the sharded train steps, plain and
-elastic), the DSGD train steps, the elastic runtime (churn, stragglers,
-packet loss, live re-optimization and crash-safe resume around the real
-model's step), and the §VI-B evaluation engines (``sim``) with their
-schedules, round-robin cycles, CHOCO compressors and fault injection.
-
-Not ported yet: ``make_matmul_gossip_train_step`` and ``make_tp_train_step``
-(tensor parallelism inside a worker; ROADMAP.md, Queue 1, item 7c), which
-raise.
+elastic, with tensor parallelism inside a worker over a mesh's other dims),
+the DSGD train steps (stacked, rank-per-worker, the single-worker
+tensor-parallel step and the W-matmul step of pod-sized workers, on
+DTensor), the elastic runtime (churn, stragglers, packet loss, live
+re-optimization and crash-safe resume around the real model's step), and
+the §VI-B evaluation engines (``sim``) with their schedules, round-robin
+cycles, CHOCO compressors and fault injection.
 """
 from .schedule import (
     GossipSchedule,

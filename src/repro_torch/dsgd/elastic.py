@@ -62,7 +62,8 @@ from .chaos import ChaosSpec, degrade_matrix
 from .gossip import (elastic_neighbor_tables, gather_neighbor_weights, gossip_shard_elastic,
                      gossip_sim)
 from .schedule import GossipSchedule
-from .trainer import DSGDState, _gossip_group, _group_mean, _loss_fn
+from .trainer import (DSGDState, _gossip_group, _gossip_rank_groups, _group_mean, _loss_fn,
+                      _tp_rank_step)
 
 __all__ = ["ElasticSpec", "ElasticState", "ElasticHooks", "RoundReport",
            "ElasticRuntime", "make_elastic_train_step",
@@ -278,8 +279,10 @@ def make_elastic_train_step(cfg, opt_update: Callable, *, use_kernel: bool = Tru
 
 def make_elastic_sharded_train_step(cfg, sched: GossipSchedule, opt_update: Callable, mesh, *,
                                     gossip_axes=("data",)):
-    """Elastic variant of ``make_sharded_train_step`` (one worker a rank):
-    schedule weights and membership are data,
+    """Elastic variant of ``make_sharded_train_step`` (one worker a rank, or
+    a worker on a group of ranks: a mesh dim outside ``gossip_axes`` larger
+    than 1 is tensor parallelism inside the worker, as there): schedule
+    weights and membership are data,
 
       step(state, batch, alive, mix_mask, w_self, w_recv) -> (state, metrics)
 
@@ -293,7 +296,35 @@ def make_elastic_sharded_train_step(cfg, sched: GossipSchedule, opt_update: Call
     update, and the others renormalize inside ``gossip_shard_elastic``. The
     loss is ``Σ loss·alive / Σ alive`` over the workers.
     """
-    group = _gossip_group(mesh, tuple(gossip_axes))
+    _, tp = _gossip_rank_groups(mesh, tuple(gossip_axes))
+    axis = _gossip_group(mesh, tuple(gossip_axes), sched.n)
+
+    def masks(alive, mix_mask, dev):
+        i = axis.ranks.index(dist.get_rank())
+        a_i = torch.as_tensor(alive).to(dev)[i]
+        return a_i, torch.as_tensor(mix_mask).to(dev)[i] > 0, a_i > 0
+
+    def freeze(mixed, local, old, opt, opt_old, m_i, lives):
+        params = tree_map(lambda mx, lc, od: torch.where(m_i, mx, torch.where(lives, lc, od)),
+                          mixed, local, old)
+        return params, tree_map(lambda nw, od: torch.where(lives, nw, od), opt, opt_old)
+
+    if tp:
+        def mix(local, old, opt, opt_old, extra):
+            alive, mix_mask, w_self, w_recv = extra
+            mixed = gossip_shard_elastic(local, sched, axis, mix_mask, w_self, w_recv)
+            _, m_i, lives = masks(alive, mix_mask, tree_leaves(local)[0].device)
+            return freeze(mixed, local, old, opt, opt_old, m_i, lives)
+
+        inner = _tp_rank_step(cfg, opt_update, mesh, tuple(gossip_axes), tp, mix)
+
+        def tp_step(state: DSGDState, batch, alive, mix_mask, w_self, w_recv):
+            state, loss = inner(state, batch, alive, mix_mask, w_self, w_recv)
+            a_i, _, _ = masks(alive, mix_mask, loss.device)
+            return state, {"loss": _group_mean(loss, a_i.float(), axis.group)}
+
+        return tp_step
+
     grad_fn = torch.func.vmap(torch.func.grad_and_value(_loss_fn(cfg)))
     opt_fn = torch.func.vmap(opt_update)
 
@@ -304,16 +335,10 @@ def make_elastic_sharded_train_step(cfg, sched: GossipSchedule, opt_update: Call
             del grads
             local = apply_updates(state.params, updates)
             del updates
-            mixed = gossip_shard_elastic(local, sched, group, mix_mask, w_self, w_recv)
-            i = dist.get_rank(group)
-            dev = losses.device
-            a_i = torch.as_tensor(alive).to(dev)[i]
-            m_i = torch.as_tensor(mix_mask).to(dev)[i] > 0
-            lives = a_i > 0
-            params = tree_map(lambda mx, lc, od: torch.where(m_i, mx, torch.where(lives, lc, od)),
-                              mixed, local, state.params)
-            opt = tree_map(lambda nw, od: torch.where(lives, nw, od), opt, state.opt)
-            loss = _group_mean(losses[0], a_i.float(), group)
+            mixed = gossip_shard_elastic(local, sched, axis, mix_mask, w_self, w_recv)
+            a_i, m_i, lives = masks(alive, mix_mask, losses.device)
+            params, opt = freeze(mixed, local, state.params, opt, state.opt, m_i, lives)
+            loss = _group_mean(losses[0], a_i.float(), axis.group)
         return DSGDState(params, opt, state.step + 1), {"loss": loss}
 
     return step

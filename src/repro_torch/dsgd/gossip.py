@@ -50,6 +50,8 @@ and each received buffer back to the card (:func:`_to_host`,
 """
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -58,7 +60,7 @@ from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 from ..kernels.gossip_mix.ops import gossip_mix, gossip_mix_batched_leaves
 from .schedule import GossipSchedule
 
-__all__ = ["gossip_shard", "gossip_shard_elastic", "gossip_sim",
+__all__ = ["GossipAxis", "gossip_shard", "gossip_shard_elastic", "gossip_sim",
            "gossip_sim_tree", "gossip_sim_tree_rowloop", "padded_neighbors",
            "elastic_neighbor_tables", "gather_neighbor_weights",
            "schedule_weight_arrays", "select_cycle_matrix"]
@@ -72,17 +74,31 @@ def select_cycle_matrix(Wc: torch.Tensor, R, t) -> torch.Tensor:
     return torch.index_select(Wc, 0, i.reshape(1).long())[0]
 
 
+class GossipAxis(NamedTuple):
+    """The workers of a gossip sub-group: its process group and the global
+    rank of each worker, in worker order (the gossip mesh dims flattened
+    row-major, as ``ppermute`` flattens a tuple of axes; a process group
+    lists its ranks sorted, so the order is kept here)."""
+    group: Any
+    ranks: tuple
+
+
 def _worker(axis, n: int):
-    """(group, this rank's worker index) of the group hosting the n workers
-    (``None``: the default group)."""
+    """(group, this rank's worker index, the global rank of each worker) of
+    the group hosting the n workers: ``axis`` a process group (``None``: the
+    default group; its workers in group-rank order) or a
+    :class:`GossipAxis`."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("gossip_shard needs a torch.distributed process group: one rank "
                            "a worker")
-    group = dist.group.WORLD if axis is None else axis
-    if dist.get_world_size(group) != n:
-        raise ValueError(f"the schedule has {n} workers but the group has "
-                         f"{dist.get_world_size(group)} ranks")
-    return group, dist.get_rank(group)
+    if isinstance(axis, GossipAxis):
+        group, ranks = axis.group, tuple(axis.ranks)
+    else:
+        group = dist.group.WORLD if axis is None else axis
+        ranks = tuple(dist.get_global_rank(group, k) for k in range(dist.get_world_size(group)))
+    if len(ranks) != n:
+        raise ValueError(f"the schedule has {n} workers but the group has {len(ranks)} ranks")
+    return group, ranks.index(dist.get_rank()), ranks
 
 
 def _peers(perm, i: int) -> tuple[int | None, int | None]:
@@ -129,12 +145,13 @@ def _to_device(host: torch.Tensor, device: torch.device) -> torch.Tensor:
     return host.to(device, non_blocking=True)
 
 
-def _exchange(sends: list, peers, group, tag: int, pinned: bool) -> list | None:
+def _exchange(sends: list, peers, group, ranks, tag: int, pinned: bool) -> list | None:
     """One round: send every buffer of ``sends`` to ``peers[0]`` and receive
     a buffer of the same size and dtype for each from ``peers[1]`` (worker
-    indices in ``group``; pinned host buffers when ``pinned``), one
-    ``batch_isend_irecv``; the received buffers, or None when nothing is
-    received. Buffer k travels under tag ``tag + k``."""
+    indices; ``ranks`` their global ranks; pinned host buffers when
+    ``pinned``), one ``batch_isend_irecv`` on ``group``; the received
+    buffers, or None when nothing is received. Buffer k travels under tag
+    ``tag + k``."""
     dst, src = peers
     if dst is None and src is None:
         return None
@@ -144,24 +161,22 @@ def _exchange(sends: list, peers, group, tag: int, pinned: bool) -> list | None:
     ops = []
     for k, b in enumerate(sends):
         if dst is not None:
-            ops.append(dist.P2POp(dist.isend, b, dist.get_global_rank(group, dst), group,
-                                  tag + k))
+            ops.append(dist.P2POp(dist.isend, b, ranks[dst], group, tag + k))
         if src is not None:
-            ops.append(dist.P2POp(dist.irecv, recvs[k], dist.get_global_rank(group, src), group,
-                                  tag + k))
+            ops.append(dist.P2POp(dist.irecv, recvs[k], ranks[src], group, tag + k))
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     return recvs
 
 
-def _rounds(packs, sched: GossipSchedule, group, i: int, device):
+def _rounds(packs, sched: GossipSchedule, group, ranks, i: int, device):
     """Yield ``(round, received buffers on the leaves' device or None)`` for
     each round of the schedule, exchanging the packed buffers."""
     # gloo sends host memory only: a rank on a card stages
     staged = device.type == "cuda" and dist.get_backend(group) == "gloo"
     sends = [_to_host(b) for b, _ in packs] if staged else [b for b, _ in packs]
     for r, perm in enumerate(sched.perms):
-        recvs = _exchange(sends, _peers(perm, i), group, r * len(packs), staged)
+        recvs = _exchange(sends, _peers(perm, i), group, ranks, r * len(packs), staged)
         if recvs is not None and staged:
             recvs = [_to_device(h, device) for h in recvs]
         yield r, recvs
@@ -183,19 +198,20 @@ def gossip_shard(tree, sched: GossipSchedule, axis=None):
 
     ``tree``: this worker's copy, any shapes (a leading worker axis of size
     1 is just data); ``axis``: the process group hosting the n workers
-    (``None``: the default group), the worker's index its rank there. As the
+    (``None``: the default group), the worker's index its rank there, or a
+    :class:`GossipAxis` (a sub-group and its workers' ranks). As the
     reference: ``acc = x · w_self[i]`` in float32, then for each round, in
     the schedule's order, ``acc += recv · w_recv[r][i]`` with the received
     copy in float32, and each leaf cast back to its dtype.
     """
-    group, i = _worker(axis, sched.n)
+    group, i, ranks = _worker(axis, sched.n)
     leaves, spec = tree_flatten(tree)
     if not leaves:
         return tree
     packs = _pack(leaves)
     w_self, w_recv = schedule_weight_arrays(sched)
     accs = [b.float() * float(w_self[i]) for b, _ in packs]
-    for r, recvs in _rounds(packs, sched, group, i, leaves[0].device):
+    for r, recvs in _rounds(packs, sched, group, ranks, i, leaves[0].device):
         if recvs is None:
             continue
         w = float(w_recv[r, i])
@@ -220,7 +236,7 @@ def gossip_shard_elastic(tree, sched: GossipSchedule, axis, mix_mask, self_weigh
     (rounds, n)``: see :func:`schedule_weight_arrays`; the rounds' pairs
     stay the schedule's.
     """
-    group, i = _worker(axis, sched.n)
+    group, i, ranks = _worker(axis, sched.n)
     leaves, spec = tree_flatten(tree)
     if not leaves:
         return tree
@@ -237,7 +253,7 @@ def gossip_shard_elastic(tree, sched: GossipSchedule, axis, mix_mask, self_weigh
     sizes = [b.numel() - (k == f) for k, (b, _) in enumerate(packs)]
     accs = [b[:m].float() * w_self for (b, _), m in zip(packs, sizes)]
     lost = torch.zeros((), dtype=torch.float32, device=device)
-    for r, recvs in _rounds(packs, sched, group, i, device):
+    for r, recvs in _rounds(packs, sched, group, ranks, i, device):
         w = w_recv[r, i]
         if recvs is None:
             lost = lost + w

@@ -23,8 +23,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from torch.distributed.tensor import DTensor, Replicate
+
 from ..kernels.decode_attention import ops as _dec_ops
-from .common import apply_rope, dense_init, softcap
+from .common import apply_rope, dense_init, softcap, tp_matmul
 
 __all__ = ["init_attn", "attend_full", "attend_chunked", "attn_forward", "attn_decode",
            "decode_valid", "KVCache", "init_kv_cache"]
@@ -154,6 +156,11 @@ def attn_forward(params, x, cfg, *, window: int = 0, positions=None,
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
+    if isinstance(params["wq"], DTensor):
+        if cache is not None:
+            raise NotImplementedError("a KV cache over DTensor weights is serving over a mesh "
+                                      "(ROADMAP.md, Queue 1, item 7c′)")
+        return _attn_forward_tp(params, x, cfg, window, positions, chunked), None
     q, k, v = _qkv(params, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -174,6 +181,55 @@ def attn_forward(params, x, cfg, *, window: int = 0, positions=None,
             cache.v.copy_(torch.roll(v[:, S - C:], S % C, dims=1))
     hd = cfg.resolved_head_dim
     return out.reshape(B, S, cfg.num_heads * hd) @ params["wo"], cache
+
+
+def _head_placements(t: DTensor, heads: int) -> list:
+    """Where a (B, S, heads·hd) projection's heads may stay sharded: the
+    batch dim's shards and a head-dim shard over a mesh dim that divides
+    ``heads`` stay, everything else is replicated."""
+    mesh = t.device_mesh
+    return [p if p.is_shard(0) or (p.is_shard(2) and heads % mesh.size(i) == 0) else Replicate()
+            for i, p in enumerate(t.placements)]
+
+
+def _attn_forward_tp(params, x, cfg, window: int, positions, chunked: bool):
+    """The full-sequence forward on DTensor weights (the tensor-parallel
+    train steps), Megatron's head-parallel attention: q, k, v are the
+    column-parallel products (partial sums reduced), each rank attends over
+    its local heads (and batch rows) as plain tensors, with the same code
+    as one device, and ``wo`` takes the heads back row-parallel. Heads stay
+    sharded over a mesh dim only where it divides the kv heads (so the
+    query groups stay with their kv head); elsewhere q, k and v are
+    gathered (an explicit redistribution) and every rank of that dim
+    attends over all heads."""
+    hd = cfg.resolved_head_dim
+    q, k, v = (tp_matmul(x, params[w]) for w in ("wq", "wk", "wv"))
+    if "bq" in params:
+        q, k, v = (t + _like_last_dim(params[b], t) for t, b in zip((q, k, v), ("bq", "bk", "bv")))
+    want = _head_placements(k, cfg.num_kv_heads)
+    if want != _head_placements(q, cfg.num_heads):
+        want = [p if p.is_shard(0) else Replicate() for p in want]
+    q, k, v = (t.redistribute(t.device_mesh, want) for t in (q, k, v))
+    local = [t.to_local() for t in (q, k, v)]
+    Bl, S = local[0].shape[:2]
+    ql, kl, vl = (t.reshape(Bl, S, -1, hd) for t in local)
+    ql = apply_rope(ql, positions, cfg.rope_theta)
+    kl = apply_rope(kl, positions, cfg.rope_theta)
+    if chunked and S > 128:
+        out = attend_chunked(ql, kl, vl, window, cfg.attn_logit_softcap)
+    else:
+        out = attend_full(ql, kl, vl, _causal_mask(S, window, ql.device), cfg.attn_logit_softcap)
+    out = DTensor.from_local(out.reshape(Bl, S, -1), q.device_mesh, want, run_check=False)
+    return tp_matmul(out, params["wo"])
+
+
+def _like_last_dim(b: DTensor, t: DTensor) -> DTensor:
+    """A (n,) bias laid out as ``t``'s last dim: sharded over the mesh dims
+    that shard it, replicated elsewhere (an explicit redistribution)."""
+    from torch.distributed.tensor import Shard
+
+    want = [Shard(0) if p.is_shard(t.ndim - 1) else Replicate() for p in t.placements]
+    return b if want == list(b.placements) else b.redistribute(b.device_mesh, want)
 
 
 def decode_valid(C: int, pos: int, window: int = 0, *, ring: bool = False,

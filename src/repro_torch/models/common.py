@@ -11,9 +11,10 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 __all__ = ["rms_norm", "rope_freqs", "apply_rope", "softcap", "dense_init", "embed_init",
-           "torch_dtype"]
+           "torch_dtype", "tp_reduce", "tp_matmul"]
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -21,7 +22,43 @@ def torch_dtype(name: str) -> torch.dtype:
     return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
+def tp_reduce(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's pending partial sums reduced (an explicit all-reduce
+    over the mesh dims that hold them), as the tensor-parallel steps want
+    after every matmul that contracts a sharded dim; a plain tensor, or a
+    DTensor with none, as it is."""
+    if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+        return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                              for p in x.placements])
+    return x
+
+
+def tp_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``; on a DTensor weight, Megatron's layouts and FSDP's gather:
+    over each mesh dim the weight keeps a shard of its contracting dim only
+    where ``x`` is sharded on its last dim there (row-parallel), and a shard
+    of its output dim only where ``x`` is not sharded there
+    (column-parallel); any other shard of the weight is gathered first (an
+    explicit all-gather), and the product's partial sums are reduced
+    (:func:`tp_reduce`). A plain ``w``: ``x @ w`` as it is."""
+    if isinstance(w, DTensor):
+        xp = x.placements if isinstance(x, DTensor) else [Replicate()] * w.device_mesh.ndim
+        want = []
+        for p, q in zip(w.placements, xp):
+            row = p.is_shard(w.ndim - 2) and q.is_shard(x.ndim - 1)
+            col = p.is_shard(w.ndim - 1) and not q.is_shard()
+            want.append(p if row or col else Replicate())
+        if want != list(w.placements):
+            w = w.redistribute(w.device_mesh, want)
+    return tp_reduce(x @ w)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    if isinstance(scale, DTensor):
+        # a scale sharded over the model dim (its spec) would shard the
+        # normed activations along the dim the next matmul contracts: gather
+        # the (d,) scale instead (an explicit all-gather of d values)
+        scale = scale.redistribute(scale.device_mesh, [Replicate()] * scale.device_mesh.ndim)
     dt = x.dtype
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)

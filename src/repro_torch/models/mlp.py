@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init
+from .common import dense_init, tp_matmul
 
 __all__ = ["init_swiglu", "swiglu", "init_gelu_mlp", "gelu_mlp"]
 
@@ -19,7 +19,10 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, dtype, lead: tupl
 
 
 def swiglu(params, x):
-    return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
+    """On DTensor weights the products take Megatron's layouts
+    (``tp_matmul``; ``x @ w`` on plain tensors)."""
+    gate, up = tp_matmul(x, params["w_gate"]), tp_matmul(x, params["w_up"])
+    return tp_matmul(F.silu(gate) * up, params["w_down"])
 
 
 def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype, lead: tuple = ()) -> dict:

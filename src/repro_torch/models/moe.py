@@ -26,6 +26,7 @@ Where the port must take care to give the reference's bits:
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from .common import dense_init
 
@@ -57,10 +58,19 @@ def moe_forward(params, x, *, top_k: int, capacity_factor: float = 1.25,
     """x: (B, S, D) → (out (B, S, D) in x's dtype, aux float32 scalar).
     Decode passes ``min_capacity = B·k`` so that single-token steps never
     drop."""
+    if isinstance(x, DTensor):
+        return _moe_forward_tp(params, x, top_k=top_k, capacity_factor=capacity_factor,
+                               min_capacity=min_capacity)
     B, S, D = x.shape
+    out, aux = _moe(params, x.reshape(B * S, D), top_k, capacity_factor, min_capacity)
+    return out.reshape(B, S, D), aux
+
+
+def _moe(params, xt, top_k: int, capacity_factor: float, min_capacity: int):
+    """The dispatch, experts and combine of the (T, D) tokens: (out (T, D),
+    aux)."""
+    T, D = xt.shape
     E = params["router"].shape[1]
-    T = B * S
-    xt = x.reshape(T, D)
     probs = torch.softmax((xt @ params["router"]).float(), dim=-1)       # (T, E)
     order = torch.sort(probs, dim=-1, descending=True, stable=True)
     topv, topi = order.values[:, :top_k], order.indices[:, :top_k]     # (T, k)
@@ -71,7 +81,7 @@ def moe_forward(params, x, *, top_k: int, capacity_factor: float = 1.25,
     # a comparison, not one_hot, which reads the indices back to the host,
     # laid out (E, T·k) so that the running count scans the contiguous axis
     # (a scan over the outer axis of (T·k, E) took 50 ms a layer on the card)
-    experts = torch.arange(E, device=x.device)
+    experts = torch.arange(E, device=xt.device)
     flat = (experts[:, None] == topi.reshape(1, -1)).to(torch.int32)   # (E, T·k)
     before = torch.cumsum(flat, dim=1, dtype=torch.int32) - flat
     pos = before.gather(0, topi.reshape(1, -1)).reshape(T, top_k)
@@ -82,19 +92,40 @@ def moe_forward(params, x, *, top_k: int, capacity_factor: float = 1.25,
     # reference's add into zeros; the dropped ones land in row C, cut off.
     # Out of place: torch.func.vmap refuses an in-place write of the
     # workers' values into a buffer made here
-    buf = torch.zeros((E, C + 1, D), dtype=x.dtype, device=x.device).index_put(
+    buf = torch.zeros((E, C + 1, D), dtype=xt.dtype, device=xt.device).index_put(
         (topi.reshape(-1), slot.reshape(-1)), xt[:, None].expand(T, top_k, D).reshape(-1, D))
     expert_in = buf[:, :C]
     h = _silu(torch.bmm(expert_in, params["w_gate"])) * torch.bmm(expert_in, params["w_up"])
     expert_out = torch.bmm(h, params["w_down"])                          # (E, C, D)
 
-    w = (topv * keep).to(x.dtype)                                       # (T, k)
+    w = (topv * keep).to(xt.dtype)                                       # (T, k)
     rows = slot.clamp(max=C - 1)
-    out = torch.zeros((T, D), dtype=x.dtype, device=x.device)
+    out = torch.zeros((T, D), dtype=xt.dtype, device=xt.device)
     for j in range(top_k):
         out = out + expert_out[topi[:, j], rows[:, j]] * w[:, j, None]
 
     # load-balance aux loss: E · Σ_e f_e · P_e over all tokens
     f = flat.sum(dim=1).float() / T
     aux = E * torch.sum(f * probs.mean(dim=0)) / top_k
-    return out.reshape(B, S, D), aux
+    return out, aux
+
+
+def _moe_forward_tp(params, x: DTensor, *, top_k: int, capacity_factor: float,
+                    min_capacity: int):
+    """:func:`moe_forward` of a DTensor ``x`` (the tensor-parallel steps):
+    one dispatch group over all the worker's tokens, as on one device. The
+    tokens are gathered first (an explicit all-gather over the mesh dims
+    that shard the batch) and the output goes back to ``x``'s layout (an
+    explicit redistribution). Around each view between (B, S, D) and
+    (T, D) the tokens are laid out replicated, in both directions: the
+    dispatch and the combine leave the token dim of their results and
+    gradients sharded over the expert dims too, and the view of such a
+    token dim into a batch dim that cannot carry those shards fails (a
+    redistribution to the layout a tensor already has still lays out its
+    gradient so)."""
+    B, S, D = x.shape
+    mesh, layout = x.device_mesh, x.placements
+    rep = [Replicate()] * mesh.ndim
+    xt = x.redistribute(mesh, rep).reshape(B * S, D).redistribute(mesh, rep)
+    out, aux = _moe(params, xt, top_k, capacity_factor, min_capacity)
+    return out.redistribute(mesh, rep).reshape(B, S, D).redistribute(mesh, layout), aux

@@ -41,11 +41,12 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
 from .attention import (KVCache, _qkv, attend_full, attn_decode, attn_forward, decode_valid,
                         init_attn)
-from .common import dense_init, embed_init, rms_norm, softcap, torch_dtype
+from .common import dense_init, embed_init, rms_norm, softcap, tp_matmul, torch_dtype, tp_reduce
 from .mlp import gelu_mlp, init_gelu_mlp, init_swiglu, swiglu
 from .moe import init_moe, moe_forward
 from .ssm import SSMCache, init_mamba2, init_ssm_cache, mamba2_decode, mamba2_forward
@@ -281,15 +282,49 @@ def _stack_audio_decoder(params, x, enc_out, cfg, positions, *, with_cache: bool
 
 
 def _embed(params, tokens, cfg):
-    x = F.embedding(tokens, params["embed"])
+    table = params["embed"]
+    if isinstance(table, DTensor):
+        x = _sharded_lookup(table, tokens)
+    else:
+        x = F.embedding(tokens, table)
     if cfg.logit_softcap and cfg.arch_type in ("dense", "moe", "vlm"):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
     return x
 
 
+def _sharded_lookup(table: DTensor, tokens) -> DTensor:
+    """The embedding lookup of a DTensor table (the tensor-parallel steps),
+    Megatron's vocab-parallel form: each rank looks its tokens up in its own
+    rows of the table, the tokens outside them masked to zero rows, and the
+    mesh dims that shard the vocabulary add the ranks' rows (an explicit
+    all-reduce of one nonzero term a row: exact). The table keeps its vocab
+    shards only where the tokens are not sharded; elsewhere it is gathered
+    first (an explicit all-gather), and there its gradient is a partial sum
+    of the ranks' token shards. DTensor's own sharded lookup leaves a masked
+    partial sum that it reduces once only, and the residual stream reads it
+    twice."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = table.device_mesh
+    tp = tokens.placements if isinstance(tokens, DTensor) else [Replicate()] * mesh.ndim
+    want = [p if p.is_shard(0) and not q.is_shard() else Replicate()
+            for p, q in zip(table.placements, tp)]
+    if want != list(table.placements):
+        table = table.redistribute(mesh, want)
+    local = table.to_local(grad_placements=[Partial() if q.is_shard() else p
+                                            for p, q in zip(want, tp)])
+    _, (lo, _) = compute_local_shape_and_global_offset(table.shape, mesh, want)
+    ids = (tokens.to_local() if isinstance(tokens, DTensor) else tokens).long() - lo
+    inside = (ids >= 0) & (ids < local.shape[0])
+    rows = F.embedding(torch.where(inside, ids, 0), local) * inside[..., None].to(local.dtype)
+    return tp_reduce(DTensor.from_local(rows, mesh, [Partial() if p.is_shard() else q
+                                                     for p, q in zip(want, tp)],
+                                        run_check=False))
+
+
 def _logits(params, x, cfg):
     head = params.get("lm_head")
-    logits = (x @ head if head is not None else x @ params["embed"].T).float()
+    logits = (tp_matmul(x, head) if head is not None else tp_matmul(x, params["embed"].T)).float()
     if cfg.logit_softcap:
         logits = softcap(logits, cfg.logit_softcap)
     return logits
@@ -332,14 +367,21 @@ def _forward_seq(params, cfg, batch, *, with_cache: bool = False, cache_cap: int
 def _nll_sum(params, x, labels, cfg):
     """Σ nll over valid positions and the valid count, for one (B, c, D)
     chunk: nll = logsumexp(logits) − logits[label]. The target logit is a
-    gather, where the reference takes a one-hot masked sum (a form that
-    stays sharded on a vocab-sharded mesh); both pick the same value."""
+    gather; of DTensor logits (the tensor-parallel steps, sharded over the
+    vocab) it is the reference's one-hot masked sum, a reduction over the
+    vocab that stays sharded where DTensor's gather does not. Both pick the
+    same value, and so do their gradients."""
     logits = _logits(params, x, cfg)              # (B,c,V) f32
     valid = labels >= 0
     safe = torch.where(valid, labels, 0).long()
     m = logits.amax(dim=-1)
     lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
-    target = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        vocab = torch.arange(logits.shape[-1], device=safe.device)
+        onehot = vocab[None, None, :] == safe[..., None]
+        target = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
+    else:
+        target = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = lse - target
     return torch.sum(nll * valid), torch.sum(valid)
 

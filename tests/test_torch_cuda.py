@@ -1525,3 +1525,341 @@ def test_one_rank_nccl_sharded_solve_is_the_unsharded_one_on_card(cuda, tmp_path
     assert (got.iters, got.cg_iters) == (want.iters, want.cg_iters)
     assert [h[::2] for h in got.history] == [h[::2] for h in want.history]
     assert abs(got.residual - want.residual) <= 1e-12 * abs(want.residual)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism inside a worker, on DTensor
+# ---------------------------------------------------------------------------
+
+#: against the same step on the card's plain tensors, as chip_smoke's
+#: main_tp_dsgd holds its steps: the weights within 8 bf16 ulps at the
+#: leaf's largest magnitude, the leaves that start at zero (norm scales,
+#: biases: −lr·m after one step) and the float32 momentum within 5 % by
+#: ‖Δ‖/‖x‖ (bf16 partial sums all-reduced in another order)
+TP_ULPS = 8
+TP_REL = 0.05
+
+
+def _tp_cfg(dtype: str):
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced_for_smoke
+
+    return dataclasses.replace(reduced_for_smoke(get_arch("qwen1.5-0.5b")), dtype=dtype)
+
+
+def _tp_batch(n: int, vocab: int, dev) -> dict:
+    tok = torch.from_numpy(np.random.default_rng(28).integers(0, vocab, (n, 4, 33)))
+    return {"tokens": tok[..., :-1].int().to(dev), "labels": tok[..., 1:].int().to(dev)}
+
+
+def _tp_pins(got: dict, want: dict, zero_start: set) -> dict:
+    """Leaf by leaf over flat {name: (n, ...)} trees: the weights in bf16
+    ulps, the zero-start leaves and the momentum by ‖Δ‖/‖x‖."""
+    out = {}
+    for what in ("params", "momentum"):
+        for k, a in got[what].items():
+            a, b = a.float(), want[what][k].to(a.device).float()
+            rel = float((a - b).norm() / b.norm())
+            if what == "params" and k not in zero_start:
+                _, ex = torch.frexp(b.abs().max())
+                out[(what, k)] = float((a - b).abs().max()) / float(2.0 ** (int(ex) - 8))
+                assert out[(what, k)] <= TP_ULPS, (what, k, out[(what, k)])
+            else:
+                out[(what, k)] = rel
+                assert rel <= TP_REL, (what, k, rel)
+    return out
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_tp_step_is_the_cpus_on_card(cuda, tmp_path):
+    """``make_tp_train_step`` on a 1 × 1 DTensor mesh of one NCCL rank (every
+    placement local, nothing to exchange) on the card against the same step
+    on the CPU's plain tensors: reduced qwen1.5 in float32, 2 microbatches,
+    2 steps; the losses within 1e-5 relative, params and momentum within
+    1e-4 of each leaf's largest magnitude (the card's and the CPU's float32
+    reductions differ)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dsgd import init_dsgd_state, make_tp_train_step, trainer
+    from repro_torch.dsgd.tensor_parallel import full_value, place_tree
+    from repro_torch.launch.sharding import DistPlan, batch_specs, tree_param_specs
+    from repro_torch.optim import sgd_momentum
+
+    cfg = _tp_cfg("float32")
+    opt_init, upd = sgd_momentum(0.05)
+
+    def one(dev):
+        st = init_dsgd_state(0, cfg, 1, opt_init, device=dev)
+        return trainer.DSGDState(tree_map(lambda x: x[0], st.params),
+                                 tree_map(lambda x: x[0], st.opt), st.step)
+
+    batches = [{k: v[0] for k, v in _tp_batch(1, cfg.vocab_size, "cpu").items()}
+               for _ in range(2)]
+    step = make_tp_train_step(cfg, upd, accum_steps=2)
+    want, losses = one("cpu"), []
+    for b in batches:
+        want, m = step(want, b)
+        losses.append(float(m["loss"]))
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                          mesh_dim_names=("data", "model"))
+        plan = DistPlan((), ("data", "model"), ("data",), 1)
+        st = one(cuda)
+        st = trainer.DSGDState(place_tree(st.params, mesh, tree_param_specs(st.params, plan, mesh)),
+                               place_tree(st.opt, mesh, tree_param_specs(st.opt, plan, mesh)),
+                               st.step)
+        got = []
+        for b in batches:
+            b = {k: v.to(cuda) for k, v in b.items()}
+            st, m = step(st, place_tree(b, mesh, batch_specs(cfg, plan, mesh,
+                                                             {k: tuple(v.shape) for k, v in
+                                                              b.items()})))
+            got.append(float(m["loss"]))
+        gp = {k: full_value(v).cpu() for k, v in _flat(st.params).items()}
+        gm = {k: full_value(v).cpu() for k, v in _flat(st.opt.momentum).items()}
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(got, losses, rtol=1e-5)
+    for g, w in ((gp, _flat(want.params)), (gm, _flat(want.opt.momentum))):
+        for k in w:
+            scale = float(w[k].abs().max()) or 1.0
+            assert float((g[k] - w[k]).abs().max()) <= 1e-4 * scale, k
+
+
+TP_CARD_WORKER = r'''
+import datetime, pickle, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, world, init, out_dir = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                        timeout=datetime.timedelta(seconds=120))
+from torch.distributed.device_mesh import DeviceMesh
+from torch.utils._pytree import tree_map
+
+sys.path.insert(0, sys.argv[5])
+import test_torch_cuda as t
+from repro_torch import kernels
+from repro_torch.core.graph import Topology
+from repro_torch.device import resolve_device
+from repro_torch.dsgd import (gossip, init_dsgd_state, make_matmul_gossip_train_step,
+                              make_sharded_train_step, make_tp_train_step,
+                              schedule_from_topology, trainer)
+from repro_torch.dsgd.tensor_parallel import full_value, place_tree
+from repro_torch.launch.sharding import DistPlan, batch_specs, tree_param_specs
+from repro_torch.optim import sgd_momentum
+
+dev = resolve_device("cuda")
+cfg = t._tp_cfg("bfloat16")
+opt_init, upd = sgd_momentum(0.05)
+batch = t._tp_batch(2, cfg.vocab_size, dev)
+topo = Topology(2, [(0, 1)], np.array([0.5]), "pair")
+start = init_dsgd_state(0, cfg, 2, opt_init, device=dev)
+staged = []
+orig = gossip._to_device
+gossip._to_device = lambda *a: staged.append(1) or orig(*a)
+kernels.reset_launch_counts()
+full = lambda s: dict(params={k: full_value(v).cpu() for k, v in t._flat(s.params).items()},
+                      momentum={k: full_value(v).cpu() for k, v in t._flat(s.opt.momentum).items()})
+out = {}
+# the rank-per-worker step on data=2 x model=1: one worker a rank, staged gossip
+mesh = DeviceMesh("cuda", torch.arange(2).reshape(2, 1), mesh_dim_names=("data", "model"))
+mine = trainer.DSGDState(tree_map(lambda x: x[rank:rank + 1], start.params),
+                         tree_map(lambda x: x[rank:rank + 1], start.opt), start.step)
+s, m = make_sharded_train_step(cfg, schedule_from_topology(topo), upd, mesh)(
+    mine, {k: v[rank:rank + 1] for k, v in batch.items()})
+parts = [None, None]
+dist.all_gather_object(parts, tree_map(lambda x: x.cpu(), dict(params=t._flat(s.params),
+                                                                momentum=t._flat(s.opt.momentum))))
+out["sharded"] = {w: {k: torch.cat([p[w][k] for p in parts]) for k in parts[0][w]}
+                  for w in ("params", "momentum")}
+out["staged"] = len(staged)
+# the TP step of one worker over data=1 x model=2
+mesh = DeviceMesh("cuda", torch.arange(2).reshape(1, 2), mesh_dim_names=("data", "model"))
+plan = DistPlan((), ("data", "model"), ("data",), 1)
+one = trainer.DSGDState(tree_map(lambda x: x[0], start.params), tree_map(lambda x: x[0], start.opt),
+                        start.step)
+b1 = {k: v[0] for k, v in batch.items()}
+placed = trainer.DSGDState(place_tree(one.params, mesh, tree_param_specs(one.params, plan, mesh)),
+                           place_tree(one.opt, mesh, tree_param_specs(one.opt, plan, mesh)), one.step)
+s, m = make_tp_train_step(cfg, upd, accum_steps=2)(
+    placed, place_tree(b1, mesh, batch_specs(cfg, plan, mesh, {k: tuple(v.shape) for k, v in b1.items()})))
+out["tp"] = {w: {k: v.unsqueeze(0) for k, v in d.items()} for w, d in full(s).items()}
+# the W-matmul step over pod=2 x data=1 x model=1
+mesh = DeviceMesh("cuda", torch.arange(2).reshape(2, 1, 1), mesh_dim_names=("pod", "data", "model"))
+plan = DistPlan(("pod",), ("data", "model"), ("data",), 2)
+placed = trainer.DSGDState(
+    place_tree(start.params, mesh, tree_param_specs(start.params, plan, mesh, stacked=True)),
+    place_tree(start.opt, mesh, tree_param_specs(start.opt, plan, mesh, stacked=True)), start.step)
+s, m = make_matmul_gossip_train_step(cfg, topo, upd)(
+    placed, place_tree(batch, mesh, batch_specs(cfg, plan, mesh, {k: tuple(v.shape) for k, v in
+                                                                   batch.items()}, stacked=True)))
+out["matmul"] = full(s)
+out["launches"] = kernels.launch_counts()
+if rank == 0:
+    pickle.dump(out, open(f"{out_dir}/out.pkl", "wb"))
+dist.destroy_process_group()
+'''
+
+
+@pytest.mark.cuda
+def test_tp_dsgd_pins_at_reduced_width_on_two_gloo_ranks_on_card(cuda, tmp_path):
+    """chip_smoke's main_tp_dsgd pins at reduced width (qwen1.5 reduced,
+    bf16, 4 × 32 tokens a worker) on 2 gloo ranks sharing the card: the
+    rank-per-worker step on data=2 × model=1 (its gossip staged through
+    host memory) against the stacked ``dsgd_train_step``, the TP step of
+    one worker over model=2 (DTensor's all-gathers rerouted through c10d)
+    and the W-matmul step over pod=2 against the same steps on the card's
+    plain tensors; no kernel launched in the ranks."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    from repro_torch.dsgd import (dsgd_train_step, init_dsgd_state,
+                                  make_matmul_gossip_train_step, make_tp_train_step, trainer)
+    from repro_torch.core.graph import Topology
+    from repro_torch.optim import sgd_momentum
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(here), "src"))
+    init = f"file://{tmp_path / 'rendezvous'}"
+    procs = [subprocess.Popen([sys.executable, "-c", TP_CARD_WORKER, str(r), "2", init,
+                               str(tmp_path), here], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    cfg = _tp_cfg("bfloat16")
+    opt_init, upd = sgd_momentum(0.05)
+    topo = Topology(2, [(0, 1)], np.array([0.5]), "pair")
+    start = init_dsgd_state(0, cfg, 2, opt_init, device=cuda)
+    zero_start = {k for k, v in _flat(start.params).items() if not bool(v.any())}
+    batch = _tp_batch(2, cfg.vocab_size, cuda)
+    full = lambda s: dict(params={k: v.cpu() for k, v in _flat(s.params).items()},
+                          momentum={k: v.cpu() for k, v in _flat(s.opt.momentum).items()})
+    want = {"sharded": full(dsgd_train_step(cfg, topo, upd, device=cuda)(start, batch)[0]),
+            "matmul": full(make_matmul_gossip_train_step(cfg, topo, upd)(start, batch)[0])}
+    one = trainer.DSGDState(tree_map(lambda x: x[0], start.params),
+                            tree_map(lambda x: x[0], start.opt), start.step)
+    s, _ = make_tp_train_step(cfg, upd, accum_steps=2)(one, {k: v[0] for k, v in batch.items()})
+    want["tp"] = {w: {k: v.unsqueeze(0) for k, v in d.items()} for w, d in full(s).items()}
+    try:
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(log[-3000:] for log in logs)
+    got = pickle.loads((tmp_path / "out.pkl").read_bytes())
+    for label in ("sharded", "tp", "matmul"):
+        _tp_pins(got[label], want[label], zero_start)
+    assert got["staged"] > 0, "gloo staging never ran"
+    assert not any(got["launches"].values()), got["launches"]
+
+
+#: the rank-per-worker steps with a "model" dim on 4 NCCL ranks, one a card,
+#: against the stacked ``dsgd_train_step`` on cuda:0 (float32)
+NCCL4_WORKER = r'''
+import datetime, pickle, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, init, out_dir = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.cuda.set_device(rank)
+dist.init_process_group("nccl", init_method=init, rank=rank, world_size=4,
+                        timeout=datetime.timedelta(seconds=120))
+from torch.distributed.device_mesh import DeviceMesh
+from torch.utils._pytree import tree_map
+
+sys.path.insert(0, sys.argv[4])
+import test_torch_cuda as t
+from repro_torch.core.graph import Topology
+from repro_torch.dsgd import (init_dsgd_state, make_elastic_sharded_train_step,
+                              make_sharded_train_step, schedule_from_topology,
+                              schedule_weight_arrays, trainer)
+from repro_torch.dsgd.tensor_parallel import full_value
+from repro_torch.optim import sgd_momentum
+
+dev = torch.device("cuda", rank)
+cfg = t._tp_cfg("float32")
+opt_init, upd = sgd_momentum(0.05)
+topo = Topology(2, [(0, 1)], np.array([0.3]), "pair")
+sched = schedule_from_topology(topo)
+start = init_dsgd_state(0, cfg, 2, opt_init, device=dev)
+batch = t._tp_batch(2, cfg.vocab_size, dev)
+mesh = DeviceMesh("cuda", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
+w = rank // 2
+mine = trainer.DSGDState(tree_map(lambda x: x[w:w + 1], start.params),
+                         tree_map(lambda x: x[w:w + 1], start.opt), start.step)
+bw = {k: v[w:w + 1] for k, v in batch.items()}
+out = {}
+s, m = make_sharded_train_step(cfg, sched, upd, mesh)(mine, bw)
+out["gossip"] = {k: full_value(v).cpu() for k, v in t._flat(s.params).items()}
+ws, wr = (torch.from_numpy(a).to(dev) for a in schedule_weight_arrays(sched))
+ones = torch.ones(2, device=dev)
+s, m = make_elastic_sharded_train_step(cfg, sched, upd, mesh)(mine, bw, ones, ones, ws, wr)
+out["elastic"] = {k: full_value(v).cpu() for k, v in t._flat(s.params).items()}
+pickle.dump(out, open(f"{out_dir}/rank{rank}.pkl", "wb"))
+dist.destroy_process_group()
+'''
+
+
+@pytest.mark.cuda
+def test_tp_rank_steps_on_four_nccl_ranks_on_cards(cuda, tmp_path):
+    """Where four cards are attached: ``make_sharded_train_step`` and the
+    fault-free elastic step on data=2 × model=2, 4 NCCL ranks one a card
+    (the gossip's sub-groups and DTensor's collectives on NCCL), against
+    the stacked ``dsgd_train_step`` (dense gossip) on cuda:0: reduced
+    qwen1.5 in float32, params within 1e-4 of each leaf's largest
+    magnitude; the elastic step bitwise the plain one."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+
+    from repro_torch.core.graph import Topology
+    from repro_torch.dsgd import dsgd_train_step, init_dsgd_state
+    from repro_torch.optim import sgd_momentum
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(here), "src"))
+    init = f"file://{tmp_path / 'rendezvous'}"
+    procs = [subprocess.Popen([sys.executable, "-c", NCCL4_WORKER, str(r), init, str(tmp_path),
+                               here], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(4)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(log[-3000:] for log in logs)
+    cfg = _tp_cfg("float32")
+    opt_init, upd = sgd_momentum(0.05)
+    topo = Topology(2, [(0, 1)], np.array([0.3]), "pair")
+    start = init_dsgd_state(0, cfg, 2, opt_init, device=cuda)
+    want = _flat(dsgd_train_step(cfg, topo, upd, use_kernel=False, device=cuda)(
+        start, _tp_batch(2, cfg.vocab_size, cuda))[0].params)
+    outs = [pickle.loads((tmp_path / f"rank{r}.pkl").read_bytes()) for r in range(4)]
+    for r, o in enumerate(outs):
+        for k, v in o["gossip"].items():
+            ref = want[k][r // 2].cpu()
+            assert float((v[0] - ref).abs().max()) <= 1e-4 * (float(ref.abs().max()) or 1.0), (r, k)
+            assert torch.equal(v, o["elastic"][k]), (r, k)

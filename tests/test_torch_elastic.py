@@ -411,18 +411,21 @@ def test_runtime_refuses_cuda_without_a_card(setup):
 
 
 def test_sharded_step_is_not_ported_and_names_item_7():
-    """The rank-per-worker elastic step is ported; what it cannot take yet,
-    a mesh dim outside ``gossip_axes`` larger than 1 (tensor parallelism
-    inside a worker), raises naming item 7c before it needs a process group
-    (a stand-in mesh), as do the pjit steps still unported."""
+    """The rank-per-worker elastic step is ported, with a mesh dim outside
+    ``gossip_axes`` larger than 1 as tensor parallelism inside a worker
+    (item 7c, ported): its gossip groups and TP dim come from the mesh's
+    rank grid alone (a stand-in mesh), and building it needs a process
+    group and says so; the pjit steps of item 7c build."""
     from types import SimpleNamespace
 
     from repro_torch.dsgd import schedule_from_topology, trainer
 
     mesh = SimpleNamespace(mesh_dim_names=("data", "model"), mesh=torch.arange(N * 2).reshape(N, 2))
     sched = schedule_from_topology(make_baseline("ring", N))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7c"):
+    cols, tp = trainer._gossip_rank_groups(mesh, ("data",))
+    assert tp == ("model",) and cols == [list(range(0, 2 * N, 2)), list(range(1, 2 * N, 2))]
+    with pytest.raises(RuntimeError, match="process group"):
         t_el.make_elastic_sharded_train_step(None, sched, None, mesh)
-    for fn in (trainer.make_matmul_gossip_train_step, trainer.make_tp_train_step):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 7c"):
-            fn()
+    _, upd = topt.sgd_momentum(0.05)
+    assert callable(trainer.make_tp_train_step(None, upd))
+    assert callable(trainer.make_matmul_gossip_train_step(None, make_baseline("ring", N), upd))

@@ -290,15 +290,19 @@ def test_abort_nonfinite_stops_after_one_chunk():
 def test_selectors_not_ported_raise_naming_the_roadmap_item():
     """Item 7a's partitions (ported) resolve as the reference's, one process
     resolving ``"auto"`` to ``"none"``; item 7c's tensor-parallel train step
-    still raises naming the roadmap item; item 2's driver and backends
-    (ported) run: a short solve by each on the CPU."""
+    (ported) builds, and serving over a mesh (item 7c′) raises naming the
+    roadmap item; item 2's driver and backends (ported) run: a short solve
+    by each on the CPU."""
     from repro_torch.dsgd.trainer import make_tp_train_step
+    from repro_torch.launch.steps import build_step
+    from repro_torch.optim import sgd_momentum
 
     assert te.resolve_partition("edges", 8) == "edges"
     assert te.resolve_partition("instances", 8, batch=2) == "instances"
     assert te.resolve_partition("auto", 4096) == "none"
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7c"):
-        make_tp_train_step()
+    assert callable(make_tp_train_step(None, sgd_momentum(0.05)[1], accum_steps=2))
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7c′"):
+        build_step("smollm-135m", "prefill_32k", None)
     for kw in (dict(solver="kkt_bicgstab"), dict(driver="python"),
                dict(solver="kkt_bicgstab_ilu")):
         cfg = te.ADMMConfig(max_iters=5, check_every=5, device="cpu", **kw)

@@ -265,19 +265,20 @@ for label, shape, axes in (("data,model/data", (world, 1), ("data",)),
     m2 = DeviceMesh("cpu", torch.arange(world).reshape(shape), mesh_dim_names=("data", "model"))
     out[f"mesh/{label}"] = record(*make_sharded_train_step(cfg, sched, opt_update, m2,
                                                            gossip_axes=axes)(state, batch))
-# a second dim larger than 1 is tensor parallelism inside a worker
+# a second dim larger than 1 is tensor parallelism inside a worker: a
+# (1, world) mesh hosts one worker of world ranks, not the schedule's world
 m3 = DeviceMesh("cpu", torch.arange(world).reshape(1, world), mesh_dim_names=("data", "model"))
 try:
     make_sharded_train_step(cfg, sched, opt_update, m3, gossip_axes=("data",))
     out["tp_raise"] = None
-except NotImplementedError as e:
+except ValueError as e:
     out["tp_raise"] = str(e)
-# gossip dims over a part of the world would need a sub-group
+# a mesh over a part of the world: its gossip groups cannot be built on every rank
 part = types.SimpleNamespace(mesh_dim_names=("data",), mesh=torch.arange(world - 1))
 try:
     make_sharded_train_step(cfg, sched, opt_update, part)
     out["part_raise"] = None
-except NotImplementedError as e:
+except (NotImplementedError, ValueError) as e:
     out["part_raise"] = str(e)
 pickle.dump(out, open(f"{out_dir}/rank{rank}.pkl", "wb"))
 dist.destroy_process_group()
@@ -390,15 +391,20 @@ def test_schedule_weight_arrays_are_the_reference_bits(kind, n):
 
 def test_a_tensor_parallel_mesh_dim_raises_naming_7c():
     """A mesh dim outside ``gossip_axes`` larger than 1 is tensor parallelism
-    inside a worker: both steps refuse it before touching a process group
-    (a stand-in mesh: a ``DeviceMesh`` needs a group)."""
+    inside a worker (ported; ROADMAP.md item 7c is closed): its gossip
+    groups are the columns of the other dims, the "model" dim the TP dim,
+    read from the mesh's rank grid alone; building a step needs a process
+    group and says so (a stand-in mesh). Dims that are not the mesh's, and
+    an unknown ``sync``, still raise before any of that."""
     mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
                                  mesh=torch.arange(8).reshape(4, 2))
+    cols, tp = ttrainer._gossip_rank_groups(mesh, ("data",))
+    assert tp == ("model",) and cols == [[0, 2, 4, 6], [1, 3, 5, 7]]
     cfg = reduced_for_smoke(get_arch("smollm-135m"))
     sched = tsched.schedule_from_topology(t_baseline("ring", 4))
     _, upd = sgd_momentum(0.05)
     for make in (tdsgd.make_sharded_train_step, tdsgd.make_elastic_sharded_train_step):
-        with pytest.raises(NotImplementedError, match="item 7c"):
+        with pytest.raises(RuntimeError, match="process group"):
             make(cfg, sched, upd, mesh)
     with pytest.raises(ValueError, match="not dims of the mesh"):
         tdsgd.make_sharded_train_step(cfg, sched, upd, mesh, gossip_axes=("pod",))
@@ -408,16 +414,21 @@ def test_a_tensor_parallel_mesh_dim_raises_naming_7c():
 
 @pytest.mark.parametrize("axes,ranks", [(("b", "a"), range(8)), (("a", "b"), range(2, 10))])
 def test_a_gossip_sub_group_raises_naming_7c(axes, ranks):
-    """Gossip dims that flatten the mesh out of rank order, or over ranks
-    that do not start at 0, would need a sub-group: both steps refuse them
-    before touching a process group (a stand-in mesh)."""
+    """Gossip dims flatten the mesh row-major in the order given (as
+    ``ppermute`` flattens a tuple of axes): out of mesh order, the workers'
+    ranks come in that order, a group of their own (ported, item 7c). Both
+    builders need a process group for it and say so (a stand-in mesh)."""
     mesh = types.SimpleNamespace(mesh_dim_names=("a", "b"),
                                  mesh=torch.tensor(list(ranks)).reshape(2, 4))
+    cols, tp = ttrainer._gossip_rank_groups(mesh, axes)
+    grid = np.asarray(list(ranks)).reshape(2, 4)
+    want = grid.T.reshape(-1) if axes == ("b", "a") else grid.reshape(-1)
+    assert tp == () and cols == [want.tolist()]
     cfg = reduced_for_smoke(get_arch("smollm-135m"))
     sched = tsched.schedule_from_topology(t_baseline("ring", 8))
     _, upd = sgd_momentum(0.05)
     for make in (tdsgd.make_sharded_train_step, tdsgd.make_elastic_sharded_train_step):
-        with pytest.raises(NotImplementedError, match="sub-group.*item 7c"):
+        with pytest.raises(RuntimeError, match="process group"):
             make(cfg, sched, upd, mesh, gossip_axes=axes)
 
 
@@ -551,12 +562,18 @@ def test_a_two_dim_mesh_with_a_size_one_dim_is_the_one_dim_step(results, label):
 
 
 def test_a_tensor_parallel_mesh_raises_in_a_group(results):
+    """A (1, 5) mesh is one worker over five "model" ranks (tensor
+    parallelism, ported): its gossip dim hosts one worker, not the
+    schedule's five, and the builder says so on every rank."""
     outs, _ = results
     for o in outs:
-        assert o["tp_raise"] is not None and "item 7c" in o["tp_raise"]
+        assert o["tp_raise"] is not None and "the schedule has 5 workers" in o["tp_raise"] \
+            and "host 1" in o["tp_raise"]
 
 
 def test_a_mesh_over_part_of_the_world_raises_in_a_group(results):
+    """A mesh over 4 of the 5 ranks: the gossip groups are built on every
+    rank of the default group, so a mesh spans it, and every rank says so."""
     outs, _ = results
     for o in outs:
-        assert o["part_raise"] is not None and "sub-group" in o["part_raise"]
+        assert o["part_raise"] is not None and "spans the whole default group" in o["part_raise"]

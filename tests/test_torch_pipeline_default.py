@@ -103,16 +103,21 @@ def test_consensus_matches_reference_on_shared_initial_values():
 
 
 def test_entry_points_not_ported_raise_naming_the_roadmap_item():
-    """The pjit train steps (item 7c) still raise naming the roadmap item;
-    a ``driver="python"`` request (item 2, ported)
+    """The W-matmul train step (item 7c, ported) builds over a topology,
+    and a decode step over a mesh (item 7c′) raises naming the roadmap
+    item; a ``driver="python"`` request (item 2, ported)
     runs through the barrier engine, one restart at a time, to a
     release-valid topology, and so does ``partition="edges"`` (item 7a,
     ported: one process is a world of one rank)."""
     from repro_torch.core.engine import ADMMConfig
     from repro_torch.dsgd.trainer import make_matmul_gossip_train_step
+    from repro_torch.launch.steps import build_step
+    from repro_torch.optim import sgd_momentum
 
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7c"):
-        make_matmul_gossip_train_step()
+    assert callable(make_matmul_gossip_train_step(None, make_baseline("ring", 4),
+                                                  sgd_momentum(0.05)[1]))
+    with pytest.raises(NotImplementedError, match="Queue 1, item 7c′"):
+        build_step("smollm-135m", "decode_32k", None)
     for admm in (ADMMConfig(driver="python", max_iters=40),
                  ADMMConfig(partition="edges", max_iters=40)):
         cfg = BATopoConfig(device="cpu", sa_iters=60, polish_iters=50, restarts=2, admm=admm)

@@ -3,8 +3,8 @@
 - Every name in ``repro.core.__all__`` imports from ``repro_torch.core``
   and stands in its ``__all__``.
 - Every name in ``repro.dsgd.__all__`` imports from ``repro_torch.dsgd``
-  and stands in its ``__all__``, in the reference's order; the two pjit
-  steps not ported yet raise naming item 7c, and ``gossip_shard_dynamic``
+  and stands in its ``__all__``, in the reference's order; the two
+  tensor-parallel steps (item 7c) run a step, and ``gossip_shard_dynamic``
   (not in the reference's ``__all__``) is exported too.
 - ``repro_torch.core.simulate_consensus``, the one-topology call of
   ``simulate_consensus_batched``, gives the reference's trace on a shared
@@ -48,18 +48,47 @@ def test_every_reference_core_name_imports_from_the_port(name):
     assert getattr(tcore, name) is not None
 
 
-#: reference names that the port exports but does not run yet (ROADMAP.md,
-#: Queue 1, item 7c: tensor parallelism inside a worker)
-UNPORTED_DSGD = ("make_matmul_gossip_train_step", "make_tp_train_step")
+#: reference names ported with tensor parallelism inside a worker (ROADMAP.md,
+#: Queue 1, item 7c): each builds a step that runs, here on one device's
+#: plain tensors
+TP_DSGD = ("make_matmul_gossip_train_step", "make_tp_train_step")
+
+
+def _one_step(name: str) -> None:
+    """One step of ``name``'s step on reduced smollm-135m (float32, two
+    workers for the W-matmul step, one for the TP step): a finite loss and
+    the step counters advanced."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced_for_smoke
+    from repro_torch.core.graph import Topology
+    from repro_torch.optim import sgd_momentum
+    from torch.utils._pytree import tree_map
+
+    cfg = dataclasses.replace(reduced_for_smoke(get_arch("smollm-135m")), dtype="float32")
+    opt_init, upd = sgd_momentum(0.05)
+    state = tdsgd.init_dsgd_state(0, cfg, 2, opt_init, device="cpu")
+    tok = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 2, 9)))
+    batch = {"tokens": tok[..., :-1].int(), "labels": tok[..., 1:].int()}
+    if name == "make_tp_train_step":
+        state = tdsgd.DSGDState(tree_map(lambda x: x[0], state.params),
+                                tree_map(lambda x: x[0], state.opt), state.step)
+        batch = {k: v[0] for k, v in batch.items()}
+        step = tdsgd.make_tp_train_step(cfg, upd, accum_steps=2)
+    else:
+        step = tdsgd.make_matmul_gossip_train_step(
+            cfg, Topology(2, [(0, 1)], np.array([0.5]), "pair"), upd)
+    out, metrics = step(state, batch)
+    assert np.isfinite(float(metrics["loss"])) and int(out.step) == 1
+    assert int(out.opt.step.reshape(-1)[0]) == 1
 
 
 @pytest.mark.parametrize("name", jdsgd.__all__)
 def test_every_reference_dsgd_name_imports_from_the_port(name):
     assert name in tdsgd.__all__
     assert getattr(tdsgd, name) is not None
-    if name in UNPORTED_DSGD:
-        with pytest.raises(NotImplementedError, match="item 7c"):
-            getattr(tdsgd, name)()
+    if name in TP_DSGD:
+        _one_step(name)
 
 
 def test_dsgd_names_keep_the_reference_order():
