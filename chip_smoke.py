@@ -47,9 +47,15 @@ and drives the port's paths on ``cuda``:
   × model=2 mesh (the rank-per-worker schedule step, each worker's leaves
   DTensors over its two "model" ranks, the gossip on local shards; 2
   steps), ``make_tp_train_step`` of one pod-sized worker over both dims
-  (2 microbatches) and ``make_matmul_gossip_train_step`` on a pod=2 ×
+  (one microbatch) and ``make_matmul_gossip_train_step`` on a pod=2 ×
   data=1 × model=2 mesh, each held against its comparison in this
   process (the stacked ``dsgd_train_step``, the same steps unsharded);
+  then, on the same ranks, serving over the mesh (main_tp_serve):
+  ``build_step``'s prefill_32k and decode_32k fns (16 requests of 1,024
+  tokens into a cache of 2,048 slots whose sequence is sharded over
+  "model", 16 decode steps forced with the unsharded run's tokens), every
+  attention decode through ``decode_attention_partial`` on the rank's slice
+  and the merge, held against the same model unsharded on the card;
 - elastic DSGD training through the launcher (``--elastic``): main_dsgd's
   run with churn, stragglers, packet loss and a NIC collapse (a re-solve on
   the card, adopted mid-run), every round mixing leaf by leaf through
@@ -160,6 +166,7 @@ PATH_KERNELS = {
     "reopt": ("edge_laplacian", "edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec"),
     "elastic": ("edge_laplacian", "edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec",
                 "gossip_mix_batched"),
+    "tp_serve": ("decode_attention_partial",),
     "topo_cli": ("edge_laplacian", "edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec",
                  "hop_step"),
 }
@@ -1582,9 +1589,12 @@ XSTEP_FORMS = ("edge_laplacian_blocks", "edge_adjoint", "edge_schur_matvec")
 #: from the pipeline's 600 to pay for main_sharded, and from 150 for
 #: main_tp_dsgd (PERF.md §4)
 XSTEP_SOLVE_ITERS = 60
-#: card against CPU at card_vs_cpu's request, per backend: |Δλ̃| (float64)
+#: card against CPU at card_vs_cpu's request, per backend: |Δλ̃| (float64);
+#: the kkt row, reported without a band, cut to XSTEP_SOLVE_ITERS iterations
+#: (600 before) to pay for main_tp_serve (PERF.md §4)
 XSTEP_CARD_CPU_BAND = 1e-7
-XSTEP_CARD_CPU_BACKENDS = {"scan/kkt_bicgstab": dict(solver="kkt_bicgstab"),
+XSTEP_CARD_CPU_BACKENDS = {"scan/kkt_bicgstab": dict(solver="kkt_bicgstab",
+                                                     max_iters=XSTEP_SOLVE_ITERS),
                            "python/schur_cg": dict(driver="python"),
                            "python/kkt_bicgstab_ilu": dict(solver="kkt_bicgstab_ilu")}
 #: card_vs_cpu's request by each backend on the CPU, in a process of its own
@@ -1631,7 +1641,7 @@ def phase_main_xstep_backends(restarts: list) -> dict:
       card and on the CPU: for python/schur_cg and the ILU the same support
       and λ̃ within ``XSTEP_CARD_CPU_BAND``; for kkt_bicgstab, whose X-steps
       stop on ω = 0 or at rounding-level ω (the reference's fault), both
-      reported without a band."""
+      reported without a band, cut to ``XSTEP_SOLVE_ITERS`` iterations."""
     from repro_torch.core import BATopoConfig, HomogeneousADMM
     from repro_torch.core import engine as te
 
@@ -3055,6 +3065,197 @@ def _tpd_shard(x):
     return x.to_local(), tuple(slice(o, o + k) for o, k in zip(off, size))
 
 
+#: main_tp_serve (in main_tp_dsgd's spawn): build_step's prefill_32k and
+#: decode_32k of qwen1.5-0.5b at full width on the same 4 ranks, cut in
+#: requests and lengths only (PERF.md §4): TPS_BATCH requests of TPS_PROMPT
+#: tokens into a cache of TPS_CACHE slots, TPS_NEW decode steps
+TPS_BATCH, TPS_PROMPT, TPS_CACHE, TPS_NEW = 16, 1024, 2048, 16
+#: the bf16 band of the sharded run against the unsharded one on the card,
+#: for the logits (the prefill's and every teacher-forced decode step's) and
+#: the caches: max |Δ| within TPS_BAND_MAX of the largest |value| and
+#: ‖Δ‖/‖ref‖ within TPS_BAND_L2. The row-parallel products add bf16 partial
+#: sums, one rounding each, where one device rounds the float32 sum once,
+#: and 24 layers carry it. Set from the card's readings on an H100 (the
+#: logits 2.11 % of the largest |logit| in max |Δ| and 1.88 % in ‖Δ‖/‖ref‖,
+#: the caches 1.79–1.90 % and 1.52–1.54 %; PERF.md §6): 1.5–2× under the
+#: band, where a wrong head, slice or merge moves them by O(1). A greedy
+#: token may differ from the unsharded run's only where that run's top two
+#: logits lie within twice the measured max |Δ| of the logits (a token
+#: beyond it is not the argmax of the logits it was sampled from).
+TPS_BAND_MAX, TPS_BAND_L2 = 2.0 ** -5, 2.0 ** -5
+
+
+def _tps_prompts(vocab: int) -> np.ndarray:
+    return np.random.default_rng((TPD_SEED, 30)).integers(
+        0, vocab, size=(TPS_BATCH, TPS_PROMPT), dtype=np.int64).astype(np.int32)
+
+
+def _tps_reference(cfg, params, dev) -> dict:
+    """The unsharded run on the card from the same weights: the prefill of
+    the prompts into a cache of TPS_CACHE slots, then TPS_NEW greedy decode
+    steps (the tokens the ranks are forced with). On the card: the last
+    position's logits and each step's, the caches after the last step; on
+    the host: the tokens, each step's top-two margin and the largest |value|
+    of the logits and of each cache."""
+    from repro_torch.models import transformer
+    from repro_torch.serve import greedy_sample
+
+    tokens = torch.from_numpy(_tps_prompts(cfg.vocab_size)).to(dev)
+    with torch.no_grad():
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, caches = transformer.prefill(params, cfg, {"tokens": tokens},
+                                             cache_cap=TPS_CACHE)
+        tok = greedy_sample(logits, None, 0.0)
+        torch.cuda.synchronize(dev)
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        lg, toks, step_ms = [logits[:, -1]], [tok], []
+        for t in range(TPS_NEW):
+            t0 = time.perf_counter()
+            logits, caches = transformer.decode_step(params, cfg, tok, caches, TPS_PROMPT + t)
+            tok = greedy_sample(logits, None, 0.0)
+            torch.cuda.synchronize(dev)
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            lg.append(logits[:, -1])
+            toks.append(tok)
+    lg = torch.stack(lg)                                       # (1 + new, B, V) float32
+    top2 = lg.topk(2, dim=-1).values
+    amax = {w: float(t.abs().max()) for w, t in (("logits", lg), ("k", caches.kv.k),
+                                                 ("v", caches.kv.v))}
+    return dict(logits=lg, tokens=torch.cat(toks, dim=1).cpu(),
+                margin=(top2[..., 0] - top2[..., 1]).cpu(), amax=amax,
+                k=caches.kv.k, v=caches.kv.v, prefill_ms=prefill_ms, step_ms=step_ms)
+
+
+def _tps_compare(parts: list, ref: dict) -> dict:
+    """The ranks' shards (the prefill's and every step's logits, their
+    greedy tokens, the caches) against the unsharded run: max |Δ| over the
+    largest |ref| and ‖Δ‖/‖ref‖ a quantity, each of the ranks' tokens
+    against the unsharded run's next token (a differing one a flip, with the
+    unsharded run's top-two margin there)."""
+    acc: dict = {}
+    flips = []
+    amax = ref["amax"]
+    for shards in parts:
+        for (what, name), (a, sl) in shards.items():
+            if what == "tokens":
+                want = ref["tokens"][:, 1:].T[sl]              # (new, rows)
+                diff = (a.cpu() != want).nonzero().tolist()
+                rows = range(ref["tokens"].shape[0])[sl[1]]
+                flips += [dict(step=t, row=rows[r], margin=float(ref["margin"][1 + t, rows[r]]))
+                          for t, r in diff]
+                continue
+            b = ref[what][sl].to(a.device).float()
+            d = a.float() - b
+            r = acc.setdefault(what, dict(err=0.0, dd=0.0, bb=0.0))
+            r["err"] = max(r["err"], float(d.abs().max()))
+            r["dd"] += float(d.square().sum())
+            r["bb"] += float(b.square().sum())
+            del b, d
+    out = {w: dict(max_abs=r["err"], max_abs_share=r["err"] / amax[w],
+                   rel_l2=(r["dd"] / r["bb"]) ** 0.5, ref_max_abs=amax[w])
+           for w, r in acc.items()}
+    limit = 2 * out["logits"]["max_abs"]
+    out["flips"] = flips
+    out["tie_limit"] = limit
+    out["flips_beyond_a_tie"] = [f for f in flips if f["margin"] > limit]
+    return out
+
+
+def _tps_rank(rank: int, mesh, cfg, host_params, teacher, dev, hand_over, mark) -> dict:
+    """main_tp_serve's part of a rank: ``build_step``'s prefill_32k and
+    decode_32k fns on the data × model mesh (the plan from the card's
+    memory), the weights placed by the prefill's specs (each rank moving
+    only its shard to the card), the prompts prefilled into a cache of
+    TPS_CACHE slots, then TPS_NEW decode steps forced with the unsharded
+    run's tokens. Counts from 0 over the prefill and the steps; the rank
+    form's first launch held against its plain version; one step's
+    DTensor collectives counted (``CommDebugMode``); each step's logits
+    read where the decode step samples them."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    from repro_torch import kernels
+    from repro_torch.dsgd.tensor_parallel import place
+    from repro_torch.launch import steps
+    from repro_torch.launch.sharding import spec_leaves, spec_of
+    from repro_torch.models import attention
+    from repro_torch.serve import DecodeState
+    from repro_torch.serve import engine as serve_engine
+
+    t0 = time.perf_counter()
+    bp = steps.build_step(TPD_ARCH, "prefill_32k", mesh)
+    bd = steps.build_step(TPD_ARCH, "decode_32k", mesh)
+    out = dict(build_s=time.perf_counter() - t0, plan=dataclasses.asdict(bp.plan),
+               prefill_meta=dict(bp.meta), decode_meta=dict(bd.meta))
+    leaves, tdef = tree_flatten(host_params)
+    specs = spec_leaves(tree_map(spec_of, bp.args[0]), host_params)
+    params = tree_unflatten([place(x.to(dev), mesh, sp) for x, sp in zip(leaves, specs)], tdef)
+    tokens = torch.from_numpy(_tps_prompts(cfg.vocab_size)).to(dev)
+    forced = torch.from_numpy(teacher).to(dev)
+    mark("serve_ready")
+    captured = []
+    greedy = serve_engine.greedy_sample
+
+    def spy(logits, rng, temperature):
+        captured.append(logits.to_local()[:, -1].clone())
+        return greedy(logits, rng, temperature)
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    serve_engine.greedy_sample = spy
+    step_ms, got = [], []
+    try:
+        with _first_launch_checked(attention, "_dec_ops", "decode_attention_partial",
+                                   _tps_first_check) as first:
+            t0 = time.perf_counter()
+            logits, caches = bp.fn(params, {"tokens": tokens}, cache_cap=TPS_CACHE)
+            torch.cuda.synchronize(dev)
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            state = DecodeState(forced[:, :1], caches, TPS_PROMPT, None,
+                                torch.zeros(TPS_BATCH, dtype=torch.bool, device=dev))
+            for t in range(TPS_NEW):
+                state = DecodeState(forced[:, t:t + 1], state.caches, state.pos, None,
+                                    state.done)
+                t0 = time.perf_counter()
+                if t == 1:
+                    with CommDebugMode() as comm:
+                        state = bd.fn(params, state)
+                else:
+                    state = bd.fn(params, state)
+                torch.cuda.synchronize(dev)
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                got.append(state.tokens.to_local()[:, 0])
+    finally:
+        serve_engine.greedy_sample = greedy
+    launches = kernels.launch_counts()
+    mark("served")
+    rows, _, cols = _tpd_shard(logits)[1]
+    shards = {("logits", "steps"): (torch.stack([logits.to_local()[:, -1]] + captured),
+                                    (slice(None), rows, cols))}
+    tok = _tpd_shard(state.tokens)
+    if tok is not None:
+        shards[("tokens", "steps")] = (torch.stack(got), (slice(None), tok[1][0]))
+    for name in ("k", "v"):
+        shards[(name, "cache")] = _tpd_shard(getattr(state.caches.kv, name))
+    out.update(prefill_ms=prefill_ms, step_ms=step_ms, launches=launches,
+               first_launch_vs_plain=dict(first),
+               decode_collectives={str(k): v for k, v in comm.get_comm_counts().items()},
+               decode_collectives_total=comm.get_total_counts(),
+               cache_local_shape=list(state.caches.kv.k.to_local().shape),
+               cache_placements=[str(p) for p in state.caches.kv.k.placements],
+               logits_placements=[str(p) for p in logits.placements],
+               peak_bytes=(torch.cuda.max_memory_allocated(dev),
+                           torch.cuda.max_memory_reserved(dev)))
+    hand_over("serve", shards)
+    return out
+
+
+def _tps_first_check(q, k, v, valid, *, attn_softcap=0.0) -> dict:
+    return _partial_check(q, k, v, valid, attn_softcap)
+
+
 def _tpd_rank(rank: int, world: int, init: str, jobs, share, out_dir: str) -> None:
     """One rank of main_tp_dsgd (spawned; all four share ``cuda:0`` over
     gloo). Three steps on the mesh, each timed with its DTensor collectives
@@ -3065,7 +3266,9 @@ def _tpd_rank(rank: int, world: int, init: str, jobs, share, out_dir: str) -> No
     params and momentum (``full_tensor``) and hands them to the parent (CUDA
     IPC), keeping them alive until the parent has checked them. The ranks
     build their step while the parent runs the comparisons, and allocate
-    their states once it has left the card."""
+    their states once it has left the card. Then, their training state
+    freed, they serve (:func:`_tps_rank`, main_tp_serve) with the
+    unsharded run's tokens, which come with the parent's go."""
     import datetime
     import pickle
 
@@ -3151,7 +3354,7 @@ def _tpd_rank(rank: int, world: int, init: str, jobs, share, out_dir: str) -> No
     # comparisons, and kept there for the later steps
     host1 = init_dsgd_state(TPD_SEED, cfg, 1, opt_init, device="cpu")
     mark("host_state")
-    jobs[rank].get()           # the parent's comparisons have left the card
+    _, teacher = jobs[rank].get()     # the parent's comparisons have left the card
     mark("go")
 
     def start_of(k: int):
@@ -3214,12 +3417,25 @@ def _tpd_rank(rank: int, world: int, init: str, jobs, share, out_dir: str) -> No
     for (owner, attr), orig in zip(((trainer, "gossip_shard"), (gossip, "_to_host"),
                                     (gossip, "_to_device")), origs):
         setattr(owner, attr, orig)
+    out.update(launches=kernels.launch_counts(),
+               peak_bytes=(torch.cuda.max_memory_allocated(dev),
+                           torch.cuda.max_memory_reserved(dev)))
+    torch.cuda.empty_cache()
+
+    # 4. main_tp_serve: build_step's prefill and decode on data × model
+    def hand_over_serve(label, shards):
+        share.put((label, rank, shards))
+        jobs[rank].get()
+        shards.clear()
+        mark(f"{label}_checked")
+
+    host_params = tree_map(lambda t: t[0], host1.params)
+    del host1
+    out["serve"] = _tps_rank(rank, mesh, cfg, host_params, teacher, dev, hand_over_serve, mark)
     # the kernels registered for the functional all-gather on CUDA once the
     # TP regions have closed: torch's own, not the gloo reroute's
     dump = torch._C._dispatch_dump("_c10d_functional::all_gather_into_tensor")
-    out.update(launches=kernels.launch_counts(),
-               peak_bytes=(torch.cuda.max_memory_allocated(dev),
-                           torch.cuda.max_memory_reserved(dev)), marks=marks,
+    out.update(marks=marks,
                all_gather_cuda_after=[ln for ln in dump.splitlines() if ln.startswith("CUDA")])
     with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
         pickle.dump(out, f)
@@ -3297,7 +3513,10 @@ def phase_main_tp_dsgd() -> dict:
     TPD_MOMENTUM_RTOL of its comparison's, the controls beyond it; the
     losses finite, equal on every rank, near log(vocab) and within
     TPD_LOSS_RTOL of the comparison's; gloo's staging ran in the gossip; no
-    kernel launched in the ranks."""
+    kernel launched in the ranks' training. Then the ranks serve
+    (main_tp_serve, :func:`_tps_rank`) against the unsharded run this
+    process makes before the go (:func:`_tps_reference`), and the phase
+    emits main_tp_serve's line too (:func:`_tps_report`)."""
     import pickle
     import shutil
 
@@ -3355,6 +3574,10 @@ def phase_main_tp_dsgd() -> dict:
         one = init_dsgd_state(TPD_SEED, cfg, 1, opt_init, device=dev)
         one = trainer.DSGDState(tree_map(lambda x: x[0], one.params),
                                 tree_map(lambda x: x[0], one.opt), one.step)
+        # main_tp_serve's comparison: the unsharded run from the same weights
+        t_serve = time.perf_counter()
+        serve_ref = _tps_reference(cfg, one.params, dev)
+        serve_ref_s = time.perf_counter() - t_serve
         b = {k: v[0].to(dev) for k, v in _tpd_batch(0, 1, cfg.vocab_size).items()}
         st, m = make_tp_train_step(cfg, opt_update, accum_steps=TPD_ACCUM)(one, b)
         losses["tp"] = float(m["loss"])
@@ -3363,25 +3586,31 @@ def phase_main_tp_dsgd() -> dict:
         del st, one, b
         refs_s, refs_at = time.perf_counter() - t0, time.perf_counter() - t_phase
         torch.cuda.empty_cache()
+        teacher = serve_ref["tokens"][:, :TPS_NEW].numpy()
         for q in jobs:
-            q.put("go")
+            q.put(("go", teacher))
         checks, parts, card_free, check_s = {}, {}, torch.cuda.mem_get_info()[0], {}
-        while len(checks) < 3:
+        serve_free = card_free
+        while len(checks) < 4:
             card_free = min(card_free, torch.cuda.mem_get_info()[0])
+            if len(checks) == 3:
+                serve_free = min(serve_free, torch.cuda.mem_get_info()[0])
             if not ranks.join(timeout=0) and not share.empty():
                 label, _, shards = share.get()
                 parts.setdefault(label, []).append(shards)
                 del shards
                 if len(parts[label]) == world:
                     t_in = time.perf_counter() - t_phase
-                    checks[label] = _tpd_compare(parts.pop(label), refs.pop(label), zero_start)
+                    checks[label] = (_tps_compare(parts.pop(label), serve_ref)
+                                     if label == "serve" else
+                                     _tpd_compare(parts.pop(label), refs.pop(label), zero_start))
                     check_s[label] = (t_in, time.perf_counter() - t_phase)
                     torch.cuda.ipc_collect()       # the ranks' shared blocks, released
                     torch.cuda.empty_cache()
                     for q in jobs:
                         q.put("checked")
             elif time.perf_counter() - t_phase > TPD_TIMEOUT_S:
-                raise TimeoutError(f"main_tp_dsgd: {len(checks)} of 3 hand-overs after "
+                raise TimeoutError(f"main_tp_dsgd: {len(checks)} of 4 hand-overs after "
                                    f"{TPD_TIMEOUT_S} s")
             else:
                 time.sleep(0.05)
@@ -3397,6 +3626,8 @@ def phase_main_tp_dsgd() -> dict:
     outs = [pickle.loads((TPD_DIR / f"rank{k}.pkl").read_bytes()) for k in range(world)]
     shutil.rmtree(TPD_DIR, ignore_errors=True)
     o0 = outs[0]
+    served = checks.pop("serve")
+    serve_s = check_s.pop("serve")
     controls = {what: dict(min=min(c.values()), leaves=c) for what, c in controls.items()}
     out = dict(
         arch=TPD_ARCH, world=world, backend="gloo", rank_devices=[o["device"] for o in outs],
@@ -3435,6 +3666,60 @@ def phase_main_tp_dsgd() -> dict:
                    for ln in o["all_gather_cuda_after"]), o0["all_gather_cuda_after"]
     assert all(o["runs"][s]["to_device_copies"] > 0 for o in outs
                for s in ("build_step/1", "build_step/2")), "gloo staging never ran"
+    out["serve"] = _tps_report(outs, served, serve_ref, serve_ref_s, serve_free,
+                               check_s["matmul"][1], serve_s[1])
+    return out
+
+
+def _tps_report(outs: list, served: dict, ref: dict, ref_s: float, card_free: int,
+                trained_at: float, checked_at: float) -> dict:
+    """main_tp_serve's line (its cost: the parent's wait from the last
+    training check to the serving check, and the unsharded run's seconds
+    as far as the ranks waited for their go while this process made it)
+    and
+    its pins: the plan TP-only over "model",
+    the batch over "data"; every rank launched the rank form
+    (24 layers × TPS_NEW steps, no whole-cache decode_attention), its first
+    launch within its tolerance; each rank's cache C/2 of the sequence;
+    the logits and caches within the bf16 band of the unsharded run, and
+    no greedy token flipped outside a near tie."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(TPD_ARCH)
+    ranks = [o["serve"] for o in outs]
+    r0 = ranks[0]
+    steady = [sorted(r["step_ms"][2:])[len(r["step_ms"][2:]) // 2] for r in ranks]
+    go_wait = max(o["marks"]["go"] - o["marks"]["host_state"] for o in outs)
+    out = dict(
+        arch=TPD_ARCH, world=len(outs), backend="gloo", batch=TPS_BATCH, prompt=TPS_PROMPT,
+        cache=TPS_CACHE, new_tokens=TPS_NEW, plan=r0["plan"], prefill_meta=r0["prefill_meta"],
+        decode_meta=r0["decode_meta"], band_max=TPS_BAND_MAX, band_l2=TPS_BAND_L2,
+        comparison=served,
+        per_rank=[dict(rank=o["rank"], **{k: r[k] for k in (
+            "build_s", "prefill_ms", "step_ms", "launches", "first_launch_vs_plain",
+            "decode_collectives", "decode_collectives_total", "cache_local_shape",
+            "cache_placements", "logits_placements", "peak_bytes")}) for o, r in zip(outs, ranks)],
+        steady_decode_ms=steady,
+        launches_total=sum(r["launches"]["decode_attention_partial"] for r in ranks),
+        unsharded=dict(prefill_ms=ref["prefill_ms"], step_ms=ref["step_ms"]),
+        unsharded_s=ref_s, go_wait_s=go_wait, card_min_free_bytes=card_free,
+        card_total_bytes=torch.cuda.mem_get_info()[1],
+        serve_s=checked_at - trained_at, cost_s=checked_at - trained_at + min(ref_s, go_wait))
+    emit("main_tp_serve", **out)
+    assert r0["plan"]["tensor_axes"] == ("model",) and r0["plan"]["batch_axes"] == ("data",), \
+        r0["plan"]
+    per_run = cfg.num_layers * TPS_NEW
+    for r in ranks:
+        assert r["launches"]["decode_attention_partial"] == per_run, r["launches"]
+        assert r["launches"]["decode_attention"] == 0 and not _missing("tp_serve", r["launches"]), \
+            r["launches"]
+        assert r["first_launch_vs_plain"].get("within"), r["first_launch_vs_plain"]
+        assert r["cache_local_shape"] == [cfg.num_layers, TPS_BATCH // 2, TPS_CACHE // 2,
+                                          cfg.num_kv_heads, cfg.resolved_head_dim], r
+    for what in ("logits", "k", "v"):
+        c = served[what]
+        assert c["max_abs_share"] <= TPS_BAND_MAX and c["rel_l2"] <= TPS_BAND_L2, (what, c)
+    assert not served["flips_beyond_a_tie"], served["flips"]
     return out
 
 # ---------------------------------------------------------------------------
@@ -3782,6 +4067,72 @@ def _decode_case(B, C, Hq, Hkv, hd, dtype, cap, valid, gen) -> dict:
                 bound_by="operations" if ops_s > bytes_s else "bytes")
 
 
+def _partial_check(q, k, v, valid, cap) -> dict:
+    """The rank form against its plain version: the float32 output within
+    the float32 bound of ``decode_attention_bound``, the log-sum-exp within
+    (2·hd·A + C + 8)·2⁻²⁴ + 4·2⁻²⁴·|lse| (the score dot's error, the sum's,
+    the log's; A the row's largest Σ|q_i·k_ti|/√hd), and −1e30 bitwise
+    where the slice holds no valid key."""
+    from repro_torch.kernels.decode_attention import ops as dec
+
+    out, lse = dec.decode_attention_partial(q, k, v, valid, attn_softcap=cap)
+    want, want_lse = dec.decode_attention_partial_plain(q, k, v, valid, attn_softcap=cap)
+    tol = dec.decode_attention_bound(q, k, v, valid, attn_softcap=cap)
+    B, Hq, hd = q.shape
+    qg = q.reshape(B, k.shape[2], Hq // k.shape[2], hd).float()
+    a = torch.einsum("bhgd,bchd->bhgc", qg.abs(), k.float().abs()).amax(dim=-1) / hd ** 0.5
+    lse_tol = ((2 * hd * a + k.shape[1] + 8) * 2.0 ** -24).reshape(B, Hq) \
+        + 4 * 2.0 ** -24 * want_lse.abs()
+    err = (out - want).abs()
+    lse_err = (lse - want_lse).abs()
+    empty = want_lse <= -1e30
+    return dict(max_abs_err=float(err.max()),
+                share_of_tol=float((err / tol.clamp_min(1e-30)).max()),
+                lse_max_abs_err=float(torch.where(empty, 0.0, lse_err).max()),
+                within=bool((err <= tol).all()) and bool(torch.where(
+                    empty, lse == want_lse, lse_err <= lse_tol).all()),
+                empty_rows=int(empty.sum()), C=int(k.shape[1]), valid_keys=int(valid.sum()))
+
+
+def _partial_case(B, C, Hq, Hkv, hd, dtype, valid, gen) -> dict:
+    """The rank form at main_tp_serve's slice (one rank's half of the
+    sequence), held against its plain version on layer 0 of a stacked
+    (4, B, C, Hkv, hd) cache and timed cold over the four layer slices and
+    warm over one, beside SDPA on the same slice (which gives no lse)."""
+    from repro_torch.kernels.decode_attention import ops as dec
+
+    L = DECODE_LAYERS
+    q = torch.randn((B, Hq, hd), generator=gen, device="cuda").to(dtype)
+    ks = torch.randn((L, B, C, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    vs = torch.randn((L, B, C, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    check = _partial_check(q, ks[0], vs[0], valid, 0.0)
+    kern = [lambda i=i: dec.decode_attention_partial(q, ks[i], vs[i], valid) for i in range(L)]
+    mask = valid[None, None, None, :]
+    library = [lambda i=i: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], ks[i].transpose(1, 2), vs[i].transpose(1, 2), attn_mask=mask,
+        enable_gqa=True) for i in range(L)]
+    n_valid = int(valid.sum())
+    size = q.element_size()
+    # q read once, the float32 output and lse written once, K and V of the
+    # valid keys read once, the mask read once; 4·hd flops a (head, key)
+    nbytes = B * Hq * hd * size + B * Hq * (hd + 1) * 4 + 2 * B * n_valid * Hkv * hd * size + C
+    flops = 4 * B * Hq * n_valid * hd
+    k0, v0 = ks[0], vs[0]
+    warm = timings(kern[0], lambda: dec.decode_attention_partial_plain(q, k0, v0, valid),
+                   library[0])
+    ms = device_ms(rotating(kern), launches=400)
+    library_ms = device_ms(rotating(library), launches=400)
+    bytes_s, ops_s = nbytes / HBM_BYTES_PER_S, flops / FP32_OP_PER_S
+    del ks, vs
+    return dict(kernel="decode_attention_partial", B=B, Hq=Hq, Hkv=Hkv, hd=hd,
+                dtype=str(dtype).replace("torch.", ""), **check,
+                ms=ms, ms_warm=warm["ms"], plain_ms=warm["plain_ms"], library_ms=library_ms,
+                library_ms_warm=warm["library_ms"], call_ms=warm["call_ms"],
+                plain_call_ms=warm["plain_call_ms"], timed_layers=L,
+                bound_ms=1e3 * max(bytes_s, ops_s),
+                bound_by="operations" if ops_s > bytes_s else "bytes")
+
+
 def _ssd_check(args) -> tuple[float, float, bool]:
     from repro_torch.kernels.ssd_scan import ops as ssd
 
@@ -3893,7 +4244,9 @@ def phase_serve_kernels() -> tuple[dict, dict]:
     model hands it over (column slices) and contiguous, its four chunks in
     one launch, in fp32 (the CUDA-core route), at the reduced shape (Q 32,
     H 8, P 32, N 16, fp32, three chunks) and ragged (Q 50, P 30, N 18,
-    bf16). Then each serving family's shapes, with the valid keys of decode
+    bf16); decode_attention_partial at main_tp_serve's slice (B 8, C 1,024
+    of 2,048, 16/16 heads, hd 64, bf16, every key valid). Then each serving
+    family's shapes, with the valid keys of decode
     step 64: decode_attention at granite-moe-1b-a400m's (B 16, C 1,096,
     16/8 heads, hd 64, bf16), internvl2-1b's (B 16, C 1,096, 14/2 heads: a
     group of 7, bf16), whisper-tiny's (B 16, C 200, 6/6 heads, fp32) and
@@ -3937,10 +4290,14 @@ def phase_serve_kernels() -> tuple[dict, dict]:
     cases += list(families.values()) + [
         _decode_case(8, 1096, 32, 32, 80, torch.float32, 0.0,
                      decode_valid(1096, 1024 + 64, device="cuda"), gen)]
+    partial = _partial_case(TPS_BATCH // 2, TPS_CACHE // 2, 16, 16, 64, torch.bfloat16,
+                            torch.ones(TPS_CACHE // 2, dtype=torch.bool, device="cuda"), gen)
+    cases.append(partial)
     torch.cuda.synchronize()
     emit("serve_kernel_checks", cases=cases,
          library_note="decode_attention: torch.nn.functional.scaled_dot_product_attention("
-                      "enable_gqa=True, boolean mask), at the shapes without softcap; ms and "
+                      "enable_gqa=True, boolean mask), at the shapes without softcap (for "
+                      "decode_attention_partial on the same slice: it gives no lse); ms and "
                       "library_ms cold (4 layer slices of one stacked cache in turn), "
                       "ms_warm and library_ms_warm one slice replayed; "
                       "ssd_intra_chunk: no single PyTorch call computes it; witness_ms is "
@@ -3950,7 +4307,8 @@ def phase_serve_kernels() -> tuple[dict, dict]:
                       "times, at 989 TFLOP/s bf16; cuda_core: float32 FMA at 67 TFLOP/s)")
     bad = [c for c in cases if not c["within"]]
     assert not bad, f"serving kernels outside their tolerance: {bad}"
-    return {"decode_attention": cases[0], "ssd_intra_chunk": cases[5]}, families
+    return {"decode_attention": cases[0], "ssd_intra_chunk": cases[5],
+            "decode_attention_partial": partial}, families
 
 
 # ---------------------------------------------------------------------------
@@ -4022,7 +4380,7 @@ def _first_launch_checked(owner, attr: str, name: str, check):
             real.launches = n
         return out
 
-    setattr(owner, attr, types.SimpleNamespace(**{name: wrapped}))
+    setattr(owner, attr, types.SimpleNamespace(**{**vars(ops), name: wrapped}))
     try:
         yield record
     finally:
@@ -5142,6 +5500,12 @@ KERNEL_INFO = {
                        replaces="src/repro/kernels/gossip_mix/kernel.py:82"),
     "decode_attention": dict(route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
                              replaces="src/repro/kernels/decode_attention/kernel.py:71"),
+    # the rank form over a slice of a sequence-sharded cache (main_tp_serve):
+    # a mode of the same kernel; the reference's sharded decode attends
+    # through jnp on the whole cache
+    "decode_attention_partial": dict(route="cuda",
+                                     source="src/repro_torch/csrc/decode_attention.cu",
+                                     replaces="src/repro/kernels/decode_attention/kernel.py:71"),
     "ssd_intra_chunk": dict(route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
                             replaces="src/repro/kernels/ssd_scan/kernel.py:60"),
 }
@@ -5203,12 +5567,16 @@ def _main() -> int:
     timing["gossip_mix_batched"]["dynamic"] = phase_main_dsgd_dynamic(dsgd_run)
     torch.cuda.empty_cache()
     phase_main_sharded_dsgd()
-    phase_main_tp_dsgd()
+    tp_serve = phase_main_tp_dsgd()["serve"]
     timing["gossip_mix_batched"]["elastic"] = phase_main_elastic(dsgd_run)
     phase_elastic_resume()
 
     serve_timing, family_cases = phase_serve_kernels()
     timing.update(serve_timing)
+    timing["decode_attention_partial"]["tp_serve"] = dict(
+        path="main_tp_serve", per_rank=[r["launches"]["decode_attention_partial"]
+                                        for r in tp_serve["per_rank"]],
+        first_launch_vs_plain=[r["first_launch_vs_plain"] for r in tp_serve["per_rank"]])
     dense = phase_serve_dense()
     ssm_run = phase_serve_ssm()
     family_runs = {label: phase_serve_family(label) for label in SERVE_FAMILY_RUNS}
@@ -5231,6 +5599,7 @@ def _main() -> int:
     path_launches = {"gossip_mix_batched": dsgd_launches["gossip_mix_batched"],
                      "gossip_mix": row_launches["gossip_mix"],
                      "decode_attention": dense["launches"]["decode_attention"],
+                     "decode_attention_partial": tp_serve["launches_total"],
                      "ssd_intra_chunk": ssm_run["launches"]["ssd_intra_chunk"]}
     # each serving family's kernel shape with its launches on its path
     for label, (path, _, expected) in SERVE_FAMILY_RUNS.items():
@@ -5258,7 +5627,7 @@ def _main() -> int:
             library_ms=t["library_ms"], call_ms=t["call_ms"],
             **{k: t[k] for k in ("ms_warm", "library_ms_warm", "witness_ms", "sim", "batched",
                                  "elastic", "dynamic", "kkt_route", "deg", "serve_shapes",
-                                 "train_shapes") if k in t}))
+                                 "train_shapes", "tp_serve") if k in t}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,11 @@
 //   s_t = q·k_t / √hd in float32, optionally softcap·tanh(s_t / softcap),
 //   s_t = −1e30 where valid[t] is false,
 //   out = Σ_t softmax(s)_t · v_t, divided by max(l, 1e-30), cast to q's dtype.
+// The rank form (a rank's slice of a KV cache whose sequence is sharded over
+// several ranks, merged across them afterwards) is a mode of the same
+// kernel: given an `lse` pointer, the final combine writes the float32
+// output and the row's log-sum-exp m + log l (natural units) instead of q's
+// dtype's output, and the caller merges the ranks' rows.
 // q (B, Hq, hd) contiguous; k, v (B, C, Hkv, hd) read as they lie through
 // their strides (the head dimension contiguous, 16-byte aligned); valid (C,)
 // bytes. f32, bf16 and f16; hd 32, 64, 80, 128, 256; any group Hq / Hkv.
@@ -107,6 +112,7 @@ struct Params {
   long long k_sb, k_sc, k_sh, v_sb, v_sc, v_sh;   // strides in elements
   int qpb, hb, lgu, stages, splits, span, mode;
   float softcap;
+  bool partial;                                   // the rank form: float32 out and lse
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -119,6 +125,24 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(v);
 }
 template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half_rn(v); }
+
+// One output element: q's dtype, or float32 in the rank form.
+template <typename T>
+__device__ __forceinline__ void store_out(void* out, long long at, float val, bool partial) {
+  if (partial) {
+    static_cast<float*>(out)[at] = val;
+  } else {
+    static_cast<T*>(out)[at] = from_f<T>(val);
+  }
+}
+
+// A row's log-sum-exp in natural units from its max M (log2 units) and its
+// sum L of exp2(s - M). A row with no valid key keeps M = MASKED and sums
+// its keys' equal weights: MASKED + log L, which is MASKED in float32, as
+// the plain version's logsumexp of an all -1e30 row.
+__device__ __forceinline__ float row_lse(float M, float L) {
+  return M <= MASKED ? MASKED + logf(L) : M * 0.6931471805599453f + logf(L);
+}
 
 __host__ __device__ constexpr int pow2_ceil(int x) { return x <= 1 ? 1 : 2 * pow2_ceil((x + 1) / 2); }
 
@@ -227,7 +251,8 @@ template <typename T, int HD, int GN>
 __global__ void __launch_bounds__(max_consumers(HD) + 32, HD >= 256 ? 2 : 1)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const uint8_t* __restrict__ valid,
-                        T* __restrict__ out, float* __restrict__ part_ml,
+                        void* __restrict__ out, float* __restrict__ lse,
+                        float* __restrict__ part_ml,
                         float* __restrict__ part_acc, int* __restrict__ tickets,
                         const Params P) {
   using L = Layout<T, HD>;
@@ -451,7 +476,8 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int hq = (h0 + u / P.qpb) * group + (qc0 + u % P.qpb) * GN + g;
     const long long row = static_cast<long long>(b) * P.Hq + hq;
     if (P.splits == 1) {
-      out[row * HD + d] = from_f<T>(A / fmaxf(Ls, 1e-30f));
+      store_out<T>(out, row * HD + d, A / fmaxf(Ls, 1e-30f), P.partial);
+      if (P.partial && d == 0) lse[row] = row_lse(M, Ls);
     } else {
       const long long prow = row * P.splits + split;
       part_acc[prow * HD + d] = A;
@@ -525,15 +551,16 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(Ls, 1e-30f);
 #pragma unroll
     for (int t = 0; t < DPL; ++t) {
-      if (lane + 32 * t < HD) out[row * HD + lane + 32 * t] = from_f<T>(A[t] / den);
+      if (lane + 32 * t < HD) store_out<T>(out, row * HD + lane + 32 * t, A[t] / den, P.partial);
     }
+    if (P.partial && lane == 0) lse[row] = row_lse(M, Ls);
   }
   if (threadIdx.x == 0) *ticket = 0;
 }
 
 template <typename T, int HD, int GN>
 int launch(const void* q, const void* k, const void* v, const void* valid, void* out,
-           void* part_ml, void* part_acc, void* tickets, const Params& P, int threads,
+           void* lse, void* part_ml, void* part_acc, void* tickets, const Params& P, int threads,
            int smem, int device, cudaStream_t s) {
   static int opted[64] = {};                    // shared memory opted in, per device
   auto kern = decode_attention_kernel<T, HD, GN>;
@@ -548,23 +575,23 @@ int launch(const void* q, const void* k, const void* v, const void* valid, void*
   const dim3 grid(P.splits, P.B * HC);
   kern<<<grid, threads + 32, smem, s>>>(             // + the producer warp
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(valid), static_cast<T*>(out), static_cast<float*>(part_ml),
-      static_cast<float*>(part_acc), static_cast<int*>(tickets), P);
+      static_cast<const uint8_t*>(valid), out, static_cast<float*>(lse),
+      static_cast<float*>(part_ml), static_cast<float*>(part_acc), static_cast<int*>(tickets), P);
   return 0;
 }
 
 template <typename T, int HD>
 int dispatch_gn(int gn, const void* q, const void* k, const void* v, const void* valid,
-                void* out, void* part_ml, void* part_acc, void* tickets, const Params& P,
+                void* out, void* lse, void* part_ml, void* part_acc, void* tickets, const Params& P,
                 int threads, int smem, int device, cudaStream_t s) {
   switch (gn) {
-    case 1: return launch<T, HD, 1>(q, k, v, valid, out, part_ml, part_acc, tickets, P,
+    case 1: return launch<T, HD, 1>(q, k, v, valid, out, lse, part_ml, part_acc, tickets, P,
                                     threads, smem, device, s);
-    case 2: return launch<T, HD, 2>(q, k, v, valid, out, part_ml, part_acc, tickets, P,
+    case 2: return launch<T, HD, 2>(q, k, v, valid, out, lse, part_ml, part_acc, tickets, P,
                                     threads, smem, device, s);
-    case 3: return launch<T, HD, 3>(q, k, v, valid, out, part_ml, part_acc, tickets, P,
+    case 3: return launch<T, HD, 3>(q, k, v, valid, out, lse, part_ml, part_acc, tickets, P,
                                     threads, smem, device, s);
-    case 4: return launch<T, HD, 4>(q, k, v, valid, out, part_ml, part_acc, tickets, P,
+    case 4: return launch<T, HD, 4>(q, k, v, valid, out, lse, part_ml, part_acc, tickets, P,
                                     threads, smem, device, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -572,18 +599,18 @@ int dispatch_gn(int gn, const void* q, const void* k, const void* v, const void*
 
 template <typename T>
 int dispatch_hd(int hd, int gn, const void* q, const void* k, const void* v, const void* valid,
-                void* out, void* part_ml, void* part_acc, void* tickets, const Params& P,
+                void* out, void* lse, void* part_ml, void* part_acc, void* tickets, const Params& P,
                 int threads, int smem, int device, cudaStream_t s) {
   switch (hd) {
-    case 32: return dispatch_gn<T, 32>(gn, q, k, v, valid, out, part_ml, part_acc, tickets, P,
+    case 32: return dispatch_gn<T, 32>(gn, q, k, v, valid, out, lse, part_ml, part_acc, tickets, P,
                                        threads, smem, device, s);
-    case 64: return dispatch_gn<T, 64>(gn, q, k, v, valid, out, part_ml, part_acc, tickets, P,
+    case 64: return dispatch_gn<T, 64>(gn, q, k, v, valid, out, lse, part_ml, part_acc, tickets, P,
                                        threads, smem, device, s);
-    case 80: return dispatch_gn<T, 80>(gn, q, k, v, valid, out, part_ml, part_acc, tickets, P,
+    case 80: return dispatch_gn<T, 80>(gn, q, k, v, valid, out, lse, part_ml, part_acc, tickets, P,
                                        threads, smem, device, s);
-    case 128: return dispatch_gn<T, 128>(gn, q, k, v, valid, out, part_ml, part_acc, tickets,
+    case 128: return dispatch_gn<T, 128>(gn, q, k, v, valid, out, lse, part_ml, part_acc, tickets,
                                          P, threads, smem, device, s);
-    case 256: return dispatch_gn<T, 256>(gn, q, k, v, valid, out, part_ml, part_acc, tickets,
+    case 256: return dispatch_gn<T, 256>(gn, q, k, v, valid, out, lse, part_ml, part_acc, tickets,
                                          P, threads, smem, device, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -598,9 +625,11 @@ extern "C" {
 // hb, lgu, stages, splits, span, copy mode, threads, shared-memory bytes.
 // part_ml (B·Hq·splits, 2) and part_acc (B·Hq·splits, hd) float32 are
 // scratch and tickets (B·HC) int32 is zero on entry and left zero; all
-// three are read only when splits > 1.
+// three are read only when splits > 1. With lse non-null (the rank form)
+// out is float32 (B, Hq, hd) and lse float32 (B, Hq) gets each row's
+// log-sum-exp; with lse null out is q's dtype.
 int decode_attention(const void* q, const void* k, const void* v, const void* valid, void* out,
-                     void* part_ml, void* part_acc, void* tickets, const long long* plan,
+                     void* lse, void* part_ml, void* part_acc, void* tickets, const long long* plan,
                      float softcap, int device, void* stream) {
   int current = -1;
   cudaError_t e = cudaGetDevice(&current);
@@ -630,6 +659,7 @@ int decode_attention(const void* q, const void* k, const void* v, const void* va
   const int threads = static_cast<int>(plan[20]);
   const int smem = static_cast<int>(plan[21]);
   P.softcap = softcap;
+  P.partial = lse != nullptr;
   if (P.B <= 0 || P.Hq <= 0 || P.C <= 0) return 0;
   if (P.Hkv <= 0 || P.Hq % P.Hkv != 0 || gn < 1 || (P.Hq / P.Hkv) % gn != 0 || P.hb < 1 ||
       P.Hkv % P.hb != 0 || P.qpb < 1 || (P.Hq / P.Hkv / gn) % P.qpb != 0 || P.lgu < 1 ||
@@ -641,13 +671,13 @@ int decode_attention(const void* q, const void* k, const void* v, const void* va
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   if (dtype == 0) {
-    err = dispatch_hd<float>(hd, gn, q, k, v, valid, out, part_ml, part_acc, tickets, P,
+    err = dispatch_hd<float>(hd, gn, q, k, v, valid, out, lse, part_ml, part_acc, tickets, P,
                              threads, smem, device, s);
   } else if (dtype == 1) {
-    err = dispatch_hd<__nv_bfloat16>(hd, gn, q, k, v, valid, out, part_ml, part_acc, tickets,
+    err = dispatch_hd<__nv_bfloat16>(hd, gn, q, k, v, valid, out, lse, part_ml, part_acc, tickets,
                                      P, threads, smem, device, s);
   } else if (dtype == 2) {
-    err = dispatch_hd<__half>(hd, gn, q, k, v, valid, out, part_ml, part_acc, tickets, P,
+    err = dispatch_hd<__half>(hd, gn, q, k, v, valid, out, lse, part_ml, part_acc, tickets, P,
                               threads, smem, device, s);
   } else {
     err = static_cast<int>(cudaErrorInvalidValue);

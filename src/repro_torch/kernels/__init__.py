@@ -5,7 +5,8 @@ constraint operator; in one launch each, A_op's dense blocks from L(g),
 AT_op's x-part and the CG matvec A·Aᵀλ),
 ``hop_bfs`` (one matmul-BFS hop of the SA warm start), ``gossip_mix``
 (Eq. 1 neighbour mixing of DSGD gossip, batched over workers and for one
-worker), ``decode_attention`` (one-token GQA attention over a KV cache)
+worker), ``decode_attention`` (one-token GQA attention over a KV cache, and its
+rank form over a slice of a sequence-sharded cache)
 and ``ssd_scan`` (the Mamba-2 SSD intra-chunk dual form). Sources live in ``repro_torch/csrc``; :mod:`.build` compiles
 them at first use.
 """
@@ -30,6 +31,7 @@ WRAPPERS = {
     "gossip_mix_batched": _gossip_ops.gossip_mix_batched,
     "gossip_mix": _gossip_ops.gossip_mix,
     "decode_attention": _dec_ops.decode_attention,
+    "decode_attention_partial": _dec_ops.decode_attention_partial,
     "ssd_intra_chunk": _ssd_ops.ssd_intra_chunk,
 }
 

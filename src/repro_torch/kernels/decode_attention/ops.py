@@ -5,6 +5,15 @@ of the reference's ``ref.py`` sits beside it. The wrapper takes the plain
 version only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises. It counts its launches in ``decode_attention.launches``.
 
+The rank form, :func:`decode_attention_partial`, serves a KV cache whose
+sequence is sharded over several ranks (``launch/sharding.py``'s
+``cache_specs``): each rank attends over its slice and gets the float32
+output and each row's log-sum-exp, and :func:`merge_partials` combines the
+ranks' rows, so the cache is never gathered. It is a mode of the same
+kernel (its final combine writes the float32 output and m + log l instead
+of dividing them away into q's dtype), counted in
+``decode_attention_partial.launches``.
+
 Unlike the reference's wrapper, the cache is neither padded to a multiple
 of 512 keys nor transposed to (B, Hkv, C, hd): the kernel reads K and V as
 they lie, through their strides, and masks the ragged edge itself.
@@ -21,15 +30,17 @@ import torch
 from .. import launch_util as _lu
 
 __all__ = ["decode_attention", "decode_attention_plain", "decode_attention_bound",
+           "decode_attention_partial", "decode_attention_partial_plain", "merge_partials",
            "decode_plan", "DecodePlan", "lanes_per_key"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
-                         _F, _I, _P],
+    "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         ctypes.POINTER(ctypes.c_longlong), _F, _I, _P],
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (32, 64, 80, 128, 256)
+_MASKED = -1e30
 _MIN_KEYS_PER_SPLIT = 128
 _MAX_SPAN = 32_768            # keys a split at most: its mask bytes sit in shared memory
 #: What one bulk copy costs in :func:`decode_plan`'s model, in bytes of K/V.
@@ -43,11 +54,9 @@ KPL, MAX_THREADS, MAX_THREADS_256, MAX_STAGES, BAR_BYTES = 4, 320, 128, 8, 128
 SMEM_BYTES, SMEM_PER_SM, RING_BYTES = 232_448, 233_472, 196_608
 
 
-def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           valid: torch.Tensor, *, attn_softcap: float = 0.0) -> torch.Tensor:
-    """``ref.decode_attention``: s = q·kᵀ/√hd in float32, optional
-    softcap·tanh(s/softcap), invalid keys −1e30, softmax over the C keys,
-    ·v, cast to q's dtype. q (B, Hq, hd); k, v (B, C, Hkv, hd); valid (C,)."""
+def _plain(q, k, v, valid, attn_softcap: float):
+    """The plain versions' arithmetic: the masked float32 scores (B, Hkv,
+    group, C) and the float32 softmax · v (B, Hq, hd)."""
     B, Hq, hd = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, Hkv, Hq // Hkv, hd).float()
@@ -55,10 +64,70 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         math.sqrt(hd), dtype=torch.float32)
     if attn_softcap:
         s = attn_softcap * torch.tanh(s / attn_softcap)
-    s = torch.where(valid.bool()[None, None, None, :], s, -1e30)
+    s = torch.where(valid.bool()[None, None, None, :], s, _MASKED)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgc,bchd->bhgd", p, v.float())
-    return out.reshape(B, Hq, hd).to(q.dtype)
+    return s, out.reshape(B, Hq, hd)
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           valid: torch.Tensor, *, attn_softcap: float = 0.0) -> torch.Tensor:
+    """``ref.decode_attention``: s = q·kᵀ/√hd in float32, optional
+    softcap·tanh(s/softcap), invalid keys −1e30, softmax over the C keys,
+    ·v, cast to q's dtype. q (B, Hq, hd); k, v (B, C, Hkv, hd); valid (C,)."""
+    return _plain(q, k, v, valid, attn_softcap)[1].to(q.dtype)
+
+
+def decode_attention_partial_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   valid: torch.Tensor, *, attn_softcap: float = 0.0
+                                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rank form of :func:`decode_attention_plain` on one slice of the
+    cache's sequence: the same scores and softmax over the slice's keys,
+    the output left in float32, and each row's log-sum-exp of the scores.
+    Returns (out (B, Hq, hd) float32, lse (B, Hq) float32). A slice with no
+    valid key averages its values, with lse −1e30 + log C_r (−1e30 in
+    float32)."""
+    s, out = _plain(q, k, v, valid, attn_softcap)
+    return out, torch.logsumexp(s, dim=-1).reshape(q.shape[:2])
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor, group=None, *, keys) -> torch.Tensor:
+    """Attention over a whole cache from its slices' rank-form rows
+    (:func:`decode_attention_partial`): with M the largest lse of a row
+    over the slices, out = Σ_r e^(lse_r − M) out_r / Σ_r e^(lse_r − M), in
+    float32 (the caller casts once). A slice with no valid key drops out
+    (its weight e^(−1e30 − M) is 0); where no slice of a row has one, the
+    slices weigh by their ``keys`` (cache slots), which gives the mean over
+    all C values, as ``ref.py``'s softmax of an all −1e30 row does.
+
+    ``group``: the process group over which the cache's sequence is
+    sharded, or a sequence of them (the sequence split over several mesh
+    dims, reduced in turn): an all-reduce of the max, then one of the
+    weighted sums and weights packed together; ``keys`` this rank's slots.
+    ``group`` None: ``out`` (R, B, Hq, hd) and ``lse`` (R, B, Hq) hold R
+    slices in this process, ``keys`` their R slot counts, and the
+    reductions run over the leading axis."""
+    import torch.distributed as dist
+
+    if group is not None and not isinstance(group, (list, tuple)):
+        group = (group,)
+
+    def reduce(t: torch.Tensor, op: str) -> torch.Tensor:
+        if group is None:
+            return t.amax(dim=0) if op == "max" else t.sum(dim=0)
+        t = t.clone()
+        for g in group:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                            group=g)
+        return t
+
+    keys = torch.as_tensor(keys, dtype=torch.float32, device=out.device)
+    if group is None:
+        keys = keys[:, None, None]
+    m = reduce(lse, "max")
+    w = torch.where(m <= _MASKED / 2, keys, torch.exp(lse - m))
+    total = reduce(torch.cat([w[..., None] * out, w[..., None]], dim=-1), "sum")
+    return total[..., :-1] / total[..., -1:]
 
 
 def decode_attention_bound(q, k, v, valid, *, attn_softcap: float = 0.0) -> torch.Tensor:
@@ -241,17 +310,8 @@ def _plan_args(q, k, v):
     return hit
 
 
-def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid: torch.Tensor, *, attn_softcap: float = 0.0) -> torch.Tensor:
-    """One query token per sequence against its KV cache.
-
-    ``q``: (B, Hq, hd) contiguous; ``k``, ``v``: (B, C, Hkv, hd) of q's
-    dtype (float32, bfloat16 or float16), any strides with the head
-    dimension contiguous (a layer's slice of a stacked cache is taken as
-    it lies); ``valid``: (C,) bool, which cache slots hold a key the token
-    may see. Returns (B, Hq, hd) in q's dtype. Masked keys score −1e30, as
-    in the reference, so a row with no valid key averages all C values.
-    """
+def _check(q, k, v, valid, name: str) -> None:
+    """The calls' shapes and dtypes (both forms, every device)."""
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be (B, Hq, hd) and k, v (B, C, Hkv, hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -263,12 +323,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tuple(valid.shape) != (C,):
         raise ValueError(f"valid must be (C,) = ({C},), got {tuple(valid.shape)}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"decode_attention takes q, k, v of one dtype, float32, bfloat16 "
+        raise TypeError(f"{name} takes q, k, v of one dtype, float32, bfloat16 "
                         f"or float16, not {q.dtype}/{k.dtype}/{v.dtype}")
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, valid, attn_softcap=attn_softcap)
+
+
+def _launch(q, k, v, valid, out, lse, attn_softcap: float, name: str) -> bool:
+    """The kernel on CUDA tensors: ``lse`` None writes q's dtype's output,
+    a float32 (B, Hq) tensor the rank form (float32 ``out``). Whether it
+    launched (an empty call does not)."""
+    B, Hq, hd = (int(s) for s in q.shape)
+    C = int(k.shape[1])
     if hd not in _HEAD_DIMS:
-        raise ValueError(f"decode_attention takes head dims {_HEAD_DIMS}, not {hd}")
+        raise ValueError(f"{name} takes head dims {_HEAD_DIMS}, not {hd}")
     if valid.dtype != torch.bool:
         raise TypeError(f"valid must be bool, not {valid.dtype}")
     dev = q.device
@@ -279,9 +345,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q and valid must be contiguous")
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("q, k and v must start 16-byte aligned")
-    out = torch.empty_like(q)
     if B == 0 or Hq == 0 or C == 0:
-        return out
+        return False
     plan, args = _plan_args(q, k, v)
     if plan.splits > 1:
         rows = B * Hq * plan.splits
@@ -293,13 +358,54 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     index = dev.index
     err = _lu.library("decode_attention", _SIGNATURES).decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        ml, acc, tickets, args, float(attn_softcap), index, _lu.raw_stream(index))
+        0 if lse is None else lse.data_ptr(), ml, acc, tickets, args, float(attn_softcap),
+        index, _lu.raw_stream(index))
     if err != 0:
-        _lu.raise_launch_error("decode_attention", err, index)
-    decode_attention.launches += 1
+        _lu.raise_launch_error(name, err, index)
+    return True
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor, *, attn_softcap: float = 0.0) -> torch.Tensor:
+    """One query token per sequence against its KV cache.
+
+    ``q``: (B, Hq, hd) contiguous; ``k``, ``v``: (B, C, Hkv, hd) of q's
+    dtype (float32, bfloat16 or float16), any strides with the head
+    dimension contiguous (a layer's slice of a stacked cache is taken as
+    it lies); ``valid``: (C,) bool, which cache slots hold a key the token
+    may see. Returns (B, Hq, hd) in q's dtype. Masked keys score −1e30, as
+    in the reference, so a row with no valid key averages all C values.
+    """
+    _check(q, k, v, valid, "decode_attention")
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, valid, attn_softcap=attn_softcap)
+    out = torch.empty_like(q)
+    if _launch(q, k, v, valid, out, None, attn_softcap, "decode_attention"):
+        decode_attention.launches += 1
     return out
 
 
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             valid: torch.Tensor, *, attn_softcap: float = 0.0
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rank form: one query token per sequence against one rank's slice
+    of the cache's sequence, ``k``, ``v`` (B, C_r, Hkv, hd) and ``valid``
+    (C_r,) laid out as for :func:`decode_attention`. Returns the float32
+    output (B, Hq, hd) over the slice's keys and each row's log-sum-exp
+    (B, Hq) float32, for :func:`merge_partials`. Masked keys score −1e30,
+    so a slice with no valid key averages its values with lse
+    −1e30 + log C_r."""
+    _check(q, k, v, valid, "decode_attention_partial")
+    if q.device.type == "cpu":
+        return decode_attention_partial_plain(q, k, v, valid, attn_softcap=attn_softcap)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    if _launch(q, k, v, valid, out, lse, attn_softcap, "decode_attention_partial"):
+        decode_attention_partial.launches += 1
+    return out, lse
+
+
+decode_attention_partial.launches = 0
 decode_attention.launches = 0
 
 _args: dict[tuple, tuple] = {}

@@ -14,8 +14,19 @@ nothing allocated. Its ``fn``, like pjit with ``in_shardings``, places
 plain tensors (every rank holding the same global value, e.g.
 ``init_dsgd_state(...)``'s output) by those specs at entry and takes
 DTensors on the mesh as they are; it returns the state as DTensors on the
-mesh. Serving shapes (prefill, decode) are ROADMAP.md Queue 1 item 7c′ and
-raise.
+mesh.
+
+``build_step`` for a serving shape (the dense family; the others are
+ROADMAP.md Queue 1 item 7c″ and raise) follows the reference's
+``_build_prefill`` and ``_build_decode``: parameters by the inference plan
+(``plan_for(mode="prefill"|"decode")``: Megatron over "model", the batch
+over "data"), the KV caches by ``cache_specs`` (the sequence over "model",
+over "data" and "model" where the batch is not sharded), the long-context
+cache the sliding window. Its ``fn`` places plain inputs by their specs at
+entry, runs inside :func:`~repro_torch.dsgd.tensor_parallel.tp_region`, and
+returns the caches as DTensors by ``cache_specs``, so the next decode takes
+them as they are. The decode state's ``pos`` is a host int (its abstract
+arg the reference's 0-dim int32) and ``rng`` unused (greedy).
 
 Topology: BA-Topo by default, solved by the port's own ``solve_topology``
 on the given device, with the classic baselines selectable. Solved BA
@@ -44,11 +55,12 @@ from ..core.graph import Topology
 from ..core.topologies import make_baseline
 from ..dsgd import (DSGDState, init_dsgd_state, make_matmul_gossip_train_step,
                     make_sharded_train_step, make_tp_train_step, schedule_from_topology)
-from ..dsgd.tensor_parallel import is_dtensor, place_tree, rewrap, sub_mesh
+from ..dsgd.tensor_parallel import is_dtensor, place, place_tree, rewrap, sub_mesh, tp_region
 from ..dsgd.trainer import _gossip_axis
 from ..models import transformer
 from ..optim import sgd_momentum
-from .sharding import (DistPlan, axis_sizes, batch_specs, placements, plan_for,
+from ..serve import DecodeState, ServeConfig, make_functional_serve_step
+from .sharding import (DistPlan, axis_sizes, batch_specs, cache_specs, placements, plan_for,
                        spec_leaves, tree_param_specs, with_sharding)
 
 __all__ = ["BuiltStep", "build_step", "input_specs", "topology_for", "TOPO_CACHE"]
@@ -195,13 +207,14 @@ def build_step(arch: str, shape_name: str, mesh, *, sync: str = "gossip",
     if not shape_supported(arch, shape_name):
         raise ValueError(f"{arch} × {shape_name} not in the supported matrix "
                          "(long_500k needs sub-quadratic attention)")
-    if shape.kind != "train":
-        raise NotImplementedError(
-            f"build_step for a {shape.kind} shape ({shape_name}) serves over DTensor parameters "
-            "and sharded caches, which is not ported yet (ROADMAP.md, Queue 1, item 7c′)")
-    return _build_train(cfg, shape, mesh, sync=sync, topo_kind=topo_kind, topo_r=topo_r,
-                        accum_steps=accum_steps, expert_parallel=expert_parallel,
-                        hbm_bytes=hbm_bytes)
+    if shape.kind == "train":
+        return _build_train(cfg, shape, mesh, sync=sync, topo_kind=topo_kind, topo_r=topo_r,
+                            accum_steps=accum_steps, expert_parallel=expert_parallel,
+                            hbm_bytes=hbm_bytes)
+    transformer.check_mesh_serving(cfg, f"build_step for a {shape.kind} shape ({shape_name})")
+    build = _build_prefill if shape.kind == "prefill" else _build_decode
+    return build(cfg, shape, mesh, tp_only=tp_only, expert_parallel=expert_parallel,
+                 hbm_bytes=hbm_bytes)
 
 
 def _abstract_state(cfg, n: int | None, opt_init) -> DSGDState:
@@ -210,7 +223,7 @@ def _abstract_state(cfg, n: int | None, opt_init) -> DSGDState:
     with torch.device("meta"):
         if n is not None:
             return init_dsgd_state(0, cfg, n, opt_init, device="meta")
-        params = transformer.init_params(0, cfg)
+        params = _abstract_params(cfg)
         return DSGDState(params, opt_init(params), torch.zeros((), dtype=torch.int32))
 
 
@@ -332,3 +345,119 @@ def _rank_fn(step, mesh, plan, state_specs, batch_specs_):
                          tree_from_rank(out.opt, state_specs.opt), out.step), metrics
 
     return fn
+
+
+def _abstract_params(cfg) -> dict:
+    """The parameters' meta tensors (nothing allocated)."""
+    with torch.device("meta"):
+        return transformer.init_params(0, cfg)
+
+
+def _zero_caches(cfg, plan: DistPlan, mesh, B: int, C: int, device) -> transformer.Caches:
+    """Zero caches of ``C`` slots for ``B`` requests as DTensors laid out by
+    ``cache_specs``, each rank allocating its slice only."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    with torch.device("meta"):
+        meta = transformer.init_caches(cfg, B, C)
+    leaves, tdef = tree_flatten(meta)
+    out = []
+    for x, spec in zip(leaves, spec_leaves(cache_specs(cfg, plan, mesh, meta, B), meta)):
+        where = placements(spec, mesh)
+        local, _ = compute_local_shape_and_global_offset(x.shape, mesh, where)
+        out.append(DTensor.from_local(torch.zeros(local, dtype=x.dtype, device=device), mesh,
+                                      where, run_check=False))
+    return tree_unflatten(out, tdef)
+
+
+def _placed_caches(caches, mesh, specs):
+    """``caches`` placed by ``specs`` (:func:`place_tree`); a DTensor laid
+    out otherwise raises, where :func:`place` would take it as it is."""
+    for x, spec in zip(tree_flatten(caches)[0], spec_leaves(specs, caches)):
+        if is_dtensor(x) and list(x.placements) != placements(spec, mesh):
+            raise ValueError(f"a cache laid out as {tuple(x.placements)}, not by cache_specs "
+                             f"({spec})")
+    return place_tree(caches, mesh, specs)
+
+
+def _build_prefill(cfg, shape, mesh, *, tp_only: bool | None = None,
+                   expert_parallel: bool = False, hbm_bytes: float | None = None) -> BuiltStep:
+    """The reference's ``_build_prefill``: ``fn(params, batch)`` →
+    (the last position's logits (B, 1, V) float32, caches) with a cache of
+    ``cache_cap`` slots (the shape's sequence length unless given: a
+    caller that serves shorter prompts may cut it)."""
+    plan = plan_for(cfg, mesh, mode="prefill", tp_only=tp_only,
+                    expert_parallel=expert_parallel, hbm_bytes=hbm_bytes)
+    B, S = shape.global_batch, shape.seq_len
+    params_sh = _abstract_params(cfg)
+    pspecs = tree_param_specs(params_sh, plan, mesh)
+    params = with_sharding(mesh, params_sh, pspecs)
+    bshapes = _batch_shapes(cfg, B, S)
+    bshapes.pop("labels")
+    bsp = batch_specs(cfg, plan, mesh, bshapes)
+    batch_abs = with_sharding(mesh, _batch_structs(bshapes), bsp)
+
+    def fn(params, batch, *, cache_cap: int = S):
+        with tp_region(mesh):
+            batch = place_tree(batch, mesh, bsp)
+            tokens = batch["tokens"]
+            caches = _zero_caches(cfg, plan, mesh, tokens.shape[0], cache_cap,
+                                  tokens.to_local().device)
+            return transformer.prefill(place_tree(params, mesh, pspecs), cfg, batch,
+                                       cache_cap=cache_cap, caches=caches)
+
+    rules = _sharding_rules(plan, mesh, "prefill")
+    return BuiltStep(fn=fn, args=(params, batch_abs), plan=plan, mode="prefill",
+                     meta={"batch": B, "seq": S, "rules": rules})
+
+
+def _build_decode(cfg, shape, mesh, *, tp_only: bool | None = None,
+                  expert_parallel: bool = False, hbm_bytes: float | None = None) -> BuiltStep:
+    """The reference's ``_build_decode``: ``fn(params, state)`` → the next
+    :class:`~repro_torch.serve.DecodeState` (greedy, ``eos_id`` −1), the
+    long-context cache the sliding window (a ring). The caches may hold
+    fewer slots than the shape's sequence: the step reads C from them."""
+    plan = plan_for(cfg, mesh, mode="decode", tp_only=tp_only,
+                    expert_parallel=expert_parallel, hbm_bytes=hbm_bytes)
+    B, S = shape.global_batch, shape.seq_len
+    long_ctx = shape.name == "long_500k"
+    if long_ctx and cfg.sliding_window:
+        cache_cap = cfg.sliding_window          # the ring buffer is the window
+    else:
+        cache_cap = S
+    scfg = ServeConfig(batch_size=B, cache_len=cache_cap, long_context=long_ctx)
+    step = make_functional_serve_step(cfg, scfg, eos_id=-1)
+    params_sh = _abstract_params(cfg)
+    pspecs = tree_param_specs(params_sh, plan, mesh)
+    params = with_sharding(mesh, params_sh, pspecs)
+    with torch.device("meta"):
+        caches_sh = transformer.init_caches(cfg, B, cache_cap)
+    cspecs = cache_specs(cfg, plan, mesh, caches_sh, B)
+    caches = with_sharding(mesh, caches_sh, cspecs)
+    sizes = axis_sizes(mesh)
+    btotal = math.prod(sizes[a] for a in plan.batch_axes)
+    baxis = (plan.batch_axes if len(plan.batch_axes) > 1 else plan.batch_axes[0]) \
+        if (plan.batch_axes and B % btotal == 0 and B >= btotal) else None
+    tok_spec, done_spec = (baxis, None), (baxis,)
+
+    def abstract(shape: tuple, dtype, spec: tuple):
+        return with_sharding(mesh, torch.empty(shape, dtype=dtype, device="meta"), spec)
+
+    state = DecodeState(tokens=abstract((B, 1), torch.int32, tok_spec), caches=caches,
+                        pos=abstract((), torch.int32, ()),
+                        rng=abstract((2,), torch.uint32, (None,)),
+                        done=abstract((B,), torch.bool, done_spec))
+
+    def fn(params, state: DecodeState) -> DecodeState:
+        with tp_region(mesh):
+            cspecs_now = cache_specs(cfg, plan, mesh, state.caches, state.tokens.shape[0])
+            placed = DecodeState(place(state.tokens, mesh, tok_spec),
+                                 _placed_caches(state.caches, mesh, cspecs_now), int(state.pos),
+                                 state.rng, place(state.done, mesh, done_spec))
+            return step(place_tree(params, mesh, pspecs), placed)
+
+    rules = _sharding_rules(plan, mesh, "decode")
+    return BuiltStep(fn=fn, args=(params, state), plan=plan, mode="decode",
+                     meta={"batch": B, "kv_len": S, "cache_cap": cache_cap,
+                           "long_context": long_ctx, "rules": rules})

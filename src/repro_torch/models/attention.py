@@ -14,6 +14,17 @@ reference. ``attend_full`` takes the score product in the input dtype and
 only then casts to float32, which is where the reference rounds. The
 reference returns a new cache and donates the old one; here the cache is
 written in place and returned.
+
+On DTensor weights (the tensor-parallel steps and serving over a mesh) the
+heads are Megatron's: each rank attends over its local heads. A serving
+cache is laid out by ``launch/sharding.py``'s ``cache_specs``: the batch
+over the batch dims, the sequence (not the heads) over "model" (or over
+"data" and "model" where the batch is not sharded). The prefill writes it
+by one all-to-all from heads sharded to sequence sharded; a decode step
+gathers the token's q, k and v heads, writes k and v on the rank that owns
+the slot, attends over the rank's slice of the sequence with the rank form
+of ``decode_attention`` and merges the slices (``merge_partials``): the
+cache is never gathered.
 """
 from __future__ import annotations
 
@@ -23,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..kernels.decode_attention import ops as _dec_ops
 from .common import apply_rope, dense_init, softcap, tp_matmul
@@ -152,15 +163,13 @@ def attn_forward(params, x, cfg, *, window: int = 0, positions=None,
     With a cache of capacity C ≥ S, k and v go to slots [0, S) (the
     reference's ``dynamic_update_slice`` at 0); with C < S the cache keeps
     the last C positions at slot = position mod C (the reference's
-    ``roll(k[:, S−C:], S mod C)``). The cache is written in place."""
+    ``roll(k[:, S−C:], S mod C)``). The cache is written in place; on
+    DTensor weights it is a DTensor laid out by ``cache_specs``."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     if isinstance(params["wq"], DTensor):
-        if cache is not None:
-            raise NotImplementedError("a KV cache over DTensor weights is serving over a mesh "
-                                      "(ROADMAP.md, Queue 1, item 7c′)")
-        return _attn_forward_tp(params, x, cfg, window, positions, chunked), None
+        return _attn_forward_tp(params, x, cfg, window, positions, chunked, cache), cache
     q, k, v = _qkv(params, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -192,16 +201,19 @@ def _head_placements(t: DTensor, heads: int) -> list:
             for i, p in enumerate(t.placements)]
 
 
-def _attn_forward_tp(params, x, cfg, window: int, positions, chunked: bool):
+def _attn_forward_tp(params, x, cfg, window: int, positions, chunked: bool,
+                     cache: KVCache | None = None):
     """The full-sequence forward on DTensor weights (the tensor-parallel
-    train steps), Megatron's head-parallel attention: q, k, v are the
-    column-parallel products (partial sums reduced), each rank attends over
-    its local heads (and batch rows) as plain tensors, with the same code
-    as one device, and ``wo`` takes the heads back row-parallel. Heads stay
+    train steps and the prefill over a mesh), Megatron's head-parallel
+    attention: q, k, v are the column-parallel products (partial sums
+    reduced), each rank attends over its local heads (and batch rows) as
+    plain tensors, with the same code as one device, and ``wo`` takes the
+    heads back row-parallel. Heads stay
     sharded over a mesh dim only where it divides the kv heads (so the
     query groups stay with their kv head); elsewhere q, k and v are
     gathered (an explicit redistribution) and every rank of that dim
-    attends over all heads."""
+    attends over all heads. A ``cache`` (DTensors laid out by
+    ``cache_specs``) takes k and v by :func:`_fill_sharded_cache`."""
     hd = cfg.resolved_head_dim
     q, k, v = (tp_matmul(x, params[w]) for w in ("wq", "wk", "wv"))
     if "bq" in params:
@@ -219,8 +231,66 @@ def _attn_forward_tp(params, x, cfg, window: int, positions, chunked: bool):
         out = attend_chunked(ql, kl, vl, window, cfg.attn_logit_softcap)
     else:
         out = attend_full(ql, kl, vl, _causal_mask(S, window, ql.device), cfg.attn_logit_softcap)
+    if cache is not None:
+        _fill_sharded_cache(cache, kl, vl, want)
     out = DTensor.from_local(out.reshape(Bl, S, -1), q.device_mesh, want, run_check=False)
     return tp_matmul(out, params["wo"])
+
+
+def _fill_sharded_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor, heads: list) -> None:
+    """The prefill's k and v, a rank's (B_r, S, H_r, hd) with rope applied
+    and laid out by ``heads`` (the (B, S, H·hd) projections' placements),
+    into ``cache``'s DTensors (B, C, Hkv, hd) laid out by ``cache_specs``:
+    first in cache order on the rank's heads (slots [0, S) when C ≥ S, else
+    the last C positions at slot = position mod C, as on one device), then
+    k and v stacked through :func:`_heads_to_sequence`, written into the
+    rank's slice in place."""
+    C = cache.k.shape[1]
+    S = k.shape[1]
+    kv = torch.stack([k, v]).to(cache.k.dtype)               # (2, B_r, S, H_r, hd)
+    if C >= S:
+        ordered = kv.new_zeros(kv.shape[:2] + (C,) + kv.shape[3:])
+        ordered[:, :, :S] = kv
+    else:
+        ordered = torch.roll(kv[:, :, S - C:], S % C, dims=2)
+    mine = _heads_to_sequence(ordered, heads, cache.k.placements, cache.k.device_mesh)
+    cache.k.to_local().copy_(mine[0])
+    cache.v.to_local().copy_(mine[1])
+
+
+def _heads_to_sequence(kv: torch.Tensor, heads: list, seq: list, mesh) -> torch.Tensor:
+    """A rank's (2, B_r, C, H_r, hd) k and v in cache order, the heads laid
+    out by ``heads`` (placements of a (B, ·, H, ·) tensor), as its slice of
+    the cache laid out by ``seq`` (placements of the (B, C, Hkv, hd)
+    cache): over each mesh dim in mesh order, where the heads are sharded
+    and the sequence is to be, one all-to-all of the rank's sequence chunks
+    (each rank keeps its chunk of every rank's heads); where the heads are
+    replicated and the sequence is to be sharded, the rank's chunk, taken
+    locally; where the heads are sharded and the sequence cannot be, an
+    all-gather of the heads. A dim that shards the batch in both is left
+    alone. Sequence chunks nest in mesh order, as ``cache_specs``' split of
+    the sequence over ("data", "model") does."""
+    import torch.distributed as dist
+
+    for i, (h, c) in enumerate(zip(heads, seq)):
+        n = mesh.size(i)
+        by_heads, by_seq = h.is_shard(2), c.is_shard(1)
+        if n == 1 or not (by_heads or by_seq):
+            continue
+        if not by_heads:
+            kv = kv.chunk(n, dim=2)[mesh.get_local_rank(i)]
+            continue
+        group = mesh.get_group(i)
+        if by_seq:
+            parts = torch.stack(kv.chunk(n, dim=2))        # (n, 2, B_r, C/n, H_r, hd)
+            got = torch.empty_like(parts)
+            dist.all_to_all_single(got, parts, group=group)
+        else:
+            got = kv.new_empty((n * kv.shape[0],) + tuple(kv.shape[1:]))
+            dist.all_gather_into_tensor(got, kv.contiguous(), group=group)
+            got = got.view((n,) + tuple(kv.shape))
+        kv = torch.cat(got.unbind(0), dim=3)
+    return kv
 
 
 def _like_last_dim(b: DTensor, t: DTensor) -> DTensor:
@@ -260,7 +330,12 @@ def attn_decode(params, x, cfg, cache: KVCache, pos: int, *, window: int = 0,
     attention runs through the ``decode_attention`` kernel unless
     ``use_kernel`` is False, which takes the reference's ``attend_full``
     route. ``valid`` may carry :func:`decode_valid`'s mask, computed once
-    per step for every layer of one window. Returns (out (B, 1, D), cache)."""
+    per step for every layer of one window. Returns (out (B, 1, D), cache).
+
+    On DTensor weights the cache is a DTensor laid out by ``cache_specs``
+    (:func:`_attn_decode_tp`)."""
+    if isinstance(params["wq"], DTensor):
+        return _attn_decode_tp(params, x, cfg, cache, pos, window, ring, use_kernel, valid), cache
     B = x.shape[0]
     hd = cfg.resolved_head_dim
     q, k, v = _qkv(params, x, cfg)
@@ -280,3 +355,79 @@ def attn_decode(params, x, cfg, cache: KVCache, pos: int, *, window: int = 0,
         out = attend_full(q, cache.k, cache.v, valid[None, None, None, :],
                           cfg.attn_logit_softcap)
     return out.reshape(B, 1, cfg.num_heads * hd) @ params["wo"], cache
+
+
+def _gather_heads(ts: list) -> list:
+    """The local tensors of the column-parallel (B, 1, ·) DTensors ``ts``
+    with every dim but the batch whole: over each mesh dim that shards
+    their last dim, innermost first, one all-gather of the rank's shards
+    packed side by side. The shards are even (``launch/sharding.py``
+    shards a dim only where the mesh dim divides it)."""
+    import torch.distributed as dist
+
+    mesh = ts[0].device_mesh
+    last = ts[0].ndim - 1
+    local = [t.to_local() for t in ts]
+    for i in reversed(range(mesh.ndim)):
+        which = [j for j, t in enumerate(ts) if t.placements[i].is_shard(last)]
+        if not which:
+            continue
+        packed = torch.cat([local[j] for j in which], dim=-1).contiguous()
+        got = packed.new_empty((mesh.size(i) * packed.shape[0],) + tuple(packed.shape[1:]))
+        dist.all_gather_into_tensor(got, packed, group=mesh.get_group(i))
+        got = got.view((mesh.size(i),) + tuple(packed.shape))
+        for j, part in zip(which, got.split([local[j].shape[-1] for j in which], dim=-1)):
+            local[j] = torch.cat(part.unbind(0), dim=-1)
+    return local
+
+
+def _attn_decode_tp(params, x, cfg, cache: KVCache, pos: int, window: int, ring: bool,
+                    use_kernel: bool, valid):
+    """The one-token decode on DTensor weights over a cache laid out by
+    ``cache_specs`` (the sequence sharded, every kv head on each rank).
+    q, k and v are the column-parallel products, their heads gathered over
+    every mesh dim that does not shard the batch (B·H·hd values: small; one
+    all-gather of the three packed, :func:`_gather_heads`);
+    the rank that owns the slot writes the token's k and v into its slice
+    (linear or ring, as on one device); the mask is computed for the whole
+    cache and cut to the rank's slice; the rank form of ``decode_attention``
+    attends over the slice and :func:`merge_partials` combines the slices
+    over the mesh dims that shard the sequence, in float32, cast once; the
+    rank's heads then go to ``wo`` row-parallel. ``use_kernel`` False takes
+    the rank form's plain version."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    hd = cfg.resolved_head_dim
+    q, k, v = (tp_matmul(x, params[w]) for w in ("wq", "wk", "wv"))
+    if "bq" in params:
+        q, k, v = (t + _like_last_dim(params[b], t) for t, b in zip((q, k, v), ("bq", "bk", "bv")))
+    mesh = q.device_mesh
+    whole = [p if p.is_shard(0) else Replicate() for p in q.placements]
+    q, k, v = _gather_heads([q, k, v])
+    Bl = q.shape[0]
+    positions = torch.full((Bl, 1), pos, dtype=torch.int64, device=q.device)
+    q = apply_rope(q.reshape(Bl, 1, cfg.num_heads, hd), positions, cfg.rope_theta)
+    k = apply_rope(k.reshape(Bl, 1, cfg.num_kv_heads, hd), positions, cfg.rope_theta)
+    v = v.reshape(Bl, 1, cfg.num_kv_heads, hd)
+    C = cache.k.shape[1]
+    kc, vc = cache.k.to_local(), cache.v.to_local()
+    _, offset = compute_local_shape_and_global_offset(cache.k.shape, mesh, cache.k.placements)
+    lo, Cl = offset[1], kc.shape[1]
+    slot = pos % C if ring else min(pos, C - 1)
+    if lo <= slot < lo + Cl:
+        kc[:, slot - lo] = k[:, 0]
+        vc[:, slot - lo] = v[:, 0]
+    if valid is None:
+        valid = decode_valid(C, pos, window, ring=ring, device=q.device)
+    partial = (_dec_ops.decode_attention_partial if use_kernel
+               else _dec_ops.decode_attention_partial_plain)
+    out, lse = partial(q[:, 0].contiguous(), kc, vc, valid[lo:lo + Cl].contiguous(),
+                       attn_softcap=cfg.attn_logit_softcap)
+    groups = [mesh.get_group(i) for i, p in enumerate(cache.k.placements) if p.is_shard(1)]
+    if groups:
+        out = _dec_ops.merge_partials(out, lse, groups, keys=Cl)
+    out = DTensor.from_local(out.to(x.dtype).reshape(Bl, 1, -1), mesh, whole, run_check=False)
+    wo = params["wo"]
+    rows = [Shard(2) if pw.is_shard(0) and not p.is_shard() else p
+            for p, pw in zip(whole, wo.placements)]
+    return tp_matmul(out.redistribute(mesh, rows), wo)

@@ -5,7 +5,8 @@ Dispatch is scatter/gather-based (O(E·C·D) memory): each (token, choice)
 takes the next slot of its expert's queue in token order, and choices past
 the expert's capacity C are dropped (they contribute zero). The reference's
 grouped dispatch (``moe_groups``) and its expert-parallel block wait for
-sharding (ROADMAP.md, Queue 1, item 7).
+``models/{partitioning,moe_ep}.py`` (ROADMAP.md, Queue 1, item 7d), and
+serving the MoE over a mesh for item 7c″.
 
 Where the port must take care to give the reference's bits:
 - top-k keeps the lower expert index first on a tie, as ``jax.lax.top_k``

@@ -31,6 +31,12 @@ embeddings are promoted explicitly to the wider of their dtype and the
 projector's before ``@ frontend_proj``, which JAX does implicitly. The
 audio encoder's self-attention is causal, as the reference's
 ``attn_forward`` makes it.
+
+On DTensor parameters (the tensor-parallel steps of ``launch/steps.py``)
+every family trains; the dense family also prefills and decodes, its
+caches DTensors laid out by ``launch/sharding.py``'s ``cache_specs``, which
+the caller allocates (``launch/steps.py``'s prefill); serving the other
+families over a mesh is ROADMAP.md Queue 1 item 7c″ and raises.
 """
 from __future__ import annotations
 
@@ -174,18 +180,26 @@ def _layers(stacked: dict) -> list[dict]:
     return [tree_unflatten([p[i] for p in per_layer], spec) for i in range(len(per_layer[0]))]
 
 
+def _replicated(t: DTensor) -> DTensor:
+    """``t`` replicated over its whole mesh (an explicit all-gather)."""
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
 def _kv_stack(n: int, B: int, C: int, cfg, dtype, device) -> KVCache:
     shape = (n, B, C, cfg.num_kv_heads, cfg.resolved_head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _stack_dense(params, x, cfg, windows, positions, *, with_cache: bool, cache_cap: int = 0):
+def _stack_dense(params, x, cfg, windows, positions, *, with_cache: bool, cache_cap: int = 0,
+                 kv: KVCache | None = None):
     """The attention layers over x, and the sum of their MoE aux values;
     with a cache, each layer writes its k, v into its slice of one stacked
-    (L, B, C, Hkv, hd) cache."""
-    kv = _kv_stack(cfg.num_layers, x.shape[0], cache_cap, cfg, x.dtype, x.device) \
-        if with_cache else ()
+    (L, B, C, Hkv, hd) cache: ``kv`` where given, else new zeros."""
+    if not with_cache:
+        kv = ()
+    elif kv is None:
+        kv = _kv_stack(cfg.num_layers, x.shape[0], cache_cap, cfg, x.dtype, x.device)
     aux = 0.0
     for i, (lp, w) in enumerate(zip(_layers(params["layers"]), windows)):
         cache = KVCache(kv.k[i], kv.v[i]) if with_cache else None
@@ -331,9 +345,10 @@ def _logits(params, x, cfg):
 
 
 def _forward_seq(params, cfg, batch, *, with_cache: bool = False, cache_cap: int = 0,
-                 long_context: bool = False):
+                 long_context: bool = False, kv: KVCache | None = None):
     """Shared full-sequence path. ``batch``: ``tokens`` (B, S) and, for vlm
-    and audio, ``embeds`` (B, T, D). Returns (hidden states (B, S_total, D)
+    and audio, ``embeds`` (B, T, D); ``kv``: the dense family's caches to
+    write into (see :func:`prefill`). Returns (hidden states (B, S_total, D)
     after the final norm, the MoE aux sum, caches, n_prefix: the vlm patch
     positions in front of the text)."""
     x = _embed(params, batch["tokens"], cfg)
@@ -359,7 +374,7 @@ def _forward_seq(params, cfg, batch, *, with_cache: bool = False, cache_cap: int
         caches = Caches(ssm=ssm, shared_kv=shared)
     else:
         x, aux, kv = _stack_dense(params, x, cfg, windows, positions, with_cache=with_cache,
-                                  cache_cap=cache_cap)
+                                  cache_cap=cache_cap, kv=kv)
         caches = Caches(kv=kv)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux, caches, n_prefix
 
@@ -421,21 +436,41 @@ def train_loss(params, cfg, batch, *, aux_weight: float = 0.01,
     return loss
 
 
-def prefill(params, cfg, batch, *, cache_cap: int | None = None, long_context: bool = False):
+def prefill(params, cfg, batch, *, cache_cap: int | None = None, long_context: bool = False,
+            caches: Caches | None = None):
     """Prefill: the full forward writing KV/SSM caches. Returns (logits of
     the last position (B, 1, V) float32, caches). ``cache_cap`` defaults to
     the prompt length (for vlm with the patch prefix, which takes cache
     slots too), or to the sliding window in the long-context variant (a
-    ring cache)."""
+    ring cache). ``caches`` (the dense family): zero KV caches of
+    ``cache_cap`` slots to write into, new ones if None. On DTensor
+    parameters they must be given, as DTensors laid out by
+    ``launch/sharding.py``'s ``cache_specs`` (``launch/steps.py``'s prefill
+    does so)."""
     S = batch["tokens"].shape[1]
     if cfg.arch_type == "vlm":
         S = S + cfg.frontend_tokens
     if cache_cap is None:
         w = int(cfg.sliding_window) if cfg.sliding_window else 0
         cache_cap = min(S, w) if (w and long_context) else S
+    if isinstance(params["embed"], DTensor):
+        check_mesh_serving(cfg, "prefill")
+        if caches is None:
+            raise ValueError("a prefill on DTensor parameters writes into caches laid out by "
+                             "cache_specs: pass them as caches=")
     x, _, caches, _ = _forward_seq(params, cfg, batch, with_cache=True, cache_cap=cache_cap,
-                                   long_context=long_context)
+                                   long_context=long_context,
+                                   kv=None if caches is None else caches.kv)
     return _logits(params, x[:, -1:], cfg), caches
+
+
+def check_mesh_serving(cfg, what: str) -> None:
+    """Serving on DTensor parameters is ported for the dense family only:
+    ``what`` of another family raises."""
+    if cfg.arch_type != "dense":
+        raise NotImplementedError(
+            f"{what} of the {cfg.arch_type} family on DTensor parameters (serving over a mesh "
+            "beyond the dense family) is not ported yet (ROADMAP.md, Queue 1, item 7c″)")
 
 
 def init_caches(cfg, batch_size: int, cache_cap: int, dtype=None, device=None) -> Caches:
@@ -476,7 +511,16 @@ def decode_step(params, cfg, token, caches: Caches, pos: int, *, long_context: b
     audio cross keys only read. ``use_kernel`` (default on, the
     reference's off) sends every self-attention through the
     ``decode_attention`` kernel; audio's cross attention takes
-    ``attend_full``, as in the reference."""
+    ``attend_full``, as in the reference. On DTensor parameters (the dense
+    family) the caches are DTensors laid out by ``cache_specs``, written in
+    place on the rank that owns the slot, and each self-attention runs the
+    kernel's rank form on the rank's slice of the sequence."""
+    layers = params["layers"]
+    if isinstance(params["embed"], DTensor):
+        check_mesh_serving(cfg, "decode")
+        # every layer's norm scales in one all-gather a leaf, where rms_norm
+        # would gather one layer's at a time
+        layers = dict(layers, **{k: _replicated(layers[k]) for k in ("ln1", "ln2")})
     x = _embed(params, token, cfg)
     B = x.shape[0]
     windows = layer_windows(cfg, long_context=long_context)
@@ -510,7 +554,7 @@ def decode_step(params, cfg, token, caches: Caches, pos: int, *, long_context: b
         C = caches.kv.k.shape[2]
         valid = {w: decode_valid(C, pos, w, ring=long_context, device=x.device)
                  for w in set(windows)}
-        for i, (lp, w) in enumerate(zip(_layers(params["layers"]), windows)):
+        for i, (lp, w) in enumerate(zip(_layers(layers), windows)):
             a, _ = attn_decode(lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
                                KVCache(caches.kv.k[i], caches.kv.v[i]), pos, window=w,
                                ring=long_context, use_kernel=use_kernel, valid=valid[w])

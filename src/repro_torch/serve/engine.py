@@ -15,6 +15,14 @@ Deviations from the reference, by design:
   cache in place, which is what the reference's donation achieves.
 - ``extra_inputs`` (the vlm patch and audio frame embeddings) are moved
   onto the engine's device, and that copy counts in the prefill time.
+- ``DecodeState.pos`` is a host int, not a device scalar.
+
+Over a mesh (DTensor parameters, ``launch/steps.py``'s decode step) the
+logits are sharded over the vocabulary and the batch over "data":
+:func:`greedy_sample` takes each rank's local max and its lowest index and
+reduces them over the vocab shards, the lowest global index winning a tie
+as ``jnp.argmax`` does; the tokens come back as a DTensor with the batch's
+sharding.
 """
 from __future__ import annotations
 
@@ -53,13 +61,52 @@ class DecodeState(NamedTuple):
 def greedy_sample(logits: torch.Tensor, rng: torch.Generator | None,
                   temperature: float) -> torch.Tensor:
     """logits (B, 1, V) → (B, 1) int32: the argmax, or with temperature the
-    argmax of logits/temperature plus Gumbel noise drawn from ``rng``."""
+    argmax of logits/temperature plus Gumbel noise drawn from ``rng``. Of
+    DTensor logits (greedy only): :func:`_sharded_argmax`."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(logits, DTensor):
+        if temperature > 0.0:
+            raise NotImplementedError(
+                "sampling with temperature over vocab-sharded logits is not ported yet "
+                "(ROADMAP.md, Queue 1, item 7c″); serve greedily (temperature 0)")
+        return _sharded_argmax(logits)
     last = logits[:, -1]
     if temperature <= 0.0:
         return torch.argmax(last, dim=-1)[:, None].to(torch.int32)
     u = torch.rand(last.shape, generator=rng, dtype=torch.float32, device=last.device)
     g = -torch.log(-torch.log(u + 1e-9) + 1e-9)
     return torch.argmax(last / temperature + g, dim=-1)[:, None].to(torch.int32)
+
+
+def _sharded_argmax(logits) -> torch.Tensor:
+    """The last position's argmax of DTensor logits (B, S, V), with the
+    lowest index among equal maxima: each rank takes the max of its vocab
+    shard and the first index of it (``torch.argmax``), then over each mesh
+    dim that shards the vocabulary an all-reduce of the max and one of the
+    least global index holding it. Returns (B, 1) int32 as a DTensor laid
+    out as the logits' batch."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = logits.device_mesh
+    last = logits.to_local()[:, -1]
+    idx = torch.argmax(last, dim=-1)
+    best = last.gather(-1, idx[:, None])[:, 0]
+    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh, logits.placements)
+    idx = idx + offset[-1]
+    for i, p in enumerate(logits.placements):
+        if not p.is_shard(logits.ndim - 1):
+            continue
+        group = mesh.get_group(i)
+        top = best.clone()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        idx = torch.where(best == top, idx, torch.iinfo(idx.dtype).max)
+        dist.all_reduce(idx, op=dist.ReduceOp.MIN, group=group)
+        best = top
+    rows = [p if p.is_shard(0) else Replicate() for p in logits.placements]
+    return DTensor.from_local(idx[:, None].to(torch.int32), mesh, rows, run_check=False)
 
 
 def _advance(cfg, scfg: ServeConfig, params, state: DecodeState, eos_id: int) -> DecodeState:

@@ -25,6 +25,9 @@ raising and an index out of range trapping; three DSGD steps of reduced smollm,
 card vs CPU, within 1e-4 relative in the losses; ``decode_attention``
 within the float32 bound of ``decode_attention_bound`` plus one output ulp,
 one launch a call, at one split and many, at a cache shorter than a tile,
+its rank form (float32 output and log-sum-exp of a slice, at hd 64 and 256,
+bf16 and fp32, a slice with no valid key bitwise −1e30) within the same
+bound and two slices merged within twice it of the whole cache,
 through each way of bringing a tile in, and after two calls in a row and a
 CUDA-graph replay (the fused merge leaves its tickets at zero);
 ``ssd_intra_chunk`` within the float32 bounds of ``ssd_intra_chunk_bound``
@@ -859,6 +862,70 @@ def test_decode_attention_plans_on_card(cuda, B, C, Hq, Hkv, hd, dtype):
     tol = tdec.decode_attention_bound(q, k, v, valid)
     tol = tol + _ulp(torch.maximum(got.abs(), want.abs()), dtype)
     assert bool(((got - want).abs() <= tol).all())
+
+
+def _lse_tol(q, k, valid, cap, lse):
+    """A float32 bound on the rank form's log-sum-exp: the score dot of hd
+    terms errs by hd·2⁻²⁴·A (A the row's largest Σ|q_i·k_ti|/√hd), which
+    moves the lse by as much (twice, through the max); the sum over C keys,
+    the log and the log2 scaling add (C + 8) units of 2⁻²⁴ and four of the
+    lse's magnitude."""
+    B, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, hd).float()
+    a = torch.einsum("bhgd,bchd->bhgc", qg.abs(), k.float().abs()).amax(dim=-1) / hd ** 0.5
+    return ((2 * hd * a + k.shape[1] + 8) * 2.0 ** -24).reshape(B, Hq) + 4 * 2.0 ** -24 * lse.abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,Hq,Hkv,hd,dtype,cap,mask", [
+    (8, 1024, 16, 16, 64, torch.bfloat16, 0.0, "linear"),      # main_tp_serve's lower slice
+    (8, 1024, 16, 16, 64, torch.bfloat16, 0.0, "none"),        # its upper slice, still empty
+    (4, 2048, 16, 8, 256, torch.bfloat16, 50.0, "window"),     # gemma2-9b's hd, many splits
+    (4, 2048, 16, 8, 256, torch.float32, 50.0, "none"),
+    (2, 40, 4, 1, 64, torch.float32, 0.0, "none"),             # one split
+    (2, 40, 4, 2, 256, torch.bfloat16, 50.0, "linear"),
+    (2, 300, 12, 2, 64, torch.float32, 0.0, "window"),         # group 6, two head chunks
+])
+def test_decode_attention_rank_form_on_card(cuda, B, C, Hq, Hkv, hd, dtype, cap, mask):
+    """The rank form (float32 output and each row's log-sum-exp over a
+    slice of the cache's sequence) within the float32 bound of
+    ``decode_attention_bound`` and ``_lse_tol`` of its plain version, one
+    launch of its own counter; a slice with no valid key averages its
+    values with lse −1e30 bitwise; two slices merged within the bound of the
+    whole cache's plain version."""
+    from repro_torch.kernels.decode_attention import ops as tdec
+    from repro_torch.models.attention import decode_valid
+
+    gen = torch.Generator(device="cuda").manual_seed(C + hd)
+    valid = {"linear": decode_valid(C, C // 3, device=cuda),
+             "window": decode_valid(C, C - 24, C // 2, device=cuda),
+             "none": torch.zeros(C, dtype=torch.bool, device=cuda)}[mask]
+    q = torch.randn((B, Hq, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, C, Hkv, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, C, Hkv, hd), generator=gen, device=cuda).to(dtype)
+    before = (tdec.decode_attention_partial.launches, tdec.decode_attention.launches)
+    out, lse = tdec.decode_attention_partial(q, k, v, valid, attn_softcap=cap)
+    want, want_lse = tdec.decode_attention_partial_plain(q, k, v, valid, attn_softcap=cap)
+    torch.cuda.synchronize()
+    assert (tdec.decode_attention_partial.launches, tdec.decode_attention.launches) == \
+        (before[0] + 1, before[1])
+    assert out.dtype == torch.float32 and lse.shape == (B, Hq)
+    tol = tdec.decode_attention_bound(q, k, v, valid, attn_softcap=cap)
+    assert bool(((out - want).abs() <= tol).all())
+    if mask == "none":
+        assert bool((lse == -1e30).all()) and bool((want_lse == -1e30).all())
+    else:
+        assert bool(((lse - want_lse).abs() <= _lse_tol(q, k, valid, cap, want_lse)).all())
+    half = C // 2
+    parts = [tdec.decode_attention_partial(q, k[:, s], v[:, s], valid[s].contiguous(),
+                                           attn_softcap=cap)
+             for s in (slice(0, half), slice(half, C))]
+    merged = tdec.merge_partials(torch.stack([p[0] for p in parts]),
+                                 torch.stack([p[1] for p in parts]), keys=[half, C - half])
+    whole = tdec.decode_attention_plain(q.float(), k.float(), v.float(), valid,
+                                        attn_softcap=cap)
+    assert bool(((merged - whole).abs() <= 2 * tol + 2.0 ** -22 * whole.abs()).all())
 
 
 @pytest.mark.cuda

@@ -162,6 +162,8 @@ def test_cpu_path_never_counts_a_launch():
     tgm.gossip_mix(torch.rand(5), torch.rand(2, 5), torch.rand(3))
     tdec.decode_attention(torch.rand(1, 2, 64), torch.rand(1, 3, 1, 64), torch.rand(1, 3, 1, 64),
                           torch.ones(3, dtype=torch.bool))
+    tdec.decode_attention_partial(torch.rand(1, 2, 64), torch.rand(1, 3, 1, 64),
+                                  torch.rand(1, 3, 1, 64), torch.ones(3, dtype=torch.bool))
     tssd.ssd_intra_chunk(torch.rand(1, 1, 4, 2, 4), torch.rand(1, 1, 4, 2),
                          -torch.rand(1, 1, 4, 2), torch.rand(1, 1, 4, 3), torch.rand(1, 1, 4, 3))
     tel.edge_laplacian_blocks(torch.rand(6), torch.tensor(0.5), torch.rand(4, 4),
@@ -173,7 +175,8 @@ def test_cpu_path_never_counts_a_launch():
                                        "edge_quadform": 0, "edge_adjoint": 0,
                                        "edge_schur_matvec": 0, "hop_step": 0,
                                        "gossip_mix_batched": 0, "gossip_mix": 0,
-                                       "decode_attention": 0, "ssd_intra_chunk": 0}
+                                       "decode_attention": 0, "decode_attention_partial": 0,
+                                       "ssd_intra_chunk": 0}
     assert set(kernels.WRAPPERS) == set(kernels.launch_counts())
     assert set(build.SOURCES) == {"edge_laplacian", "hop_bfs", "gossip_mix",
                                   "decode_attention", "ssd_scan"}

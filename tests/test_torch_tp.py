@@ -32,8 +32,9 @@ indexing.
 - (f) ``build_step``'s ``meta`` and its args' shapes, dtypes and specs
   against the reference's on equal meshes, with the reference's budget of
   a chip (``hbm_bytes=16e9``); its ``fn`` run on the reduced config
-  (``_build_train``) against the reference's; prefill and decode raise
-  naming item 7c′.
+  (``_build_train``) against the reference's; the ssm family's prefill
+  and the moe family's decode raise naming item 7c″ (the dense family's
+  serving, item 7c′, is held by ``tests/test_torch_tp_serve.py``).
 
 Tolerances: parameters and momentum within 3e-5 (the reference's own
 sharded-vs-sim bound, ``tests/test_sharded_runtime.py``; the sharded sums
@@ -364,9 +365,9 @@ for arch, label in (("qwen1.5-0.5b", "22"), ("mixtral-8x22b", "22"), ("qwen1.5-0
     out[f"build/{arch}/{label}"] = dict(meta=built.meta, args=args_of(built),
                                         plan=asdict(built.plan))
 raises = {}
-for shape in ("prefill_32k", "decode_32k"):
+for arch, shape in (("mamba2-780m", "prefill_32k"), ("granite-moe-1b-a400m", "decode_32k")):
     try:
-        steps.build_step("qwen1.5-0.5b", shape, mesh, hbm_bytes=16e9)
+        steps.build_step(arch, shape, mesh, hbm_bytes=16e9)
         raises[shape] = None
     except NotImplementedError as e:
         raises[shape] = str(e)
@@ -671,7 +672,7 @@ def test_serving_shapes_raise_naming_7c_prime(results):
     outs, _ = results
     for o in outs:
         for shape, msg in o["raises"].items():
-            assert msg is not None and "item 7c′" in msg, (shape, msg)
+            assert msg is not None and "item 7c″" in msg, (shape, msg)
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
